@@ -1,0 +1,17 @@
+"""Formation environment, batched over M formations (see ``formation.py``)."""
+
+from marl_distributedformation_tpu_torch.env.baseline import control  # noqa: F401
+from marl_distributedformation_tpu_torch.env.formation import (  # noqa: F401
+    compute_metrics,
+    compute_obs,
+    compute_reward,
+    integrate,
+    make_vec_env,
+    reset_batch,
+    step_batch,
+)
+from marl_distributedformation_tpu_torch.env.types import (  # noqa: F401
+    EnvParams,
+    FormationState,
+    Transition,
+)

@@ -1,0 +1,174 @@
+"""Policy evaluation: full episodes on M formations, reduced on the device.
+
+Counterpart of the JAX package's ``eval.py``. The JAX package scans the
+episode inside one compiled program; here it is a Python loop over the
+``T`` steps whose per-step scalars stay on the device until the end, so the
+loop never waits for the device. A learned policy is compared with the
+scripted baseline (``env/baseline.py``) and with zero actions on the same
+initial states.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+from marl_distributedformation_tpu_torch.device import DeviceLike, resolve_device
+from marl_distributedformation_tpu_torch.env.baseline import control
+from marl_distributedformation_tpu_torch.env.formation import (
+    compute_obs,
+    reset_batch,
+    step_batch,
+)
+from marl_distributedformation_tpu_torch.env.types import EnvParams, FormationState
+from marl_distributedformation_tpu_torch.models import distributions
+
+Tensor = torch.Tensor
+
+# act_fn(agents (M,N,2), goal (M,2), obstacles (M,K,2), obs (M,N,obs_dim),
+#        generator) -> raw velocities (M,N,2). Deterministic controllers
+# ignore the generator; a stochastic policy samples its noise from it.
+ActFn = Callable[[Tensor, Tensor, Tensor, Tensor, torch.Generator], Tensor]
+
+# The action-noise stream is seeded apart from the reset stream, so that
+# the seed -> initial-state mapping does not depend on the controller.
+_ACT_SEED_OFFSET = 1 << 32
+
+
+def episode_length(params: EnvParams) -> int:
+    """Steps that cover one full episode from reset: ``max_steps + 2`` under
+    strict parity (the reference's off-by-one, Q1)."""
+    return params.max_steps + (2 if params.strict_parity else 0)
+
+
+@torch.no_grad()
+def run_episode_metrics(
+    act_fn: ActFn,
+    params: EnvParams,
+    num_formations: int,
+    seed: int = 1234,
+    device: DeviceLike = None,
+    initial_state: Optional[FormationState] = None,
+) -> Dict[str, Tensor]:
+    """Roll ``episode_length(params)`` steps and reduce them to 0-d tensors.
+
+    ``initial_state`` replaces the reset drawn from ``seed`` (tests start
+    both packages from the same states); the run is then on its device.
+    The step where done fires resets before its metrics are taken, so the
+    last in-episode metrics row is ``T - 2``; rewards are taken on the
+    pre-reset state, so every row counts toward the return.
+    """
+    if initial_state is not None:
+        dev = initial_state.agents.device
+    else:
+        dev = resolve_device(device)
+    reset_gen = torch.Generator(device=dev).manual_seed(seed)
+    act_gen = torch.Generator(device=dev).manual_seed(seed + _ACT_SEED_OFFSET)
+    state = initial_state
+    if state is None:
+        state = reset_batch(params, num_formations, reset_gen, dev)
+    obs = compute_obs(state.agents, state.goal, params)
+    T = episode_length(params)
+    rows = {
+        name: torch.zeros(T, dtype=torch.float32, device=dev)
+        for name in ("reward", "avg_dist_to_goal", "ave_dist_to_neighbor", "done")
+    }
+    for t in range(T):
+        vel = act_fn(state.agents, state.goal, state.obstacles, obs, act_gen)
+        state, tr = step_batch(state, vel, params, reset_gen)
+        rows["reward"][t] = tr.reward.mean()
+        rows["avg_dist_to_goal"][t] = tr.metrics["avg_dist_to_goal"].mean()
+        rows["ave_dist_to_neighbor"][t] = tr.metrics["ave_dist_to_neighbor"].mean()
+        rows["done"][t] = tr.done.sum()
+        obs = tr.obs
+    last = T - 2
+    return {
+        "episode_return_per_agent": rows["reward"].sum(),
+        "mean_step_reward": rows["reward"].mean(),
+        "final_avg_dist_to_goal": rows["avg_dist_to_goal"][last],
+        "last100_avg_dist_to_goal": rows["avg_dist_to_goal"][
+            last - 99 : last + 1
+        ].mean(),
+        "final_ave_dist_to_neighbor": rows["ave_dist_to_neighbor"][last],
+        "episodes": rows["done"].sum(),
+    }
+
+
+def evaluate(
+    act_fn: ActFn,
+    params: EnvParams,
+    num_formations: int = 1024,
+    seed: int = 1234,
+    device: DeviceLike = None,
+    initial_state: Optional[FormationState] = None,
+) -> Dict[str, float]:
+    """One full episode on M formations; host-side floats."""
+    out = run_episode_metrics(
+        act_fn, params, num_formations, seed, device, initial_state
+    )
+    return {k: float(v) for k, v in out.items()}
+
+
+def baseline_act_fn(params: EnvParams) -> ActFn:
+    """The scripted potential-field controller as an ``ActFn``."""
+
+    def act(agents, goal, obstacles, obs, generator):
+        return control(agents, goal, obstacles, params)
+
+    return act
+
+
+def policy_act_fn(
+    model: torch.nn.Module, params: EnvParams, deterministic: bool = True
+) -> ActFn:
+    """A trained actor-critic as an ``ActFn``: the mode action, or
+    (``deterministic=False``) a draw from its Gaussian; clipped to [-1, 1]
+    and scaled by ``max_speed`` (reference vectorized_env.py:69-70)."""
+
+    def act(agents, goal, obstacles, obs, generator):
+        if model.per_formation:
+            mean, log_std, _ = model(obs)
+        else:
+            flat = obs.reshape(-1, obs.shape[-1])
+            mean, log_std, _ = model(flat)
+            mean = mean.reshape(obs.shape[0], -1, mean.shape[-1])
+        a = mean
+        if not deterministic:
+            a = distributions.sample(generator, mean, log_std)
+        return params.max_speed * torch.clamp(a, -1.0, 1.0)
+
+    return act
+
+
+def zero_act_fn() -> ActFn:
+    """Do-nothing control, the floor any learned policy must clear."""
+
+    def act(agents, goal, obstacles, obs, generator):
+        return torch.zeros_like(agents)
+
+    return act
+
+
+def evaluate_checkpoint(
+    checkpoint_path: str,
+    params: EnvParams,
+    num_formations: int = 1024,
+    seed: int = 1234,
+    deterministic: bool = True,
+    device: DeviceLike = None,
+    initial_state: Optional[FormationState] = None,
+) -> Dict[str, float]:
+    """Restore a trainer checkpoint and evaluate its policy."""
+    from marl_distributedformation_tpu_torch.compat.policy import LoadedPolicy
+
+    if initial_state is not None:
+        device = initial_state.agents.device
+    pol = LoadedPolicy.from_checkpoint(
+        checkpoint_path, act_dim=params.act_dim, env_params=params,
+        device=device,
+    )
+    act = policy_act_fn(pol.model, params, deterministic)
+    return evaluate(
+        act, params, num_formations, seed, pol.device, initial_state
+    )

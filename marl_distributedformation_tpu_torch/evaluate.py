@@ -1,0 +1,108 @@
+"""Evaluate a checkpoint against the scripted baseline and zero actions.
+
+Counterpart of the repository's ``evaluate.py`` for the port: full episodes
+on M formations, the same initial states for all three controllers, a table
+and one JSON line. Reads ``cfg/config.yaml`` with ``key=value`` overrides.
+
+    python -m marl_distributedformation_tpu_torch.evaluate name=myrun
+    python -m marl_distributedformation_tpu_torch.evaluate \\
+        checkpoint=logs/x/rl_model_200_steps.msgpack obs_mode=knn policy=gnn \\
+        num_agents_per_formation=100 eval_formations=4096 device=cuda
+
+``device`` defaults to ``cuda``; the CPU runs only with ``device=cpu``. The
+policy architecture is the one the checkpoint records.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+
+import torch
+
+from marl_distributedformation_tpu_torch.device import resolve_device
+from marl_distributedformation_tpu_torch.eval import (
+    baseline_act_fn,
+    evaluate,
+    evaluate_checkpoint,
+    zero_act_fn,
+)
+from marl_distributedformation_tpu_torch.utils.checkpoint import latest_checkpoint
+from marl_distributedformation_tpu_torch.utils.config import (
+    env_params_from_config,
+    load_config,
+    repo_root,
+    validate_override_keys,
+)
+
+EVAL_KEYS = (
+    "checkpoint",
+    "eval_formations",
+    "eval_seed",
+    "eval_deterministic",
+    "device",
+)
+COLUMNS = (
+    "episode_return_per_agent",
+    "final_avg_dist_to_goal",
+    "last100_avg_dist_to_goal",
+    "final_ave_dist_to_neighbor",
+)
+
+
+def main(argv=None) -> dict:
+    overrides = sys.argv[1:] if argv is None else list(argv)
+    validate_override_keys(overrides, extra_keys=EVAL_KEYS)
+    cfg = load_config(overrides)
+    dev = resolve_device(cfg.get("device"))
+    params = env_params_from_config(cfg)
+    m = int(cfg.get("eval_formations", 1024))
+    seed = int(cfg.get("eval_seed", 1234))
+    det = bool(cfg.get("eval_deterministic", True))
+
+    ckpt = cfg.get("checkpoint")
+    if not ckpt:
+        log_dir = repo_root() / "logs" / str(cfg.name)
+        ckpt = latest_checkpoint(log_dir)
+        if ckpt is None:
+            raise SystemExit(
+                f"no checkpoint under {log_dir}; pass checkpoint=... or "
+                "name=<trained run>"
+            )
+
+    rows = {
+        "policy": evaluate_checkpoint(str(ckpt), params, m, seed, det, dev),
+        "baseline": evaluate(baseline_act_fn(params), params, m, seed, dev),
+        "zero": evaluate(zero_act_fn(), params, m, seed, dev),
+    }
+
+    name_w = max(len(k) for k in rows)
+    print(f"[eval] checkpoint: {ckpt}")
+    print(f"[eval] M={m} formations x N={params.num_agents} agents, "
+          f"seed={seed}, full episodes, device={dev}")
+    print(f"{'':<{name_w}} | " + " | ".join(f"{c:>26}" for c in COLUMNS))
+    for name, r in rows.items():
+        vals = " | ".join(f"{r[c]:>26.2f}" for c in COLUMNS)
+        print(f"{name:<{name_w}} | {vals}")
+
+    result = {
+        "checkpoint": str(ckpt),
+        "eval_formations": m,
+        "num_agents": params.num_agents,
+        "seed": seed,
+        "eval_deterministic": det,
+        **{f"{name}_{c}": r[c] for name, r in rows.items() for c in COLUMNS},
+        "beats_baseline": bool(
+            rows["policy"]["episode_return_per_agent"]
+            > rows["baseline"]["episode_return_per_agent"]
+        ),
+        "resolved_device": (
+            torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+        ),
+    }
+    print(json.dumps(result))
+    return result
+
+
+if __name__ == "__main__":
+    main()

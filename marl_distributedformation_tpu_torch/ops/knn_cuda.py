@@ -1,0 +1,139 @@
+"""Wrappers of the two k-NN kernels in ``csrc/knn.cu``.
+
+``knn_fused`` replaces the JAX package's ``ops/knn_pallas.py::_knn_kernel``
+(wrapper ``knn_batch_pallas``) and ``knn_tiled`` its ``_knn_kernel_chunked``
+(wrapper ``knn_batch_pallas_big``). Both compute ``ops.knn.knn_batch_torch``
+exactly; see ``csrc/knn.cu`` for the design and what bounds each kernel.
+
+Each wrapper takes CUDA tensors only: it checks device, type, shape and
+contiguity, allocates the outputs, launches on the current stream, raises
+if the launch fails, and adds one to its entry of ``LAUNCHES``. There is no
+fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from marl_distributedformation_tpu_torch.ops import _build
+from marl_distributedformation_tpu_torch.ops.knn import KnnResult
+
+SOURCE = "knn"
+MAX_K = 8  # csrc/knn.cu instantiates K = 1..8
+# Dynamic shared memory of the fused kernel is 9 bytes a point; Hopper gives
+# a block at most 227 KB.
+FUSED_SMEM_MAX_N = (227 * 1024) // 9
+
+# Launch counts, one plain integer per kernel; callers reset them to 0.
+LAUNCHES: Dict[str, int] = {"knn_fused": 0, "knn_tiled": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+_typed_lib: Optional[ctypes.CDLL] = None
+
+
+def _lib() -> ctypes.CDLL:
+    """The built library with its C signatures declared: every pointer and
+    the stream as ``c_void_p``, so that ctypes does not cut them to 32
+    bits."""
+    global _typed_lib
+    if _typed_lib is None:
+        lib = _build.load(SOURCE)
+        for fn in (lib.knn_fused_launch, lib.knn_tiled_launch):
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+        _typed_lib = lib
+    return _typed_lib
+
+
+def _check(
+    name: str, points: torch.Tensor, k: int, valid: Optional[torch.Tensor]
+) -> None:
+    if not points.is_cuda:
+        raise ValueError(f"{name} takes a CUDA tensor, got {points.device}")
+    if points.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32 points, got {points.dtype}")
+    if points.dim() != 3 or points.shape[2] != 2:
+        raise ValueError(
+            f"{name} takes points (M, N, 2), got {tuple(points.shape)}"
+        )
+    if not points.is_contiguous() or points.data_ptr() % 8:
+        raise ValueError(f"{name} takes contiguous, 8-byte aligned points")
+    m, n, _ = points.shape
+    if not 1 <= k < n or k > MAX_K:
+        raise ValueError(
+            f"{name} needs 1 <= k < N and k <= {MAX_K} (k={k}, N={n})"
+        )
+    if n >= 2**31 // max(m, 1):
+        raise ValueError(f"{name}: M*N={m * n} overflows the kernel's int")
+    if valid is not None:
+        if valid.device != points.device or valid.dtype != torch.bool:
+            raise TypeError(f"{name} takes valid as bool on {points.device}")
+        if tuple(valid.shape) != (m, n) or not valid.is_contiguous():
+            raise ValueError(
+                f"{name} takes a contiguous valid (M, N) = {(m, n)}, got "
+                f"{tuple(valid.shape)}"
+            )
+
+
+def _launch(
+    name: str, fn_name: str, points: torch.Tensor, k: int,
+    valid: Optional[torch.Tensor],
+) -> KnnResult:
+    m, n, _ = points.shape
+    dev = points.device
+    idx = torch.empty((m, n, k), dtype=torch.int32, device=dev)
+    off = torch.empty((m, n, k, 2), dtype=torch.float32, device=dev)
+    dist = torch.empty((m, n, k), dtype=torch.float32, device=dev)
+    if m == 0:
+        return idx, off, dist
+    fn = getattr(_lib(), fn_name)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            points.data_ptr(),
+            None if valid is None else valid.data_ptr(),
+            m, n, k,
+            idx.data_ptr(), off.data_ptr(), dist.data_ptr(),
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+    LAUNCHES[name] += 1
+    return idx, off, dist
+
+
+def knn_fused(
+    points: torch.Tensor, k: int, valid: Optional[torch.Tensor] = None
+) -> KnnResult:
+    """k-NN with one CTA per formation, the formation held in shared
+    memory. For swarms of up to ``FUSED_SMEM_MAX_N`` points; ``knn_batch``
+    picks it for N <= 640."""
+    _check("knn_fused", points, k, valid)
+    if points.shape[1] > FUSED_SMEM_MAX_N:
+        raise ValueError(
+            f"knn_fused holds a formation in shared memory: N="
+            f"{points.shape[1]} > {FUSED_SMEM_MAX_N}; use knn_tiled"
+        )
+    return _launch("knn_fused", "knn_fused_launch", points, k, valid)
+
+
+def knn_tiled(
+    points: torch.Tensor, k: int, valid: Optional[torch.Tensor] = None
+) -> KnnResult:
+    """k-NN with a CTA per (formation, 128 query rows), the columns
+    streamed through shared memory in 512-column tiles. Any N."""
+    _check("knn_tiled", points, k, valid)
+    return _launch("knn_tiled", "knn_tiled_launch", points, k, valid)

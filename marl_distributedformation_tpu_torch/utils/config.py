@@ -1,0 +1,134 @@
+"""``cfg/config.yaml`` with hydra-style ``key=value`` overrides.
+
+A copy of the part of the JAX package's ``utils/config.py`` that evaluation
+needs: ``load_config``, ``apply_overrides``, ``validate_override_keys`` and
+``env_params_from_config`` for ``env=formation``. The port reads the same
+YAML file and never writes it. Presets and other environments come with
+later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import difflib
+import re
+from pathlib import Path
+from typing import Any, Dict, Iterable, List, Optional
+
+import yaml
+
+from marl_distributedformation_tpu_torch.env.types import EnvParams
+
+# Dot-less scientific notation that YAML 1.1 leaves as a string.
+_SCI_NOTATION_RE = re.compile(r"^[+-]?\d+(\.\d*)?[eE][+-]?\d+$")
+
+
+class Config(dict):
+    """Dict with attribute access (``cfg.num_formation``)."""
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+
+
+def repo_root() -> Path:
+    """Root of the repository (where ``cfg/`` and ``logs/`` live)."""
+    return Path(__file__).resolve().parent.parent.parent
+
+
+def _parse_value(raw: str) -> Any:
+    """YAML semantics, plus ``3e-4`` as a float (hydra's behavior)."""
+    value = yaml.safe_load(raw)
+    if isinstance(value, str) and _SCI_NOTATION_RE.match(value):
+        return float(value)
+    return value
+
+
+def _to_config(data: Any) -> Any:
+    if isinstance(data, dict):
+        return Config({k: _to_config(v) for k, v in data.items()})
+    return data
+
+
+def _read_yaml(config_path: str) -> Dict[str, Any]:
+    path = Path(config_path)
+    if not path.is_absolute() and not path.exists():
+        path = repo_root() / config_path
+    with open(path) as f:
+        return yaml.safe_load(f) or {}
+
+
+def apply_overrides(cfg: Dict[str, Any], overrides: Iterable[str]) -> None:
+    """Apply ``key=value`` overrides (dotted keys allowed) in place."""
+    for item in overrides:
+        if "=" not in item:
+            raise ValueError(f"override {item!r} is not of the form key=value")
+        key, raw = item.split("=", 1)
+        target = cfg
+        parts = key.split(".")
+        for part in parts[:-1]:
+            if not isinstance(target.get(part), dict):
+                target[part] = Config()
+            target = target[part]
+        target[parts[-1]] = _parse_value(raw)
+
+
+def load_config(
+    overrides: Optional[List[str]] = None,
+    config_path: str = "cfg/config.yaml",
+) -> Config:
+    """The YAML config with CLI overrides applied. A ``preset`` other than
+    null raises: presets are training settings, not yet ported."""
+    cfg = _to_config(_read_yaml(config_path))
+    apply_overrides(cfg, list(overrides or []))
+    if cfg.get("preset"):
+        raise ValueError(
+            f"preset={cfg['preset']!r}: presets are not ported yet"
+        )
+    return cfg
+
+
+def validate_override_keys(
+    overrides: Iterable[str],
+    extra_keys: Iterable[str] = (),
+    config_path: str = "cfg/config.yaml",
+) -> None:
+    """Exit on a mistyped override key. Valid keys are the YAML's, the
+    fields of ``EnvParams`` and ``extra_keys``; a dotted key validates its
+    first segment."""
+    known = set(_read_yaml(config_path))
+    known |= {f.name for f in dataclasses.fields(EnvParams)}
+    known |= {"env"} | set(extra_keys)
+    for item in overrides:
+        if "=" not in item:
+            continue  # apply_overrides raises its own error for these
+        key = item.split("=", 1)[0].split(".")[0]
+        if key not in known:
+            close = difflib.get_close_matches(key, known, n=1)
+            hint = f" (did you mean {close[0]!r}?)" if close else ""
+            raise SystemExit(
+                f"unknown config key {key!r}{hint}; valid keys: "
+                f"{', '.join(sorted(known))}"
+            )
+
+
+def env_params_from_config(cfg: Config) -> EnvParams:
+    """``EnvParams`` from the flat config, every field the config sets
+    forwarded (``share_reward_ratio`` included, SURVEY.md Q6). Only
+    ``env=formation`` is ported."""
+    env = cfg.get("env", "formation")
+    if env != "formation":
+        raise SystemExit(
+            f"env={env!r} is not ported yet; the port has env=formation"
+        )
+    kwargs = {
+        "num_agents": cfg.num_agents_per_formation,
+        "share_reward_ratio": cfg.share_reward_ratio,
+        "goal_in_obs": cfg.goal_in_obs,
+    }
+    for f in dataclasses.fields(EnvParams):
+        if f.name in cfg and f.name != "num_agents":
+            kwargs[f.name] = cfg[f.name]
+    return EnvParams(**kwargs)
