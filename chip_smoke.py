@@ -12,7 +12,8 @@ Phases (any failure exits non-zero):
    (M=512, N=1024, k=4) — and on lattice, duplicate and edge-clipped points
    (exact ties) and masks with fewer than k valid points: ``idx`` and
    offsets bitwise, distances within 1 ulp. Then time kernel and plain
-   version with CUDA events.
+   version with CUDA events, with the SM clock, power and temperature
+   sampled before and after each kernel's window.
 3. Drive the port's k-NN swarm evaluation at full width with a GNN from a
    seeded init: N=100, M=4096 for a full episode (1002 steps; the fused
    kernel must launch 1003 times), and N=1024, M=512 for 101 steps (the
@@ -51,6 +52,16 @@ TOL_ULP = 1
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def smi_sample() -> str:
+    """SM clock, power draw and limit, and temperature, sampled beside a
+    timing window."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
+         "temperature.gpu", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
 
@@ -145,7 +156,9 @@ def check_kernel(name, kernel, m, n, k, reps):
     if not bool((got[0][::4, :, k - 1] == own).all()):
         raise AssertionError(f"{name}: short rows lack their self-loops")
 
+    print(f"[smi] before {name} timing: {smi_sample()}")
     ms = time_ms(lambda: kernel(pts, k), reps)
+    print(f"[smi] after {name} timing: {smi_sample()}")
     plain_ms = time_ms(lambda: knn_batch_torch(pts, k), max(2, reps // 20), 1)
     bound_ms, bound_by = knn_bound_ms(m, n, k, with_valid=False)
     print(f"[kernel] {name} ({m},{n},{k}): ok, max_abs_err {err}, "
@@ -209,7 +222,8 @@ def kernel_equals_plain_end_to_end(model, params, m):
 def profile_breakdown(model, params, m, steps=4, top=8):
     """Device time by kernel over a short evaluation (``steps`` + 2 steps)
     under ``torch.profiler``, and the device's busy share of the window's
-    wall time (profiling slows the host, so the share may read low)."""
+    wall time (profiling slows the host, so the share may read low). Prints
+    the ``top`` kernels and every k-NN kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -244,7 +258,11 @@ def profile_breakdown(model, params, m, steps=4, top=8):
     print(f"[profile] N={params.num_agents} M={m}, {T} steps: device busy "
           f"{total / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
           f"({100 * total / wall_us:.1f}%), {total / T / 1e3:.4f} ms/step")
-    for e in sorted(events, key=dev_us, reverse=True)[:top]:
+    # The k-NN kernels always, on the episode's own positions, even when
+    # they fall outside the top.
+    ranked = sorted(events, key=dev_us, reverse=True)
+    shown = ranked[:top] + [e for e in ranked[top:] if "knn_" in e.key]
+    for e in shown:
         print(f"[profile]   {dev_us(e) / total * 100:5.1f}%  "
               f"{dev_us(e) / T / 1e3:8.4f} ms/step  x{e.count // T:<3d} "
               f"{e.key[:90]}")

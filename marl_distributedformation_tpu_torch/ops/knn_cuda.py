@@ -14,7 +14,7 @@ fallback.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -23,9 +23,15 @@ from marl_distributedformation_tpu_torch.ops.knn import KnnResult
 
 SOURCE = "knn"
 MAX_K = 8  # csrc/knn.cu instantiates K = 1..8
-# Dynamic shared memory of the fused kernel is 9 bytes a point; Hopper gives
-# a block at most 227 KB.
-FUSED_SMEM_MAX_N = (227 * 1024) // 9
+SMEM_MAX_BYTES = 227 * 1024  # shared memory Hopper gives one block
+FUSED_GROUP = 16  # columns knn_fused tests a group (csrc/knn.cu)
+FUSED_THREADS = 128  # query rows a knn_fused CTA owns, one a thread
+POINT_BYTES = 8  # a staged point, float2
+# From N = FUSED_THREADS on, a CTA's rows touch at most two formations, so
+# knn_fused takes N up to where two strides fill a block's shared memory.
+FUSED_SMEM_MAX_N = (
+    SMEM_MAX_BYTES // (2 * POINT_BYTES) // FUSED_GROUP * FUSED_GROUP
+)
 
 # Launch counts, one plain integer per kernel; callers reset them to 0.
 LAUNCHES: Dict[str, int] = {"knn_fused": 0, "knn_tiled": 0}
@@ -46,16 +52,26 @@ def _lib() -> ctypes.CDLL:
     global _typed_lib
     if _typed_lib is None:
         lib = _build.load(SOURCE)
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        # (points, valid, m, n, k[, threads, stride, span], idx, off, dist,
+        # stream)
+        lib.knn_fused_launch.argtypes = [ptr, ptr] + [i32] * 6 + [ptr] * 4
+        lib.knn_tiled_launch.argtypes = [ptr, ptr] + [i32] * 3 + [ptr] * 4
         for fn in (lib.knn_fused_launch, lib.knn_tiled_launch):
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p,
-            ]
             fn.restype = ctypes.c_int
         _typed_lib = lib
     return _typed_lib
+
+
+def fused_geometry(m: int, n: int) -> Tuple[int, int, int, int]:
+    """Launch geometry of ``knn_fused`` for ``M`` formations of ``N`` points:
+    ``(threads, stride, span, smem_bytes)``. A CTA owns ``threads``
+    consecutive rows of the flattened ``M*N`` rows, one a thread, and stages
+    each formation they touch (at most ``span``) in shared memory,
+    ``stride`` points a formation: N rounded up to whole groups."""
+    stride = -(-n // FUSED_GROUP) * FUSED_GROUP
+    span = min(m, (FUSED_THREADS + n - 2) // n + 1)
+    return FUSED_THREADS, stride, span, span * stride * POINT_BYTES
 
 
 def _check(
@@ -90,7 +106,7 @@ def _check(
 
 def _launch(
     name: str, fn_name: str, points: torch.Tensor, k: int,
-    valid: Optional[torch.Tensor],
+    valid: Optional[torch.Tensor], geometry: Tuple[int, ...] = (),
 ) -> KnnResult:
     m, n, _ = points.shape
     dev = points.device
@@ -105,7 +121,7 @@ def _launch(
         err = fn(
             points.data_ptr(),
             None if valid is None else valid.data_ptr(),
-            m, n, k,
+            m, n, k, *geometry,
             idx.data_ptr(), off.data_ptr(), dist.data_ptr(),
             stream,
         )
@@ -118,22 +134,27 @@ def _launch(
 def knn_fused(
     points: torch.Tensor, k: int, valid: Optional[torch.Tensor] = None
 ) -> KnnResult:
-    """k-NN with one CTA per formation, the formation held in shared
-    memory. For swarms of up to ``FUSED_SMEM_MAX_N`` points; ``knn_batch``
-    picks it for N <= 640."""
+    """k-NN with a CTA per run of ``FUSED_THREADS`` query rows, each
+    formation they touch held in shared memory (``fused_geometry``). For
+    swarms of up to ``FUSED_SMEM_MAX_N`` points; ``knn_batch`` picks it for
+    N <= 640."""
     _check("knn_fused", points, k, valid)
-    if points.shape[1] > FUSED_SMEM_MAX_N:
+    m, n, _ = points.shape
+    if n > FUSED_SMEM_MAX_N:
         raise ValueError(
-            f"knn_fused holds a formation in shared memory: N="
-            f"{points.shape[1]} > {FUSED_SMEM_MAX_N}; use knn_tiled"
+            f"knn_fused holds formations in shared memory: N={n} > "
+            f"{FUSED_SMEM_MAX_N}; use knn_tiled"
         )
-    return _launch("knn_fused", "knn_fused_launch", points, k, valid)
+    threads, stride, span, _ = fused_geometry(m, n)
+    return _launch("knn_fused", "knn_fused_launch", points, k, valid,
+                   (threads, stride, span))
 
 
 def knn_tiled(
     points: torch.Tensor, k: int, valid: Optional[torch.Tensor] = None
 ) -> KnnResult:
-    """k-NN with a CTA per (formation, 128 query rows), the columns
-    streamed through shared memory in 512-column tiles. Any N."""
+    """k-NN with a CTA per (formation, 256 query rows), two rows a thread,
+    the columns streamed through shared memory in double-buffered
+    1024-column tiles. Any N."""
     _check("knn_tiled", points, k, valid)
     return _launch("knn_tiled", "knn_tiled_launch", points, k, valid)

@@ -67,6 +67,66 @@ def test_kernel_matches_plain(cuda, name, kind, n, k):
     _assert_same(KERNELS[name](pts, k), knn_batch_torch(pts, k))
 
 
+# Both sides of every block size of the two designs: a column group (16 in
+# knn_fused, 32 in knn_tiled), a warp, a knn_fused CTA (128 rows), a
+# knn_tiled CTA (256 rows), a shared-memory tile (1024 columns) and two
+# tiles; 640/641 is auto's split.
+BLOCK_EDGES = (15, 16, 17, 31, 32, 33, 127, 128, 129, 255, 256, 257, 640,
+               641, 1023, 1024, 1025, 2047, 2048, 2049)
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+@pytest.mark.parametrize("n", BLOCK_EDGES)
+def test_kernel_at_block_edges(cuda, name, n):
+    pts = _points(3, n, cuda, seed=n)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    valid = torch.rand((3, n), generator=gen, device=cuda) < 0.8
+    _assert_same(KERNELS[name](pts, 4), knn_batch_torch(pts, 4))
+    _assert_same(KERNELS[name](pts, 4, valid), knn_batch_torch(pts, 4, valid))
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+@pytest.mark.parametrize("m", [1, 3, 7])
+@pytest.mark.parametrize("n", [20, 100])
+def test_kernel_with_few_formations(cuda, name, m, n):
+    """M not a multiple of the formations a knn_fused CTA holds."""
+    for kind in ("random", "duplicates"):
+        pts = _points(m, n, cuda, seed=m, kind=kind)
+        _assert_same(KERNELS[name](pts, 4), knn_batch_torch(pts, 4))
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+@pytest.mark.parametrize("k", range(1, knn_cuda.MAX_K + 1))
+def test_kernel_every_k(cuda, name, k):
+    n = 300
+    pts = _points(5, n, cuda, seed=k, kind="lattice")
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    valid = torch.rand((5, n), generator=gen, device=cuda) < 0.5
+    valid[0] = False
+    valid[0, : k - 1] = True  # fewer than k valid points
+    _assert_same(KERNELS[name](pts, k), knn_batch_torch(pts, k))
+    _assert_same(KERNELS[name](pts, k, valid), knn_batch_torch(pts, k, valid))
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+def test_kernel_with_one_valid_point(cuda, name):
+    m, n, k = 6, 150, 4
+    pts = _points(m, n, cuda, seed=11)
+    valid = torch.zeros((m, n), dtype=torch.bool, device=cuda)
+    valid[torch.arange(m), torch.arange(m) * 7] = True
+    got = KERNELS[name](pts, k, valid)
+    _assert_same(got, knn_batch_torch(pts, k, valid))
+    rows = torch.arange(n, device=cuda, dtype=torch.int32)
+    assert torch.equal(got[0][:, :, 1:], rows[None, :, None].expand(m, n, k - 1))
+
+
+@pytest.mark.parametrize("name,m,n", [("knn_fused", 4096, 100),
+                                      ("knn_tiled", 512, 1024)])
+def test_kernel_at_main_shape(cuda, name, m, n):
+    pts = _points(m, n, cuda, seed=0)
+    _assert_same(KERNELS[name](pts, 4), knn_batch_torch(pts, 4))
+
+
 @pytest.mark.parametrize("name", sorted(KERNELS))
 def test_kernel_with_short_masks(cuda, name):
     k, n = 4, 600
@@ -93,6 +153,23 @@ def test_auto_dispatch_and_launch_counts(cuda):
     assert knn_cuda.LAUNCHES == {"knn_fused": 1, "knn_tiled": 1}
     knn_batch(small, 4, impl="torch")
     assert knn_cuda.LAUNCHES == {"knn_fused": 1, "knn_tiled": 1}
+
+
+def test_fused_launch_refuses_a_short_span(cuda):
+    """The kernel's shared memory holds ``span`` formations; a span below
+    what a CTA's rows touch would overrun it and is refused."""
+    m, n, k = 4, 100, 4
+    pts = _points(m, n, cuda)
+    idx = torch.empty((m, n, k), dtype=torch.int32, device=cuda)
+    off = torch.empty((m, n, k, 2), device=cuda)
+    dist = torch.empty((m, n, k), device=cuda)
+    threads, stride, span, _ = knn_cuda.fused_geometry(m, n)
+    err = knn_cuda._lib().knn_fused_launch(
+        pts.data_ptr(), None, m, n, k, threads, stride, span - 1,
+        idx.data_ptr(), off.data_ptr(), dist.data_ptr(),
+        torch.cuda.current_stream(cuda).cuda_stream,
+    )
+    assert err != 0
 
 
 def test_kernels_refuse_bad_inputs(cuda):

@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from marl_distributedformation_tpu.ops import knn_batch as jax_knn_batch
+from marl_distributedformation_tpu_torch.ops import knn_cuda
 from marl_distributedformation_tpu_torch.ops.knn import (
+    _SELF_MASK,
     knn_batch,
     knn_batch_torch,
     resolve_impl,
@@ -123,3 +125,81 @@ def test_unknown_impl_and_bad_k_raise():
         knn_batch(t, 4, impl="xla")
     with pytest.raises(ValueError, match="k < N"):
         knn_batch_torch(t, 20)
+
+
+def _kernel_scan_model(pts, k, valid):
+    """The scan both CUDA kernels run (``csrc/knn.cu::scan_group``), in
+    numpy float32: columns staged with invalid ones and the padding up to
+    whole groups as NaN, scanned in ascending order a group at a time; a
+    group is tested against the K-th distance as it stood before it, and
+    its hits are inserted in column order with a strict-less insertion
+    that re-tests each one; the self column is dropped at insertion."""
+    m, n, _ = pts.shape
+    stride = -(-n // knn_cuda.FUSED_GROUP) * knn_cuda.FUSED_GROUP
+    idx = np.empty((m, n, k), np.int32)
+    off = np.empty((m, n, k, 2), np.float32)
+    dist = np.empty((m, n, k), np.float32)
+    for f in range(m):
+        cols = np.full((stride, 2), np.nan, np.float32)
+        ok = np.ones(n, bool) if valid is None else valid[f]
+        cols[:n][ok] = pts[f][ok]
+        for i in range(n):
+            me = pts[f, i]
+            dx, dy = me[0] - cols[:, 0], me[1] - cols[:, 1]
+            d2 = dx * dx + dy * dy
+            bd = [np.float32(np.inf)] * k
+            bi = [np.iinfo(np.int32).max] * k
+            for j0 in range(0, stride, knn_cuda.FUSED_GROUP):
+                thr = bd[-1]
+                hits = [j0 + g for g in range(knn_cuda.FUSED_GROUP)
+                        if d2[j0 + g] < thr]
+                for j in hits:
+                    if j == i or not d2[j] < bd[-1]:
+                        continue
+                    p = k - 1
+                    while p > 0 and d2[j] < bd[p - 1]:
+                        bd[p], bi[p] = bd[p - 1], bi[p - 1]
+                        p -= 1
+                    bd[p], bi[p] = d2[j], j
+            for p in range(k):
+                real = bd[p] < 0.5 * _SELF_MASK
+                j = bi[p] if real else i
+                idx[f, i, p] = j
+                off[f, i, p] = (pts[f, j] - me) if real else 0.0
+                dist[f, i, p] = np.sqrt(bd[p]) if real else 0.0
+    return idx, off, dist
+
+
+@pytest.mark.parametrize(
+    "case", ["lattice", "duplicates", "edge+mask", "random20+mask"]
+)
+def test_kernel_scan_order_matches_plain(case):
+    """The kernels compare a candidate with the K-th entry by distance
+    alone: exact because columns arrive in ascending order, so equal
+    distances keep the lower column ahead. Held against the plain stable
+    sort on exact ties and on rows with fewer than k valid points."""
+    pts, k, valid = _case(case)
+    with np.errstate(invalid="ignore"):
+        got = _kernel_scan_model(pts, k, valid)
+    tvalid = None if valid is None else torch.from_numpy(valid)
+    _assert_same(got, knn_batch_torch(torch.from_numpy(pts), k, tvalid))
+
+
+def test_fused_geometry_fits_shared_memory():
+    """Every N that knn_fused takes fits one block's shared memory, and the
+    span covers the formations any CTA's rows touch."""
+    big_m = 1 << 20
+    for n in range(2, knn_cuda.FUSED_SMEM_MAX_N + 1):
+        threads, stride, span, smem = knn_cuda.fused_geometry(big_m, n)
+        assert smem <= knn_cuda.SMEM_MAX_BYTES, n
+        assert stride >= n and stride % knn_cuda.FUSED_GROUP == 0
+    n = knn_cuda.FUSED_SMEM_MAX_N + 1
+    assert knn_cuda.fused_geometry(big_m, n)[3] > knn_cuda.SMEM_MAX_BYTES
+    for m, n in [(1, 2), (1, 500), (3, 7), (5, 100), (7, 127), (9, 128),
+                 (4, 129), (2, 640), (3, 1000)]:
+        threads, _, span, _ = knn_cuda.fused_geometry(m, n)
+        rows = m * n
+        for r0 in range(0, rows, threads):
+            touched = (min(r0 + threads, rows) - 1) // n - r0 // n + 1
+            assert touched <= span, (m, n, r0)
+
