@@ -8,11 +8,13 @@ Phases (any failure exits non-zero):
 1. Print the card's name and power limit (``nvidia-smi``), build the CUDA
    kernels from ``marl_distributedformation_tpu_torch/csrc`` with ``nvcc``.
 2. Hold each k-NN kernel against its plain PyTorch version on the card, at
-   the shapes the main paths give it — fused (M=4096, N=100, k=4), tiled
-   (M=512, N=1024, k=4) — and on lattice, duplicate and edge-clipped points
-   (exact ties) and masks with fewer than k valid points: ``idx`` and
-   offsets bitwise, distances within 1 ulp. Then time kernel and plain
-   version with CUDA events, with the SM clock, power and temperature
+   the shapes each path gives it — fused: training (M=1024, N=100, k=4)
+   and eval (M=4096); tiled: training (M=8, N=1024, k=4) and eval (M=512)
+   — and on lattice, duplicate and edge-clipped points (exact ties) and
+   masks with fewer than k valid points: ``idx`` and offsets bitwise,
+   distances within 1 ulp. Then time the kernel (its device time under
+   ``torch.profiler``, and back-to-back calls with CUDA events) and the
+   plain version (CUDA events), with the SM clock, power and temperature
    sampled before and after each kernel's window.
 3. Drive the port's k-NN swarm evaluation at full width with a GNN from a
    seeded init: N=100, M=4096 for a full episode (1002 steps; the fused
@@ -21,8 +23,27 @@ Phases (any failure exits non-zero):
    kernel path equals the plain path end to end on a small batch.
 4. Evaluate the committed MLP checkpoint (N=5, M=4096, full episode) through
    the port's evaluate CLI: learned > baseline > zero.
-5. Print the kernels' JSON line, the card line, and the last line
-   ``{"ok": true, "device": {...}}``.
+5. Train through the port's ``train`` CLI on the card:
+   - ``gnn100``, the published 100-agent command (GNN, k=4, M=1024,
+     ``preset=tpu``, 30 iterations): ``knn_fused`` must launch 1 + 30 x 10
+     times; the mean reward of the last 3 iterations must beat the first 3
+     by 20 and be above 0; the checkpoint it wrote, evaluated through the
+     evaluate CLI (M=1024, full episode), must rank learned > baseline >
+     zero. Seconds an iteration split into rollout and update (CUDA events
+     at the phase boundaries), formation-steps/s, agent-transitions/s and
+     peak memory are printed.
+   - ``gnn1024`` (M=8, N=1024, ``preset=tpu``, 12 iterations): ``knn_tiled``
+     must launch 1 + 12 x 10 times; the mean reward of the last 3 iterations
+     must beat the first 3.
+   - the ring/MLP default (M=1000, N=5, ``batch_size=64``), 2 iterations,
+     timed with its optimizer steps/s.
+   - a 10-step rollout of each trained GNN at its training shape (N=100,
+     M=1024; N=1024, M=8) through the kernel and through the plain k-NN
+     from one seed: bitwise equal.
+   - ``torch.profiler`` over one more ``gnn100`` iteration.
+6. Print the kernels' JSON line (launches and timings at the training
+   paths' shapes, those of the eval paths under ``eval``), the card line,
+   and the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero with no result when no GPU is found.
 """
@@ -35,6 +56,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from statistics import mean
 
 ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "docs/acceptance/tpu_run/rl_model_20480000_steps.msgpack"
@@ -89,6 +111,37 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_us(event) -> float:
+    """Device time of a ``torch.profiler`` event, in microseconds."""
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0.0))
+
+
+def kernel_device_ms(fn, reps: int, key: str) -> float:
+    """Device time a launch of the kernel whose name holds ``key``, over
+    ``reps`` calls of ``fn`` under ``torch.profiler``: the kernel's own
+    time. CUDA events around back-to-back calls measure the host's launch
+    path instead (allocation, checks, ctypes) when it is slower than the
+    kernel, as it is for ``knn_fused`` on a slow host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key
+    ]
+    count = sum(e.count for e in events)
+    if count != reps:
+        raise AssertionError(f"{key}: {count} profiled launches, want {reps}")
+    return sum(device_us(e) for e in events) / count / 1e3
 
 
 def compare(name: str, got, want) -> float:
@@ -157,15 +210,20 @@ def check_kernel(name, kernel, m, n, k, reps):
         raise AssertionError(f"{name}: short rows lack their self-loops")
 
     print(f"[smi] before {name} timing: {smi_sample()}")
-    ms = time_ms(lambda: kernel(pts, k), reps)
+    call_ms = time_ms(lambda: kernel(pts, k), reps)
+    ms = kernel_device_ms(lambda: kernel(pts, k), reps, f"{name}_kernel")
     print(f"[smi] after {name} timing: {smi_sample()}")
     plain_ms = time_ms(lambda: knn_batch_torch(pts, k), max(2, reps // 20), 1)
     bound_ms, bound_by = knn_bound_ms(m, n, k, with_valid=False)
     print(f"[kernel] {name} ({m},{n},{k}): ok, max_abs_err {err}, "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+          f"{ms:.4f} ms on the device, {call_ms:.4f} ms a call back to back, "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    # "ms" is the kernel's device time; "call_ms" CUDA events around
+    # back-to-back calls, which read the host's launch path when that is
+    # slower than the kernel.
+    return {"shape": [m, n, k], "max_abs_err": err, "ms": ms,
+            "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def run_swarm(model, params, m, label):
@@ -219,53 +277,237 @@ def kernel_equals_plain_end_to_end(model, params, m):
           f"({runs['auto']['episode_return_per_agent']:.4f})")
 
 
-def profile_breakdown(model, params, m, steps=4, top=8):
-    """Device time by kernel over a short evaluation (``steps`` + 2 steps)
-    under ``torch.profiler``, and the device's busy share of the window's
-    wall time (profiling slows the host, so the share may read low). Prints
-    the ``top`` kernels and every k-NN kernel."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+def profile_breakdown(model, params, m, steps=4):
+    """``profile_window`` over a short evaluation (``steps`` + 2 steps)."""
     from marl_distributedformation_tpu_torch.eval import evaluate, policy_act_fn
 
     p = params.replace(max_steps=steps)
     act = policy_act_fn(model, p)
-    evaluate(act, p, m, seed=5, device="cuda")
+
+    def run():
+        evaluate(act, p, m, seed=5, device="cuda")
+
+    run()
+    profile_window(run, f"N={params.num_agents} M={m}, {steps + 2} steps",
+                   steps + 2, "step")
+
+
+def profile_window(run, label, per, unit, top=8):
+    """Device time by kernel over one call of ``run`` (warmed up by the
+    caller) under ``torch.profiler``, and the device's busy share of the
+    window's wall time (profiling slows the host, so the share may read
+    low). Prints the ``top`` kernels and every k-NN kernel, in ms per
+    ``unit`` (``per`` of them in the window)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        evaluate(act, p, m, seed=5, device="cuda")
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
 
     # Only the kernels themselves: an operator's row also carries the
     # device time of the kernels it launched, which would count them twice.
     events = [
         e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
+        if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
     ]
-    total = sum(dev_us(e) for e in events)
-    T = steps + 2
+    total = sum(device_us(e) for e in events)
     if total == 0:
-        print(f"[profile] N={params.num_agents} M={m}: no device time in "
-              "the trace (not measured)")
+        print(f"[profile] {label}: no device time in the trace (not measured)")
         return
-    print(f"[profile] N={params.num_agents} M={m}, {T} steps: device busy "
-          f"{total / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
-          f"({100 * total / wall_us:.1f}%), {total / T / 1e3:.4f} ms/step")
-    # The k-NN kernels always, on the episode's own positions, even when
-    # they fall outside the top.
-    ranked = sorted(events, key=dev_us, reverse=True)
+    launches = sum(e.count for e in events)
+    print(f"[profile] {label}: device busy {total / 1e3:.3f} ms of "
+          f"{wall_us / 1e3:.3f} ms wall ({100 * total / wall_us:.1f}%), "
+          f"{total / per / 1e3:.4f} ms/{unit}, {launches / per:.0f} kernel "
+          f"launches/{unit}")
+    # The k-NN kernels always, on the run's own positions, even when they
+    # fall outside the top.
+    ranked = sorted(events, key=device_us, reverse=True)
     shown = ranked[:top] + [e for e in ranked[top:] if "knn_" in e.key]
     for e in shown:
-        print(f"[profile]   {dev_us(e) / total * 100:5.1f}%  "
-              f"{dev_us(e) / T / 1e3:8.4f} ms/step  x{e.count // T:<3d} "
+        print(f"[profile]   {device_us(e) / total * 100:5.1f}%  "
+              f"{device_us(e) / per / 1e3:8.4f} ms/{unit}  x{e.count // per:<5d} "
               f"{e.key[:90]}")
+
+
+# The published 100-agent training command (docs/acceptance/gnn100) and the
+# N=1024 one (docs/acceptance/gnn1024), and the TPU record of the first.
+GNN100 = ("policy=gnn", "obs_mode=knn", "num_agents_per_formation=100",
+          "num_formation=1024", "preset=tpu", "total_timesteps=30720000")
+GNN1024 = ("policy=gnn", "obs_mode=knn", "num_agents_per_formation=1024",
+           "num_formation=8", "preset=tpu", "total_timesteps=983040")
+MLP_DEFAULT = ("total_timesteps=100000",)  # M=1000, N=5: 2 iterations
+TPU_GNN100_CURVE = {1: -37.56, 5: -25.94, 10: -9.49, 20: 7.74, 30: 8.71}
+LEARN_MARGIN = 20.0
+
+
+def record_phases(trainer):
+    """Wraps ``trainer.run_iteration`` so that each iteration records CUDA
+    events at its start, after rollout and GAE, and at its end; returns the
+    list the events go into, one triple an iteration."""
+    import torch
+
+    phases = []
+    run = trainer.run_iteration
+
+    def timed():
+        events = []
+        phases.append(events)
+
+        def mark(phase):
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            events.append(event)
+
+        return run(mark=mark)
+
+    trainer.run_iteration = timed
+    return phases
+
+
+def train_run(name, overrides, label):
+    """One run of the port's ``train`` CLI on the card (``build_trainer``
+    then ``Trainer.train``, as its ``main`` runs them), the launch counts
+    set to 0 just before it and read just after. Prints the time an
+    iteration (the first, which builds and warms up, left out of the
+    steady split), throughput and peak memory; returns ``(trainer, rewards
+    an iteration, launches)``."""
+    import shutil
+
+    import torch
+
+    from marl_distributedformation_tpu_torch.ops import knn_cuda
+    from marl_distributedformation_tpu_torch.train import cli
+
+    shutil.rmtree(ROOT / "logs" / name, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    knn_cuda.reset_launches()
+    t0 = time.perf_counter()
+    trainer = cli.build_trainer([f"name={name}", "device=cuda", *overrides])
+    events = record_phases(trainer)
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(knn_cuda.LAUNCHES)
+    del trainer.run_iteration  # the class's own again
+    lines = (Path(trainer.log_dir) / "metrics.jsonl").read_text().splitlines()
+    records = [json.loads(line) for line in lines]
+    for r in records:
+        if not all(math.isfinite(v) for v in r.values()):
+            raise AssertionError(f"{label}: non-finite metrics {r}")
+    iters = len(records)
+    phase_ms = [(e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2]))
+                for e in events]
+    phases = phase_ms[1:] or phase_ms
+    roll, upd = mean(p[0] for p in phases), mean(p[1] for p in phases)
+    rate = records[-1]["env_steps_per_sec"]
+    n = trainer.env_params.num_agents
+    steps_per_iter = trainer.step // iters
+    print(f"[train] {label}: {iters} iterations in {wall:.2f} s "
+          f"({wall / iters:.3f} s each with start-up and saves); steady "
+          f"{(roll + upd) / 1e3:.4f} s/iteration = rollout+GAE "
+          f"{roll / 1e3:.4f} + update {upd / 1e3:.4f} "
+          f"({steps_per_iter} optimizer steps, "
+          f"{steps_per_iter / (upd / 1e3):.1f}/s); {rate:.1f} "
+          f"formation-steps/s, {rate * n:.1f} agent-transitions/s; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{launches}")
+    return trainer, [r["reward"] for r in records], launches
+
+
+def learning_check(rewards, label, margin):
+    first3, last3 = mean(rewards[:3]), mean(rewards[-3:])
+    print(f"[learn] {label}: mean reward of the first 3 iterations "
+          f"{first3:.3f}, of the last 3 {last3:.3f}")
+    if not last3 >= first3 + margin:
+        raise AssertionError(f"{label}: last-3 mean {last3:.3f} does not "
+                             f"beat first-3 {first3:.3f} by {margin}")
+    return first3, last3
+
+
+def rollout_kernel_equals_plain(model, n, m):
+    """A 10-step rollout of ``model`` on M formations of N agents through
+    the k-NN kernel ``auto`` picks and through the plain k-NN, from one
+    generator seed: bitwise equal."""
+    import torch
+
+    from marl_distributedformation_tpu_torch.algo import collect_rollout
+    from marl_distributedformation_tpu_torch.env import (
+        EnvParams,
+        compute_obs,
+        reset_batch,
+    )
+
+    dev = torch.device("cuda")
+    runs = {}
+    for impl in ("auto", "torch"):
+        params = EnvParams(num_agents=n, obs_mode="knn", knn_k=4,
+                           knn_impl=impl)
+        gen = torch.Generator(device=dev).manual_seed(17)
+        state = reset_batch(params, m, gen, dev)
+        obs = compute_obs(state.agents, state.goal, params)
+        runs[impl] = collect_rollout(model, state, obs, gen, params, 10)
+    (_, o1, b1, v1), (_, o2, b2, v2) = runs["auto"], runs["torch"]
+    for field in ("obs", "actions", "log_probs", "values", "rewards"):
+        if not torch.equal(getattr(b1, field), getattr(b2, field)):
+            raise AssertionError(f"rollout {field}: kernel path != plain path")
+    if not (torch.equal(o1, o2) and torch.equal(v1, v2)):
+        raise AssertionError("rollout last obs/value: kernel != plain")
+    print(f"[rollout] N={n} M={m}, 10 steps: kernel path == plain path "
+          "bitwise (obs, actions, log_probs, values, rewards)")
+
+
+def train_phase():
+    """Phase 5; returns the training paths' launch counts."""
+    from marl_distributedformation_tpu_torch import evaluate as evaluate_cli
+    from marl_distributedformation_tpu_torch.utils.checkpoint import (
+        latest_checkpoint,
+    )
+
+    trainer, rewards, got = train_run("smoke_gnn100", GNN100,
+                                      "gnn100 M=1024 N=100")
+    want = 1 + len(rewards) * trainer.ppo.n_steps
+    if got != {"knn_fused": want, "knn_tiled": 0}:
+        raise AssertionError(f"gnn100 launches {got}, want fused {want}")
+    launches = {"knn_fused": got["knn_fused"]}
+    print("[learn] gnn100 reward by iteration, port (TPU record): " + ", ".join(
+        f"{i}: {rewards[i - 1]:.2f} ({tpu})"
+        for i, tpu in TPU_GNN100_CURVE.items() if i <= len(rewards)))
+    _, last3 = learning_check(rewards, "gnn100", LEARN_MARGIN)
+    if not last3 > 0:
+        raise AssertionError(f"gnn100: last-3 mean {last3:.3f} is not > 0")
+    ckpt = latest_checkpoint(trainer.log_dir)
+    res = evaluate_cli.main([
+        f"checkpoint={ckpt}", "obs_mode=knn", "policy=gnn",
+        "num_agents_per_formation=100", "eval_formations=1024",
+        "device=cuda",
+    ])
+    ret = {r: res[f"{r}_episode_return_per_agent"]
+           for r in ("policy", "baseline", "zero")}
+    if not ret["policy"] > ret["baseline"] > ret["zero"]:
+        raise AssertionError(f"gnn100 ranking learned > baseline > zero "
+                             f"fails: {ret}")
+    print(f"[gnn100] learned {ret['policy']:.2f} > baseline "
+          f"{ret['baseline']:.2f} > zero {ret['zero']:.2f} (M=1024)")
+    rollout_kernel_equals_plain(trainer.model, 100, 1024)
+    profile_window(trainer.run_iteration, "train gnn100 M=1024 N=100, one "
+                   "iteration after warm-up", 1, "iteration")
+
+    trainer, rewards, got = train_run("smoke_gnn1024", GNN1024,
+                                      "gnn1024 M=8 N=1024")
+    want = 1 + len(rewards) * trainer.ppo.n_steps
+    if got != {"knn_fused": 0, "knn_tiled": want}:
+        raise AssertionError(f"gnn1024 launches {got}, want tiled {want}")
+    launches["knn_tiled"] = got["knn_tiled"]
+    learning_check(rewards, "gnn1024", 0.0)
+    rollout_kernel_equals_plain(trainer.model, 1024, 8)
+
+    train_run("smoke_mlp", MLP_DEFAULT, "ring/MLP default M=1000 N=5")
+    return launches
 
 
 def main() -> int:
@@ -295,10 +537,18 @@ def main() -> int:
         if "entry function" in line or "Used" in line or "spill" in line:
             print(f"[ptxas] {line.strip()}")
 
-    # Phase 2: each kernel against its plain version.
+    # Phase 2: each kernel against its plain version, at the shape of the
+    # training path that launches it and at the eval path's.
+    shapes = {
+        "knn_fused": (knn_cuda.knn_fused, 200,
+                      {"train": (1024, 100, 4), "eval": (4096, 100, 4)}),
+        "knn_tiled": (knn_cuda.knn_tiled, 50,
+                      {"train": (8, 1024, 4), "eval": (512, 1024, 4)}),
+    }
     stats = {
-        "knn_fused": check_kernel("knn_fused", knn_cuda.knn_fused, 4096, 100, 4, 200),
-        "knn_tiled": check_kernel("knn_tiled", knn_cuda.knn_tiled, 512, 1024, 4, 50),
+        name: {path: check_kernel(name, fn, *shape, reps)
+               for path, shape in by_path.items()}
+        for name, (fn, reps, by_path) in shapes.items()
     }
 
     # Phase 3: the k-NN swarm evaluation at full width.
@@ -308,15 +558,15 @@ def main() -> int:
     # 101 steps: at T <= 100 the JAX package's last-100 window starts below 0
     # and wraps (eval.py:119); the port keeps that for parity.
     p1024 = EnvParams(num_agents=1024, obs_mode="knn", knn_k=4, max_steps=99)
-    launches = {}
+    eval_launches = {}
     got, T = run_swarm(gnn, p100, 4096, "gnn knn N=100")
     if got != {"knn_fused": T + 1, "knn_tiled": 0}:
         raise AssertionError(f"N=100 launches {got}, want fused {T + 1}")
-    launches["knn_fused"] = got["knn_fused"]
+    eval_launches["knn_fused"] = got["knn_fused"]
     got, T = run_swarm(gnn, p1024, 512, "gnn knn N=1024")
     if got != {"knn_fused": 0, "knn_tiled": T + 1}:
         raise AssertionError(f"N=1024 launches {got}, want tiled {T + 1}")
-    launches["knn_tiled"] = got["knn_tiled"]
+    eval_launches["knn_tiled"] = got["knn_tiled"]
     profile_breakdown(gnn, p100, 4096)
     profile_breakdown(gnn, p1024, 512)
     kernel_equals_plain_end_to_end(gnn, p100, 32)
@@ -333,15 +583,23 @@ def main() -> int:
     print(f"[mlp] learned {ret['policy']:.2f} > baseline "
           f"{ret['baseline']:.2f} > zero {ret['zero']:.2f}")
 
+    # Phase 5: training through the kernels, this slice's main paths.
+    launches = train_phase()
+
     replaces = {
         "knn_fused": "marl_distributedformation_tpu/ops/knn_pallas.py:117",
         "knn_tiled": "marl_distributedformation_tpu/ops/knn_pallas.py:155",
     }
+    paths = {"knn_fused": "train gnn100", "knn_tiled": "train gnn1024"}
+    # The launches and timings of the training path that launches each
+    # kernel (this slice's main path); those of phase 3's eval under "eval".
     kernels = [
         {"name": name, "route": "cuda",
          "source": "marl_distributedformation_tpu_torch/csrc/knn.cu",
-         "replaces": replaces[name], "launches": launches[name],
-         **stats[name], "library_ms": None}
+         "replaces": replaces[name], "path": paths[name],
+         "launches": launches[name], **stats[name]["train"],
+         "library_ms": None,
+         "eval": {"launches": eval_launches[name], **stats[name]["eval"]}}
         for name in ("knn_fused", "knn_tiled")
     ]
     print(json.dumps({"kernels": kernels}))

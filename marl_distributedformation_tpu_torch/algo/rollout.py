@@ -1,0 +1,105 @@
+"""On-policy rollout collection.
+
+Counterpart of the JAX package's ``algo/rollout.py``: policy forward, action
+sampling, env step and buffer write for ``n_steps`` steps, here a Python
+loop under ``torch.no_grad()`` that never reads back from the device.
+
+As in SB3, the buffer keeps the *unclipped* sample and its log-prob; the env
+is stepped with ``max_speed * clip(action, -1, 1)`` (reference
+vectorized_env.py:69-70), and each formation's ``done`` is broadcast to its
+agents.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from marl_distributedformation_tpu_torch.env.formation import step_batch
+from marl_distributedformation_tpu_torch.env.types import (
+    EnvParams,
+    FormationState,
+    Transition,
+)
+from marl_distributedformation_tpu_torch.models import distributions
+
+Tensor = torch.Tensor
+EnvStepFn = Callable[[FormationState, Tensor], Tuple[FormationState, Transition]]
+
+
+@dataclasses.dataclass
+class RolloutBatch:
+    """Time-major rollout storage."""
+
+    obs: Tensor  # (T, M, N, obs_dim)
+    actions: Tensor  # (T, M, N, act_dim), unclipped samples
+    log_probs: Tensor  # (T, M, N)
+    values: Tensor  # (T, M, N)
+    rewards: Tensor  # (T, M, N)
+    dones: Tensor  # (T, M, N) float32
+    metrics: Dict[str, Tensor]  # per-step env metrics, each (T, M)
+
+
+def policy_forward(
+    model: torch.nn.Module, obs: Tensor
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """``(mean (M, N, act_dim), log_std, value (M, N))`` for ``obs (M, N,
+    obs_dim)``: whole formations for a per-formation model, the flattened
+    agent rows for an agent-factored one."""
+    if model.per_formation:
+        return model(obs)
+    lead = obs.shape[:-1]
+    mean, log_std, value = model(obs.reshape(-1, obs.shape[-1]))
+    return mean.reshape(*lead, -1), log_std, value.reshape(lead)
+
+
+@torch.no_grad()
+def collect_rollout(
+    model: torch.nn.Module,
+    env_state: FormationState,
+    obs: Tensor,
+    generator: Optional[torch.Generator],
+    env_params: EnvParams,
+    n_steps: int,
+    env_step_fn: Optional[EnvStepFn] = None,
+    noise: Optional[Tensor] = None,
+) -> Tuple[FormationState, Tensor, RolloutBatch, Tensor]:
+    """Roll ``n_steps`` steps of M formations under the current policy.
+
+    ``env_step_fn(state, velocity)`` defaults to ``step_batch`` with resets
+    drawn from ``generator``; ``noise (T, M, N, act_dim)`` replaces the
+    generator's action draws. Returns ``(env_state, last_obs, batch,
+    last_value)``.
+    """
+    if env_step_fn is None:
+        def env_step_fn(state, velocity):
+            return step_batch(state, velocity, env_params, generator)
+
+    rows = {k: [] for k in ("obs", "actions", "log_probs", "values",
+                            "rewards", "dones")}
+    metrics: Dict[str, list] = {}
+    for t in range(n_steps):
+        mean, log_std, value = policy_forward(model, obs)
+        if noise is None:
+            action = distributions.sample(generator, mean, log_std)
+        else:
+            action = mean + torch.exp(log_std) * noise[t]
+        log_p = distributions.log_prob(action, mean, log_std)
+        clipped = torch.clamp(action, -1.0, 1.0)
+        env_state, tr = env_step_fn(env_state, env_params.max_speed * clipped)
+        done = tr.done[:, None].expand_as(tr.reward).to(torch.float32)
+        for k, v in (("obs", obs), ("actions", action), ("log_probs", log_p),
+                     ("values", value), ("rewards", tr.reward),
+                     ("dones", done)):
+            rows[k].append(v)
+        for k, v in tr.metrics.items():
+            metrics.setdefault(k, []).append(v)
+        obs = tr.obs
+    _, _, last_value = policy_forward(model, obs)
+    batch = RolloutBatch(
+        **{k: torch.stack(v) for k, v in rows.items()},
+        metrics={k: torch.stack(v) for k, v in metrics.items()},
+    )
+    return env_state, obs, batch, last_value

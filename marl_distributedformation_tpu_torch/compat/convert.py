@@ -1,9 +1,14 @@
-"""Parameters of the JAX package's models as the port's ``state_dict``.
+"""Parameters and Adam state between the JAX package's trees and the port.
 
 The port names its layers as the flax modules do, so the mapping is by path:
-``embed/kernel`` -> ``embed.weight``, ``actor/pi_0/bias`` -> ``actor.pi_0.bias``,
-``log_std`` -> ``log_std``. A flax ``Dense`` kernel is ``(in, out)`` and a
-``torch.nn.Linear`` weight ``(out, in)``, so kernels are transposed.
+``embed/kernel`` <-> ``embed.weight``, ``actor/pi_0/bias`` <->
+``actor.pi_0.bias``, ``log_std`` <-> ``log_std``. A flax ``Dense`` kernel is
+``(in, out)`` and a ``torch.nn.Linear`` weight ``(out, in)``, so kernels are
+transposed. The optimizer state is optax's
+``chain(clip_by_global_norm, adam)`` tree, ``{0: {}, 1: {0: {count, mu,
+nu}, 1: {}}}`` with ``mu`` and ``nu`` shaped like ``{"params": ...}``; the
+port's side of it is a plain ``{"count", "mu", "nu"}`` dict, with ``mu`` and
+``nu`` keyed by parameter name (the fields of ``algo.optim.AdamState``).
 """
 
 from __future__ import annotations
@@ -20,19 +25,23 @@ LAYERS = {
 }
 
 
+def _check_layers(names, policy: str) -> None:
+    if policy not in LAYERS:
+        raise ValueError(f"unknown policy {policy!r}; known: {sorted(LAYERS)}")
+    for top in names:
+        if not top.startswith(LAYERS[policy]):
+            raise ValueError(f"{policy} has no layer {top!r}")
+
+
 def params_from_jax(
     tree: Mapping[str, Any], policy: str
 ) -> Dict[str, torch.Tensor]:
     """``state_dict`` for the port's ``policy`` model from the JAX package's
     parameters, given as nested dicts of numpy arrays (``{"params": ...}``
     or its inner dict)."""
-    if policy not in LAYERS:
-        raise ValueError(f"unknown policy {policy!r}; known: {sorted(LAYERS)}")
     if set(tree) == {"params"}:
         tree = tree["params"]
-    for top in tree:
-        if not top.startswith(LAYERS[policy]):
-            raise ValueError(f"{policy} has no layer {top!r}")
+    _check_layers(tree, policy)
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping[str, Any], prefix: str) -> None:
@@ -48,3 +57,51 @@ def params_from_jax(
 
     walk(tree, "")
     return out
+
+
+def params_to_jax(
+    params: Mapping[str, torch.Tensor], policy: str
+) -> Dict[str, Any]:
+    """The inverse of ``params_from_jax``: ``{"params": nested dicts of
+    float32 numpy arrays}`` in the JAX package's layout."""
+    _check_layers({name.split(".")[0] for name in params}, policy)
+    inner: Dict[str, Any] = {}
+    for name, value in params.items():
+        *path, leaf = name.split(".")
+        node = inner
+        for part in path:
+            node = node.setdefault(part, {})
+        arr = value.detach().cpu().numpy().astype(np.float32)
+        if leaf == "weight":
+            node["kernel"] = np.ascontiguousarray(arr.T)
+        else:
+            node[leaf] = arr
+    return {"params": inner}
+
+
+def opt_state_to_jax(
+    state: Mapping[str, Any], policy: str
+) -> Dict[str, Any]:
+    """optax's ``chain(clip_by_global_norm, adam)`` state tree from the
+    port's ``{"count", "mu", "nu"}``."""
+    adam = {
+        "count": np.asarray(state["count"].cpu().numpy(), np.int32),
+        "mu": params_to_jax(state["mu"], policy),
+        "nu": params_to_jax(state["nu"], policy),
+    }
+    return {"0": {}, "1": {"0": adam, "1": {}}}
+
+
+def opt_state_from_jax(
+    tree: Mapping[str, Any], policy: str
+) -> Dict[str, Any]:
+    """The port's ``{"count", "mu", "nu"}`` on the CPU from optax's state
+    tree as a checkpoint (or flax's ``to_state_dict``) holds it. Keys follow
+    the parameters'."""
+    adam = tree["1"]["0"]
+    return {
+        "count": torch.tensor(int(np.asarray(adam["count"])),
+                              dtype=torch.int32),
+        "mu": params_from_jax(adam["mu"], policy),
+        "nu": params_from_jax(adam["nu"], policy),
+    }

@@ -14,6 +14,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from marl_distributedformation_tpu_torch.algo.rollout import policy_forward
 from marl_distributedformation_tpu_torch.device import DeviceLike, resolve_device
 from marl_distributedformation_tpu_torch.env.baseline import control
 from marl_distributedformation_tpu_torch.env.formation import (
@@ -127,12 +128,7 @@ def policy_act_fn(
     and scaled by ``max_speed`` (reference vectorized_env.py:69-70)."""
 
     def act(agents, goal, obstacles, obs, generator):
-        if model.per_formation:
-            mean, log_std, _ = model(obs)
-        else:
-            flat = obs.reshape(-1, obs.shape[-1])
-            mean, log_std, _ = model(flat)
-            mean = mean.reshape(obs.shape[0], -1, mean.shape[-1])
+        mean, log_std, _ = policy_forward(model, obs)
         a = mean
         if not deterministic:
             a = distributions.sample(generator, mean, log_std)

@@ -1,0 +1,9 @@
+"""The single-run PPO trainer (see ``trainer.py``)."""
+
+from marl_distributedformation_tpu_torch.train.trainer import (  # noqa: F401
+    TrainConfig,
+    Trainer,
+    default_total_timesteps,
+    fill_ent_schedule,
+    make_ppo_iteration,
+)

@@ -1,0 +1,232 @@
+"""Training entry point of the port: the repository's ``python train.py
+name=x`` workflow on PyTorch.
+
+    python -m marl_distributedformation_tpu_torch.train name=myrun
+    python -m marl_distributedformation_tpu_torch.train name=gnn100 \\
+        policy=gnn obs_mode=knn num_agents_per_formation=100 \\
+        num_formation=1024 preset=tpu total_timesteps=30720000
+
+Reads ``cfg/config.yaml`` with ``key=value`` overrides, as the root
+``train.py`` does, and never writes it. ``device`` defaults to ``cuda``; the
+CPU runs only with ``device=cpu``. Metrics go to ``logs/{name}/metrics.jsonl``,
+checkpoints to ``logs/{name}/rl_model_{steps}_steps.msgpack`` and the
+resolved config, with the device that ran it, to ``logs/{name}/config.json``
+(``config_resume.json`` on a resume).
+
+A mistyped key exits with a did-you-mean. A knob of a feature the port does
+not have yet exits naming its ROADMAP item when set to anything but its
+YAML default, as do ``policy=ctde`` and any ``env`` but ``formation``:
+nothing is silently ignored.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+import torch
+
+from marl_distributedformation_tpu_torch.algo import PPOConfig
+from marl_distributedformation_tpu_torch.device import resolve_device
+from marl_distributedformation_tpu_torch.models import (
+    GNNActorCritic,
+    MLPActorCritic,
+)
+from marl_distributedformation_tpu_torch.train.trainer import (
+    TrainConfig,
+    Trainer,
+)
+from marl_distributedformation_tpu_torch.utils.config import (
+    as_override,
+    env_params_from_config,
+    load_config,
+    read_yaml,
+    repo_root,
+    validate_override_keys,
+)
+
+# Keys the entry point reads beyond the YAML's and EnvParams' fields, with
+# the defaults of those the YAML does not list.
+TRAIN_KEYS = ("device", "resume", "guard_retraces", "guard_transfers",
+              "guard_nans")
+_UNLISTED_DEFAULTS = {
+    "guard_retraces": 0, "guard_transfers": False, "guard_nans": False,
+}
+
+# Knobs of features not ported yet, and the ROADMAP item that ports each.
+UNPORTED = {
+    "fused_chunk": "A11 (fused dispatch)",
+    "iters_per_dispatch": "A11 (fused dispatch)",
+    "num_seeds": "A11 (populations)",
+    "learning_rates": "A11 (populations)",
+    "health": "A11 (health word)",
+    "health_grad_norm_max": "A11 (health word)",
+    "health_param_drift_max": "A11 (health word)",
+    "recovery": "A11 (recovery)",
+    "recovery_breach_iters": "A11 (recovery)",
+    "recovery_max_rollbacks": "A11 (recovery)",
+    "recovery_lr_backoff": "A11 (recovery)",
+    "recovery_severity_backoff": "A11 (recovery)",
+    "keep_last_n": "A11 (recovery)",
+    "curriculum": "A9 (hetero and curriculum)",
+    "scenarios": "A6 (scenarios)",
+    "scenario_severity": "A6 (scenarios)",
+    "mesh": "A12 (parallelism)",
+    "architecture": "A12 (Sebulba)",
+    "actor_devices": "A12 (Sebulba)",
+    "transfer_queue_depth": "A12 (Sebulba)",
+    "max_param_staleness": "A12 (Sebulba)",
+    "profile": "A13 (obs)",
+    "profile_iterations": "A13 (obs)",
+    "telemetry": "A13 (obs)",
+    "telemetry_port": "A13 (obs)",
+    "telemetry_reservoir": "A13 (obs)",
+    "ledger": "A13 (obs)",
+    "ledger_reservoir": "A13 (obs)",
+    "guard_retraces": "A14 (static analysis)",
+    "guard_transfers": "A14 (static analysis)",
+    "guard_nans": "A14 (static analysis)",
+}
+# JAX-backend selectors with no meaning here: the port picks its device
+# with ``device``.
+JAX_ONLY = ("platform", "backend")
+
+
+def refuse_unported(cfg) -> None:
+    """Exit when ``cfg`` asks for something the port does not do."""
+    defaults = {**_UNLISTED_DEFAULTS, **read_yaml("cfg/config.yaml")}
+    for key, item in UNPORTED.items():
+        default = as_override(defaults.get(key))
+        if as_override(cfg.get(key, default)) != default:
+            raise SystemExit(
+                f"{key}={cfg[key]!r} is not ported yet (ROADMAP {item}); "
+                f"leave it at {default!r}"
+            )
+    for key in JAX_ONLY:
+        if cfg.get(key) != defaults.get(key):
+            raise SystemExit(
+                f"{key}={cfg[key]!r} selects the JAX backend; the port "
+                "runs on PyTorch and picks its device with device=cuda|cpu"
+            )
+    if cfg.get("policy", "mlp") == "ctde":
+        raise SystemExit("policy=ctde is not ported yet (ROADMAP A8)")
+    if cfg.get("env", "formation") != "formation":
+        raise SystemExit(
+            f"env={cfg['env']!r} is not ported yet (ROADMAP A10); the port "
+            "has env=formation"
+        )
+
+
+def ppo_from_config(cfg) -> PPOConfig:
+    return PPOConfig(
+        n_steps=cfg.n_steps,
+        learning_rate=cfg.learning_rate,
+        ent_coef=cfg.ent_coef,
+        gamma=cfg.gamma,
+        gae_lambda=cfg.gae_lambda,
+        clip_range=cfg.clip_range,
+        clip_range_vf=cfg.get("clip_range_vf"),
+        n_epochs=cfg.n_epochs,
+        batch_size=cfg.batch_size,
+        vf_coef=cfg.vf_coef,
+        max_grad_norm=cfg.max_grad_norm,
+        normalize_advantage=cfg.normalize_advantage,
+        log_std_init=cfg.log_std_init,
+        ent_coef_final=cfg.get("ent_coef_final"),
+        log_std_final=cfg.get("log_std_final"),
+        log_std_decay_start=float(cfg.get("log_std_decay_start") or 0.0),
+    )
+
+
+def train_config_from_config(cfg) -> TrainConfig:
+    run_name = str(cfg.name)  # YAML parses numeric-looking names as ints
+    return TrainConfig(
+        num_formations=cfg.num_formation,
+        total_timesteps=cfg.total_timesteps,
+        seed=cfg.seed,
+        save_freq=cfg.save_freq,
+        name=run_name,
+        log_dir=str(repo_root() / "logs" / run_name),
+        use_wandb=cfg.use_wandb,
+        use_tensorboard=bool(cfg.get("use_tensorboard", False)),
+        resume=bool(cfg.get("resume", False)),
+        log_interval=cfg.log_interval,
+    )
+
+
+def build_model(cfg, env_params, policy: str) -> torch.nn.Module:
+    """The ``policy`` model with the config's tower widths and
+    ``log_std_init``, initialised from a CPU generator seeded with
+    ``seed``."""
+    sizes = cfg.get("hidden_sizes")
+    extra = {"hidden": tuple(int(w) for w in sizes)} if sizes else {}
+    gen = torch.Generator().manual_seed(int(cfg.seed))
+    if policy == "gnn":
+        if env_params.obs_mode != "knn":
+            raise SystemExit(
+                "policy=gnn needs the k-NN observation graph: set "
+                "obs_mode=knn (and knn_k) in the config"
+            )
+        return GNNActorCritic(
+            k=env_params.knn_k, act_dim=env_params.act_dim,
+            goal_in_obs=env_params.goal_in_obs,
+            log_std_init=cfg.log_std_init, generator=gen, **extra,
+        )
+    if policy == "mlp":
+        return MLPActorCritic(
+            env_params.obs_dim, env_params.act_dim,
+            log_std_init=cfg.log_std_init, generator=gen, **extra,
+        )
+    raise SystemExit(
+        f"policy={policy!r} is not implemented; the port has mlp and gnn"
+    )
+
+
+def snapshot_config(cfg, log_dir: str, device: torch.device) -> Path:
+    """The resolved config and the device that ran it, as JSON:
+    ``config.json``, or ``config_resume.json`` on a resume."""
+    path = Path(log_dir)
+    path.mkdir(parents=True, exist_ok=True)
+    out = path / ("config_resume.json" if cfg.get("resume") else "config.json")
+    snap = dict(cfg)
+    snap["resolved_platform"] = device.type
+    snap["resolved_device"] = (
+        torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    )
+    with open(out, "w") as f:
+        json.dump(snap, f, indent=2, default=str)
+    return out
+
+
+def build_trainer(argv=None) -> Trainer:
+    """The run ``argv`` (or the command line) asks for, set up but not
+    started; writes the config snapshot."""
+    overrides = sys.argv[1:] if argv is None else list(argv)
+    validate_override_keys(overrides, extra_keys=TRAIN_KEYS)
+    cfg = load_config(overrides)
+    refuse_unported(cfg)
+    device = resolve_device(cfg.get("device"))
+    env_params = env_params_from_config(cfg)
+    trainer = Trainer(
+        env_params,
+        ppo=ppo_from_config(cfg),
+        config=train_config_from_config(cfg),
+        model=build_model(cfg, env_params, cfg.get("policy", "mlp")),
+        device=device,
+    )
+    snapshot_config(cfg, trainer.log_dir, device)
+    print(
+        f"[train] {cfg.name}: M={cfg.num_formation} formations x "
+        f"N={cfg.num_agents_per_formation} agents, "
+        f"{trainer.total_timesteps} agent-transitions on {device}, "
+        f"logs -> {trainer.log_dir}"
+    )
+    return trainer
+
+
+def main(argv=None) -> Trainer:
+    trainer = build_trainer(argv)
+    final = trainer.train()
+    print(f"[train] done at {trainer.num_timesteps} steps: {final}")
+    return trainer

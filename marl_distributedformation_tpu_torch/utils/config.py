@@ -1,10 +1,10 @@
 """``cfg/config.yaml`` with hydra-style ``key=value`` overrides.
 
 A copy of the part of the JAX package's ``utils/config.py`` that evaluation
-needs: ``load_config``, ``apply_overrides``, ``validate_override_keys`` and
-``env_params_from_config`` for ``env=formation``. The port reads the same
-YAML file and never writes it. Presets and other environments come with
-later slices.
+and training need: ``load_config`` with ``PRESETS``, ``apply_overrides``,
+``validate_override_keys`` and ``env_params_from_config`` for
+``env=formation``. The port reads the same YAML file and never writes it.
+Other environments come with a later slice.
 """
 
 from __future__ import annotations
@@ -46,13 +46,21 @@ def _parse_value(raw: str) -> Any:
     return value
 
 
+def as_override(value: Any) -> Any:
+    """``value`` as the override of its own text would parse: YAML leaves
+    ``1.0e6`` a string, an override makes it a float."""
+    if isinstance(value, str):
+        return _parse_value(value)
+    return value
+
+
 def _to_config(data: Any) -> Any:
     if isinstance(data, dict):
         return Config({k: _to_config(v) for k, v in data.items()})
     return data
 
 
-def _read_yaml(config_path: str) -> Dict[str, Any]:
+def read_yaml(config_path: str) -> Dict[str, Any]:
     path = Path(config_path)
     if not path.is_absolute() and not path.exists():
         path = repo_root() / config_path
@@ -75,18 +83,37 @@ def apply_overrides(cfg: Dict[str, Any], overrides: Iterable[str]) -> None:
         target[parts[-1]] = _parse_value(raw)
 
 
+# Named hyperparameter bundles (``preset=tpu``), as in the JAX package.
+# Precedence: YAML defaults < preset < explicit CLI overrides.
+PRESETS: Dict[str, Dict[str, Any]] = {
+    "tpu": {"batch_size": 16384},
+}
+
+
 def load_config(
     overrides: Optional[List[str]] = None,
     config_path: str = "cfg/config.yaml",
 ) -> Config:
-    """The YAML config with CLI overrides applied. A ``preset`` other than
-    null raises: presets are training settings, not yet ported."""
-    cfg = _to_config(_read_yaml(config_path))
-    apply_overrides(cfg, list(overrides or []))
-    if cfg.get("preset"):
-        raise ValueError(
-            f"preset={cfg['preset']!r}: presets are not ported yet"
-        )
+    """The YAML config with its ``preset`` and then the CLI overrides
+    applied. An unknown preset raises."""
+    data = read_yaml(config_path)
+    cfg = _to_config(data)
+    overrides = list(overrides or [])
+    preset = next(
+        (
+            _parse_value(o.split("=", 1)[1])
+            for o in reversed(overrides)
+            if "=" in o and o.split("=", 1)[0] == "preset"
+        ),
+        data.get("preset"),
+    )
+    if preset:
+        if preset not in PRESETS:
+            raise ValueError(
+                f"unknown preset {preset!r}; available: {sorted(PRESETS)}"
+            )
+        cfg.update(_to_config(PRESETS[preset]))
+    apply_overrides(cfg, overrides)
     return cfg
 
 
@@ -98,7 +125,7 @@ def validate_override_keys(
     """Exit on a mistyped override key. Valid keys are the YAML's, the
     fields of ``EnvParams`` and ``extra_keys``; a dotted key validates its
     first segment."""
-    known = set(_read_yaml(config_path))
+    known = set(read_yaml(config_path))
     known |= {f.name for f in dataclasses.fields(EnvParams)}
     known |= {"env"} | set(extra_keys)
     for item in overrides:

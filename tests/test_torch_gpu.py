@@ -1,4 +1,5 @@
-"""The CUDA k-NN kernels against the plain PyTorch version, on the card.
+"""The CUDA k-NN kernels against the plain PyTorch version, and training
+through them, on the card.
 
 Marked ``gpu``: each test skips when no CUDA device is found. This file
 imports neither JAX nor the JAX package, so that it runs on a machine with
@@ -7,7 +8,9 @@ PyTorch alone:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 (``--noconftest`` because ``tests/conftest.py`` configures JAX.) Tolerance:
-``idx`` and offsets bitwise, distances within 1 ulp.
+``idx`` and offsets bitwise, distances within 1 ulp; a rollout through the
+kernels equals the plain path's bitwise (forward only: the GNN's backward
+scatters with atomics, so training on the card is not bitwise repeatable).
 """
 
 import math
@@ -182,3 +185,93 @@ def test_kernels_refuse_bad_inputs(cuda):
         knn_cuda.knn_fused(pts.transpose(0, 1), 4)
     with pytest.raises(TypeError, match="bool"):
         knn_cuda.knn_tiled(pts, 4, torch.ones(2, 20, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# Training on the card
+# ---------------------------------------------------------------------------
+
+
+def _trainer(tmp_path, params, m, model):
+    from marl_distributedformation_tpu_torch.algo import PPOConfig
+    from marl_distributedformation_tpu_torch.train import TrainConfig, Trainer
+
+    return Trainer(
+        params, PPOConfig(n_epochs=2, batch_size=256),
+        TrainConfig(num_formations=m, log_dir=str(tmp_path),
+                    checkpoint=False),
+        model=model, device="cuda",
+    )
+
+
+def _gnn(params):
+    from marl_distributedformation_tpu_torch.models import GNNActorCritic
+
+    return GNNActorCritic(k=params.knn_k,
+                          generator=torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("kind", ["mlp", "gnn"])
+def test_training_iteration_on_cuda(cuda, tmp_path, kind):
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.train.trainer import (
+        metrics_to_host,
+    )
+
+    if kind == "mlp":
+        from marl_distributedformation_tpu_torch.models import MLPActorCritic
+
+        params = EnvParams()
+        model = MLPActorCritic(params.obs_dim,
+                               generator=torch.Generator().manual_seed(0))
+    else:
+        params = EnvParams(num_agents=100, obs_mode="knn", knn_k=4)
+        model = _gnn(params)
+    trainer = _trainer(tmp_path, params, 16, model)
+    before = [p.detach().clone() for p in trainer.model.parameters()]
+    metrics = metrics_to_host(trainer.run_iteration())
+    assert all(math.isfinite(v) for v in metrics.values()), metrics
+    after = list(trainer.model.parameters())
+    assert all(torch.isfinite(p).all() for p in after)
+    assert any(not torch.equal(a, b) for a, b in zip(after, before))
+    assert int(trainer.opt_state.count) == trainer.step > 0
+
+
+@pytest.mark.parametrize("n,name", [(100, "knn_fused"), (700, "knn_tiled")])
+def test_training_launch_counts(cuda, tmp_path, n, name):
+    from marl_distributedformation_tpu_torch.env import EnvParams
+
+    params = EnvParams(num_agents=n, obs_mode="knn", knn_k=4)
+    knn_cuda.reset_launches()
+    trainer = _trainer(tmp_path, params, 2, _gnn(params))
+    trainer.run_iteration()
+    torch.cuda.synchronize()
+    other = "knn_tiled" if name == "knn_fused" else "knn_fused"
+    # One search at reset, one a rollout step.
+    assert knn_cuda.LAUNCHES == {name: 1 + trainer.ppo.n_steps, other: 0}
+
+
+def test_rollout_kernel_path_equals_plain_path(cuda):
+    from marl_distributedformation_tpu_torch.algo import collect_rollout
+    from marl_distributedformation_tpu_torch.env import (
+        EnvParams,
+        compute_obs,
+        reset_batch,
+    )
+
+    base = EnvParams(num_agents=100, obs_mode="knn", knn_k=4, max_steps=4)
+    model = _gnn(base).to(cuda)
+    runs = {}
+    for impl in ("auto", "torch"):
+        params = base.replace(knn_impl=impl)
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        state = reset_batch(params, 32, gen, cuda)
+        obs = compute_obs(state.agents, state.goal, params)
+        runs[impl] = collect_rollout(model, state, obs, gen, params, 10)
+    (s1, o1, b1, v1), (s2, o2, b2, v2) = runs["auto"], runs["torch"]
+    for field in ("obs", "actions", "log_probs", "values", "rewards",
+                  "dones"):
+        assert torch.equal(getattr(b1, field), getattr(b2, field)), field
+    assert torch.equal(o1, o2) and torch.equal(v1, v2)
+    assert torch.equal(s1.agents, s2.agents)
+    assert float(b1.dones.sum()) > 0  # resets inside the rollout

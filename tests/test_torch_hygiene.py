@@ -16,6 +16,9 @@ from marl_distributedformation_tpu_torch import evaluate as evaluate_cli
 from marl_distributedformation_tpu_torch.device import resolve_device
 from marl_distributedformation_tpu_torch.env import EnvParams, make_vec_env
 from marl_distributedformation_tpu_torch.eval import evaluate, zero_act_fn
+from marl_distributedformation_tpu_torch.models import MLPActorCritic
+from marl_distributedformation_tpu_torch.train import TrainConfig, Trainer
+from marl_distributedformation_tpu_torch.train import cli as train_cli
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "marl_distributedformation_tpu_torch"
@@ -49,6 +52,9 @@ SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 def test_sources_found():
     names = {p.name for p in SOURCES}
     assert {"knn.py", "knn_cuda.py", "gnn.py", "eval.py", "chip_smoke.py"} <= names
+    assert {"gae.py", "optim.py", "ppo.py", "rollout.py", "trainer.py",
+            "cli.py", "__main__.py", "logging.py", "checkpoint.py",
+            "convert.py"} <= names
     assert (PORT / "csrc" / "knn.cu").exists()
 
 
@@ -85,6 +91,11 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked_for(monkeypatch):
         make_vec_env(params, 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         evaluate_cli.main(["eval_formations=2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(params, config=TrainConfig(num_formations=2),
+                model=MLPActorCritic(params.obs_dim))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cli.main(["num_formation=2", "total_timesteps=10"])
     assert resolve_device("cpu") == torch.device("cpu")
     assert evaluate(zero_act_fn(), params, 2, device="cpu")["episodes"] == 2
     assert not torch.backends.cuda.matmul.allow_tf32

@@ -1,0 +1,301 @@
+"""The port's trainer and its ``train`` CLI against the JAX package on the
+CPU: configs and their defaults, one whole iteration with the JAX package's
+noise, resets and permutations injected, the CLI's outputs, the knobs it
+refuses, and a short learning run of the port alone.
+
+Tolerances: after the injected iteration, params within
+``tests/adam_budget.py::adam_parity_atol`` and ``mu``/``nu`` within the same
+budget relative to each leaf's largest value, ``count`` exact; the
+iteration's scalar metrics within ``trajectory_rtol`` (they feel the
+parameter drift through the minibatches), the rollout's own metrics within
+``rtol=1e-4``.
+"""
+
+import dataclasses
+import json
+
+import jax
+import numpy as np
+import pytest
+import torch
+from flax import serialization
+from flax.training.train_state import TrainState
+
+from adam_budget import adam_parity_atol, trajectory_rtol
+from marl_distributedformation_tpu.algo import PPOConfig as JaxPPOConfig
+from marl_distributedformation_tpu.env.formation import (
+    compute_obs as jax_compute_obs,
+    reset_batch as jax_reset_batch,
+)
+from marl_distributedformation_tpu.train import TrainConfig as JaxTrainConfig
+from marl_distributedformation_tpu.train import Trainer as JaxTrainer
+from marl_distributedformation_tpu.train.trainer import (
+    default_total_timesteps as jax_default_total_timesteps,
+    fill_ent_schedule as jax_fill_ent_schedule,
+    make_ppo_iteration as jax_make_ppo_iteration,
+)
+from marl_distributedformation_tpu.utils.config import (
+    load_config as jax_load_config,
+)
+from marl_distributedformation_tpu_torch.algo import PPOConfig, adam_init
+from marl_distributedformation_tpu_torch.compat.convert import (
+    opt_state_to_jax,
+    params_to_jax,
+)
+from marl_distributedformation_tpu_torch.env import EnvParams
+from marl_distributedformation_tpu_torch.models import MLPActorCritic
+from marl_distributedformation_tpu_torch.train import (
+    TrainConfig,
+    Trainer,
+    default_total_timesteps,
+    fill_ent_schedule,
+    make_ppo_iteration,
+)
+from marl_distributedformation_tpu_torch.train import cli as train_cli
+from marl_distributedformation_tpu_torch.utils.config import load_config
+from test_torch_algo import (
+    GNN_K,
+    GNN_N,
+    _configs,
+    _jax_permutations,
+    _pair,
+    assert_tree_close,
+    injected_env_step,
+    jax_rollout_noise,
+    t,
+)
+from test_torch_env import jax_params, to_port
+from test_torch_models import np_tree
+
+LR = 1e-3
+
+
+def _defaults(cls):
+    return {f.name: f.default for f in dataclasses.fields(cls)}
+
+
+def test_ppo_config_fields_and_defaults_equal_jax():
+    assert _defaults(PPOConfig) == _defaults(JaxPPOConfig)
+
+
+def test_train_config_ported_fields_have_jax_defaults():
+    jax_fields = _defaults(JaxTrainConfig)
+    port = _defaults(TrainConfig)
+    assert set(port) == {
+        "num_formations", "total_timesteps", "seed", "save_freq",
+        "checkpoint", "name", "log_dir", "use_wandb", "use_tensorboard",
+        "resume", "log_interval",
+    }
+    for name, default in port.items():
+        assert jax_fields[name] == default, name
+
+
+@pytest.mark.parametrize("total", [None, 12345])
+def test_budget_and_schedule_horizon_match_jax(total):
+    params = EnvParams(num_agents=7)
+    cfg, jcfg = TrainConfig(num_formations=13, total_timesteps=total), \
+        JaxTrainConfig(num_formations=13, total_timesteps=total)
+    assert default_total_timesteps(cfg) == jax_default_total_timesteps(jcfg)
+    sched = dict(ent_coef_final=0.0)
+    got = fill_ent_schedule(PPOConfig(**sched), params, cfg)
+    want = jax_fill_ent_schedule(JaxPPOConfig(**sched),
+                                 jax_params(params), jcfg)
+    assert got.total_iterations == want.total_iterations > 0
+    assert fill_ent_schedule(PPOConfig(), params, cfg) == PPOConfig()
+
+
+def test_presets_as_jax():
+    for overrides in (["preset=tpu"], ["preset=tpu", "batch_size=4096"], []):
+        assert load_config(overrides) == jax_load_config(overrides)
+    assert load_config(["preset=tpu"]).batch_size == 16384
+    assert load_config(["preset=tpu", "batch_size=4096"]).batch_size == 4096
+    with pytest.raises(ValueError, match="unknown preset"):
+        load_config(["preset=gpu"])
+
+
+ITERATION_CASES = {
+    # 200 agent rows of 64: three minibatches, eight rows dropped.
+    "ring_mlp": (EnvParams(num_agents=5, max_steps=4), "mlp", 64),
+    # 40 formation rows, 40 // N = 4 formations a minibatch.
+    "knn_gnn": (EnvParams(num_agents=GNN_N, obs_mode="knn", knn_k=GNN_K,
+                          max_steps=4), "gnn", 40),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ITERATION_CASES))
+def test_make_ppo_iteration_injected_matches(case):
+    params, kind, batch_size = ITERATION_CASES[case]
+    per_formation = kind == "gnn"
+    jp = jax_params(params)
+    jmodel, jvars, model, policy = _pair(kind)
+    jcfg, cfg = _configs(n_epochs=2, batch_size=batch_size)
+    m, n = 4, params.num_agents
+    jstate = jax_reset_batch(jax.random.PRNGKey(21), jp, m)
+    jobs = jax_compute_obs(jstate.agents, jstate.goal, jp)
+    ts = TrainState.create(apply_fn=jmodel.apply, params=jvars,
+                           tx=jcfg.make_optimizer())
+    key = jax.random.PRNGKey(22)
+    iteration = jax.jit(jax_make_ppo_iteration(jp, jcfg, per_formation))
+    ts, jend, jlast_obs, _, jmetrics = iteration(ts, jstate, jobs, key)
+
+    _, k_roll, k_update = jax.random.split(key, 3)
+    rows = cfg.n_steps * m * (1 if per_formation else n)
+    mb = batch_size // n if per_formation else batch_size
+    used = rows // mb * mb
+    state = adam_init(dict(model.named_parameters()))
+    port_iteration = make_ppo_iteration(
+        params, cfg, per_formation, env_step_fn=injected_env_step(jstate,
+                                                                  params))
+    step, end, last_obs, metrics = port_iteration(
+        model, state, 0, to_port(jstate), t(jobs), None,
+        noise=jax_rollout_noise(k_roll, cfg.n_steps, (m, n, 2)),
+        permutations=_jax_permutations(k_update, 2, rows, used),
+    )
+    updates = 2 * (rows // mb)
+    assert step == updates == int(ts.step)
+    atol = adam_parity_atol(LR, updates)
+    got, ref = params_to_jax(dict(model.named_parameters()), policy), \
+        np_tree(ts.params)
+    for a, b in zip(jax.tree_util.tree_leaves(got),
+                    jax.tree_util.tree_leaves(ref)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=atol)
+    jopt = serialization.to_state_dict(ts.opt_state)["1"]["0"]
+    popt = opt_state_to_jax(vars(state), policy)["1"]["0"]
+    assert int(popt["count"]) == int(jopt["count"]) == updates
+    for moment in ("mu", "nu"):
+        assert_tree_close(popt[moment], np_tree(jopt[moment]), rtol=0,
+                          floor=atol, what=moment)
+    np.testing.assert_array_equal(end.steps.numpy(), np.asarray(jend.steps))
+    assert set(metrics) == set(jmetrics)
+    rollout_keys = {"reward", "episode_dones", "avg_dist_to_goal",
+                    "ave_dist_to_neighbor", "std_dist_to_neighbor",
+                    "close_to_goal_reward", "reward_dist",
+                    "reward_right_neighbor", "reward_left_neighbor"}
+    assert rollout_keys <= set(metrics)
+    assert float(metrics["episode_dones"]) == float(jmetrics["episode_dones"])
+    for k in jmetrics:
+        rtol = 1e-4 if k in rollout_keys else trajectory_rtol(LR, updates)
+        np.testing.assert_allclose(float(metrics[k]), float(jmetrics[k]),
+                                   rtol=rtol, atol=1e-6, err_msg=k)
+
+
+def test_port_learns_on_cpu(tmp_path):
+    """Ring/MLP, M=8, six iterations from a fixed seed (deterministic on the
+    CPU): the mean reward of the last two iterations beats the first two."""
+    params = EnvParams()
+    trainer = Trainer(
+        params,
+        config=TrainConfig(num_formations=8, total_timesteps=6 * 400,
+                           seed=3, log_dir=str(tmp_path), checkpoint=False),
+        model=MLPActorCritic(params.obs_dim, params.act_dim,
+                             generator=torch.Generator().manual_seed(3)),
+        device="cpu",
+    )
+    rewards = []
+    while trainer.num_timesteps < trainer.total_timesteps:
+        rewards.append(float(trainer.run_iteration()["reward"]))
+    assert np.mean(rewards[-2:]) > np.mean(rewards[:2]), rewards
+
+
+# ---------------------------------------------------------------------------
+# The CLI
+# ---------------------------------------------------------------------------
+
+TINY = ["num_formation=2", "total_timesteps=200", "n_epochs=2",
+        "ent_coef_final=0.0", "log_std_final=-1.0"]
+
+
+def _records(path):
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def test_train_cli_writes_jax_trainers_outputs(tmp_path, monkeypatch):
+    monkeypatch.setattr(train_cli, "repo_root", lambda: tmp_path)
+    trainer = train_cli.main(["name=tiny", "device=cpu", *TINY])
+    run = tmp_path / "logs" / "tiny"
+    records = _records(run / "metrics.jsonl")
+    assert len(records) == 2 and trainer.num_timesteps == 200
+    assert [r["step"] for r in records] == [100, 200]
+    assert (run / "rl_model_200_steps.msgpack").exists()
+    snap = json.loads((run / "config.json").read_text())
+    assert snap["resolved_platform"] == "cpu" and snap["n_epochs"] == 2
+
+    # The JAX trainer at the same config writes the same keys.
+    cfg = jax_load_config(TINY)
+    from train import ppo_from_config as jax_ppo_from_config
+
+    jax_run = tmp_path / "jax"
+    JaxTrainer(
+        jax_params(EnvParams()), ppo=jax_ppo_from_config(cfg),
+        config=JaxTrainConfig(num_formations=2, total_timesteps=200,
+                              log_dir=str(jax_run), checkpoint=False),
+    ).train()
+    want = _records(jax_run / "metrics.jsonl")
+    assert len(want) == 2
+    assert set(records[0]) == set(want[0])
+    assert {"ent_coef", "log_std_ceiling", "grad_norm"} <= set(records[0])
+
+
+def _other(value):
+    """An override value different from a YAML default."""
+    if isinstance(value, bool):
+        return str(not value).lower()
+    if isinstance(value, (int, float)):
+        return str(value + 1)
+    if value is None:
+        return "1"
+    return "sebulba"
+
+
+@pytest.mark.parametrize("key", sorted(train_cli.UNPORTED))
+def test_train_cli_refuses_unported_knobs(key):
+    default = {**train_cli._UNLISTED_DEFAULTS,
+               **load_config([])}.get(key)
+    item = train_cli.UNPORTED[key].split()[0]
+    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
+        train_cli.main([f"{key}={_other(default)}", "device=cpu"])
+    # The default itself passes the check.
+    train_cli.refuse_unported(load_config([f"{key}={default}"]
+                                          if default is not None else []))
+
+
+@pytest.mark.parametrize("override,match", [
+    ("policy=ctde", "ROADMAP A8"),
+    ("env=pursuit_evasion", "ROADMAP A10"),
+    ("platform=cpu", "device=cuda"),
+    ("backend=torch", "device=cuda"),
+    ("num_formations=4", "did you mean 'num_formation'"),
+    ("policy=transformer", "not implemented"),
+])
+def test_train_cli_refuses(override, match):
+    with pytest.raises(SystemExit, match=match):
+        train_cli.main([override, "device=cpu", "total_timesteps=0"])
+
+
+def test_metrics_logger_as_jax(tmp_path, capsys):
+    """JSONL records of ``{step, time, **metrics}``, a brief stderr line on
+    the 1st, 11th, ... record, and a notice for an optional backend that is
+    missing, as the JAX package's logger does."""
+    import importlib.util
+
+    from marl_distributedformation_tpu_torch.utils.logging import (
+        MetricsLogger,
+        Throughput,
+    )
+
+    logger = MetricsLogger(tmp_path, use_wandb=True)
+    for i in range(12):
+        logger.log({"reward": -float(i), "loss": 2.0}, step=100 * (i + 1))
+    logger.close()
+    records = _records(tmp_path / "metrics.jsonl")
+    assert len(records) == 12 and list(records[0]) == [
+        "step", "time", "reward", "loss"]
+    err = capsys.readouterr()
+    assert err.err.count("[metrics] step=") == 2
+    if importlib.util.find_spec("wandb") is None:
+        assert "wandb unavailable" in err.out
+    meter = Throughput(window=2)
+    assert meter.rate() == 0.0
+    for _ in range(4):
+        meter.tick(10)
+    assert meter.rate() > 0.0
