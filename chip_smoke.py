@@ -23,24 +23,33 @@ Phases (any failure exits non-zero):
    kernel path equals the plain path end to end on a small batch.
 4. Evaluate the committed MLP checkpoint (N=5, M=4096, full episode) through
    the port's evaluate CLI: learned > baseline > zero.
-5. Train through the port's ``train`` CLI on the card:
+5. Train through the port's ``train`` CLI on the card, the iteration
+   captured as CUDA graphs (``train/capture.py``):
    - ``gnn100``, the published 100-agent command (GNN, k=4, M=1024,
-     ``preset=tpu``, 30 iterations): ``knn_fused`` must launch 1 + 30 x 10
-     times; the mean reward of the last 3 iterations must beat the first 3
-     by 20 and be above 0; the checkpoint it wrote, evaluated through the
-     evaluate CLI (M=1024, full episode), must rank learned > baseline >
-     zero. Seconds an iteration split into rollout and update (CUDA events
-     at the phase boundaries), formation-steps/s, agent-transitions/s and
-     peak memory are printed.
+     ``preset=tpu``, 30 iterations) with ``fused_chunk=10``: ``knn_fused``
+     must launch 1 + 30 x 10 times, counted by replay; the mean reward of
+     the last 3 iterations must beat the first 3 by 20 and be above 0; the
+     checkpoint it wrote, evaluated through the evaluate CLI (M=1024, full
+     episode), must rank learned > baseline > zero. Then the same command
+     eagerly for 3 iterations, for the captured-to-eager ratio.
    - ``gnn1024`` (M=8, N=1024, ``preset=tpu``, 12 iterations): ``knn_tiled``
-     must launch 1 + 12 x 10 times; the mean reward of the last 3 iterations
-     must beat the first 3.
-   - the ring/MLP default (M=1000, N=5, ``batch_size=64``), 2 iterations,
-     timed with its optimizer steps/s.
+     must launch 1 + 12 x 10 times; the last 3 iterations must beat the
+     first 3.
+   - the ring/MLP default (M=1000, N=5, ``batch_size=64``), 2 iterations
+     captured and 1 eager.
+   - for every run: seconds an iteration split into rollout and update
+     (CUDA events between graph replays), formation-steps/s,
+     agent-transitions/s, peak memory, each graph's nodes and capture
+     time, and the device's busy share over one profiled captured
+     iteration.
    - a 10-step rollout of each trained GNN at its training shape (N=100,
-     M=1024; N=1024, M=8) through the kernel and through the plain k-NN
-     from one seed: bitwise equal.
-   - ``torch.profiler`` over one more ``gnn100`` iteration.
+     M=1024; N=1024, M=8), captured through the kernel, against an eager
+     rollout through the plain k-NN from one generator state: bitwise.
+   - captured against eager training from one seed: the ring/MLP (M=64)
+     bitwise after 3 iterations; the GNN (N=100, M=64) within the Adam
+     budget (its gather's backward adds with atomics).
+   - a ``health=true recovery=true`` run poisoned with NaN once: it must
+     end on finite parameters with a rollback in ``recovery.jsonl``.
 6. Print the kernels' JSON line (launches and timings at the training
    paths' shapes, those of the eval paths under ``eval``), the card line,
    and the last line ``{"ok": true, "device": {...}}``.
@@ -69,6 +78,15 @@ F32_OPS_PER_S = 67e12
 # for the squared distance and 1 compare against the k-th best.
 OPS_PER_PAIR = 6
 TOL_ULP = 1
+
+
+START = time.perf_counter()
+
+
+def elapsed(label: str) -> None:
+    """The script's wall time so far, after ``label``: the whole run must
+    stay well inside its 1200 s."""
+    print(f"[time] {label}: {time.perf_counter() - START:.1f} s since start")
 
 
 def card_line() -> str:
@@ -342,39 +360,39 @@ GNN1024 = ("policy=gnn", "obs_mode=knn", "num_agents_per_formation=1024",
 MLP_DEFAULT = ("total_timesteps=100000",)  # M=1000, N=5: 2 iterations
 TPU_GNN100_CURVE = {1: -37.56, 5: -25.94, 10: -9.49, 20: 7.74, 30: 8.71}
 LEARN_MARGIN = 20.0
+# A captured phase runs eagerly on its first call and is captured on its
+# second, so the first two iterations build; the steady split leaves them
+# out (one for an eager run).
+WARM_ITERATIONS = {True: 2, False: 1}
 
 
 def record_phases(trainer):
-    """Wraps ``trainer.run_iteration`` so that each iteration records CUDA
-    events at its start, after rollout and GAE, and at its end; returns the
-    list the events go into, one triple an iteration."""
+    """Records a CUDA event at the start of each iteration, after its
+    rollout (and GAE) and at its end, through ``Trainer.phase_hook``;
+    returns the list the events go into, one triple an iteration."""
     import torch
 
     phases = []
-    run = trainer.run_iteration
 
-    def timed():
-        events = []
-        phases.append(events)
+    def hook(phase):
+        if phase == "rollout":
+            phases.append([])
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        phases[-1].append(event)
 
-        def mark(phase):
-            event = torch.cuda.Event(enable_timing=True)
-            event.record()
-            events.append(event)
-
-        return run(mark=mark)
-
-    trainer.run_iteration = timed
+    trainer.phase_hook = hook
     return phases
 
 
-def train_run(name, overrides, label):
+def train_run(name, overrides, label, capture=True):
     """One run of the port's ``train`` CLI on the card (``build_trainer``
     then ``Trainer.train``, as its ``main`` runs them), the launch counts
-    set to 0 just before it and read just after. Prints the time an
-    iteration (the first, which builds and warms up, left out of the
-    steady split), throughput and peak memory; returns ``(trainer, rewards
-    an iteration, launches)``."""
+    set to 0 just before it and read just after; ``capture=False`` runs the
+    iteration eagerly. Prints the time an iteration (the warm-up and
+    capture iterations left out of the steady split), throughput, peak
+    memory and the graphs' sizes; returns ``(trainer, rewards an
+    iteration, launches, steady s/iteration)``."""
     import shutil
 
     import torch
@@ -387,36 +405,48 @@ def train_run(name, overrides, label):
     torch.cuda.reset_peak_memory_stats()
     knn_cuda.reset_launches()
     t0 = time.perf_counter()
-    trainer = cli.build_trainer([f"name={name}", "device=cuda", *overrides])
+    trainer = cli.build_trainer([f"name={name}", "device=cuda", *overrides],
+                                capture=capture)
     events = record_phases(trainer)
     trainer.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(knn_cuda.LAUNCHES)
-    del trainer.run_iteration  # the class's own again
+    trainer.phase_hook = None
     lines = (Path(trainer.log_dir) / "metrics.jsonl").read_text().splitlines()
     records = [json.loads(line) for line in lines]
     for r in records:
         if not all(math.isfinite(v) for v in r.values()):
             raise AssertionError(f"{label}: non-finite metrics {r}")
-    iters = len(records)
+    iters = len(events)
+    if len(records) != iters:
+        raise AssertionError(f"{label}: {len(records)} records of {iters} "
+                             "iterations")
     phase_ms = [(e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2]))
                 for e in events]
-    phases = phase_ms[1:] or phase_ms
+    phases = phase_ms[WARM_ITERATIONS[capture]:] or phase_ms
     roll, upd = mean(p[0] for p in phases), mean(p[1] for p in phases)
-    rate = records[-1]["env_steps_per_sec"]
+    s_iter = (roll + upd) / 1e3
+    m = trainer.config.num_formations
     n = trainer.env_params.num_agents
+    rate = trainer.ppo.n_steps * m / s_iter
     steps_per_iter = trainer.step // iters
-    print(f"[train] {label}: {iters} iterations in {wall:.2f} s "
-          f"({wall / iters:.3f} s each with start-up and saves); steady "
-          f"{(roll + upd) / 1e3:.4f} s/iteration = rollout+GAE "
-          f"{roll / 1e3:.4f} + update {upd / 1e3:.4f} "
+    graphs = "; ".join(
+        f"{g['phase']} {g['nodes']} nodes, captured in "
+        f"{g['capture_s']:.3f} s, {g['calls']} calls"
+        for g in trainer.graph_stats() if g["capture_s"] is not None
+    ) or "none (eager)"
+    print(f"[train] {label} ({'captured' if capture else 'eager'}): {iters} "
+          f"iterations in {wall:.2f} s ({wall / iters:.3f} s each with "
+          f"start-up, capture and saves); steady {s_iter:.4f} s/iteration = "
+          f"rollout+GAE {roll / 1e3:.4f} + update {upd / 1e3:.4f} "
           f"({steps_per_iter} optimizer steps, "
           f"{steps_per_iter / (upd / 1e3):.1f}/s); {rate:.1f} "
-          f"formation-steps/s, {rate * n:.1f} agent-transitions/s; peak "
+          f"formation-steps/s, {rate * n:.1f} agent-transitions/s "
+          f"(metrics.jsonl: {records[-1]['env_steps_per_sec']:.1f}); peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
-          f"{launches}")
-    return trainer, [r["reward"] for r in records], launches
+          f"{launches}; graphs: {graphs}")
+    return trainer, [r["reward"] for r in records], launches, s_iter
 
 
 def learning_check(rewards, label, margin):
@@ -429,10 +459,12 @@ def learning_check(rewards, label, margin):
     return first3, last3
 
 
-def rollout_kernel_equals_plain(model, n, m):
-    """A 10-step rollout of ``model`` on M formations of N agents through
-    the k-NN kernel ``auto`` picks and through the plain k-NN, from one
-    generator seed: bitwise equal."""
+def rollout_graph_equals_plain(model, n, m):
+    """A 10-step rollout of ``model`` on M formations of N agents captured
+    as a CUDA graph through the k-NN kernel ``auto`` picks (warmed up,
+    captured, replayed from the generator's state at capture) against an
+    eager rollout through the plain k-NN from the same state: bitwise
+    equal. The kernel's launches count by replay."""
     import torch
 
     from marl_distributedformation_tpu_torch.algo import collect_rollout
@@ -441,6 +473,8 @@ def rollout_kernel_equals_plain(model, n, m):
         compute_obs,
         reset_batch,
     )
+    from marl_distributedformation_tpu_torch.ops import knn_cuda
+    from marl_distributedformation_tpu_torch.train.capture import PhaseGraph
 
     dev = torch.device("cuda")
     runs = {}
@@ -450,15 +484,160 @@ def rollout_kernel_equals_plain(model, n, m):
         gen = torch.Generator(device=dev).manual_seed(17)
         state = reset_batch(params, m, gen, dev)
         obs = compute_obs(state.agents, state.goal, params)
-        runs[impl] = collect_rollout(model, state, obs, gen, params, 10)
+        start = gen.get_state()
+        out = []
+
+        def rollout():
+            out[:] = collect_rollout(model, state, obs, gen, params, 10)
+
+        if impl == "auto":
+            knn_cuda.reset_launches()
+            graph = PhaseGraph("rollout", rollout, [gen])
+            graph()  # the warm-up, eager
+            gen.set_state(start)
+            graph()  # captured, then replayed
+            torch.cuda.synchronize()
+            launches = dict(knn_cuda.LAUNCHES)
+            if sum(launches.values()) != 20:
+                raise AssertionError(f"rollout graph launches {launches}, "
+                                     "want 10 eager + 10 replayed")
+        else:
+            rollout()
+        runs[impl] = out
     (_, o1, b1, v1), (_, o2, b2, v2) = runs["auto"], runs["torch"]
     for field in ("obs", "actions", "log_probs", "values", "rewards"):
         if not torch.equal(getattr(b1, field), getattr(b2, field)):
-            raise AssertionError(f"rollout {field}: kernel path != plain path")
+            raise AssertionError(f"rollout {field}: graph through the kernel "
+                                 "!= eager plain path")
     if not (torch.equal(o1, o2) and torch.equal(v1, v2)):
-        raise AssertionError("rollout last obs/value: kernel != plain")
-    print(f"[rollout] N={n} M={m}, 10 steps: kernel path == plain path "
-          "bitwise (obs, actions, log_probs, values, rewards)")
+        raise AssertionError("rollout last obs/value: graph != eager plain")
+    print(f"[rollout] N={n} M={m}, 10 steps: captured graph through the "
+          f"kernel == eager plain path bitwise (obs, actions, log_probs, "
+          f"values, rewards); {graph.nodes} nodes; launches {launches}")
+
+
+def _carry(trainer):
+    """The trainer's state as tensors: parameters, Adam state, step, env
+    carry, the metrics ring and the generator."""
+    it = trainer._iteration
+    return {
+        **{f"param {k}": p.detach().clone()
+           for k, p in trainer.model.named_parameters()},
+        **{f"mu {k}": v.clone() for k, v in trainer.opt_state.mu.items()},
+        **{f"nu {k}": v.clone() for k, v in trainer.opt_state.nu.items()},
+        "count": trainer.opt_state.count.clone(), "step": it.step.clone(),
+        "agents": it.env.agents.clone(), "obs": it.obs.clone(),
+        "metrics": it.ring.buf.clone(),
+        "generator": trainer.generator.get_state(),
+    }
+
+
+def captured_equals_eager(kind, iterations=3):
+    """Two trainers from one seed on the card, one captured and one eager,
+    ``iterations`` iterations each (the last fully replayed): the MLP's
+    parameters, Adam state, step, env carry, metrics and generator bitwise
+    equal; the GNN's parameters within ``tests/adam_budget.py``'s budget
+    (``lr`` a step: the gather's backward adds with atomics, so two GNN
+    updates on the card are not bitwise), its generator equal."""
+    import torch
+
+    from marl_distributedformation_tpu_torch.algo import PPOConfig
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.models import (
+        GNNActorCritic,
+        MLPActorCritic,
+    )
+    from marl_distributedformation_tpu_torch.train import (
+        TrainConfig,
+        Trainer,
+    )
+
+    if kind == "mlp":
+        params, m, ppo = EnvParams(), 64, PPOConfig()
+    else:
+        params = EnvParams(num_agents=100, obs_mode="knn", knn_k=4)
+        m, ppo = 64, PPOConfig(batch_size=16384)
+    carries = {}
+    for capture in (True, False):
+        gen = torch.Generator().manual_seed(3)
+        model = (MLPActorCritic(params.obs_dim, generator=gen)
+                 if kind == "mlp" else GNNActorCritic(k=4, generator=gen))
+        trainer = Trainer(
+            params, ppo,
+            TrainConfig(num_formations=m, seed=3, checkpoint=False,
+                        log_dir=str(ROOT / "logs" / "smoke_compare")),
+            model=model, device="cuda", capture=capture,
+        )
+        for _ in range(iterations):
+            trainer.run_iteration()
+        torch.cuda.synchronize()
+        carries[capture] = _carry(trainer)
+    got, want = carries[True], carries[False]
+    updates = trainer.step
+    atol = 3e-8 + ppo.learning_rate * updates  # tests/adam_budget.py
+    worst = 0.0
+    for key in want:
+        if kind == "gnn" and key.startswith("param"):
+            worst = max(worst, float((got[key] - want[key]).abs().max()))
+        elif (kind == "mlp" or key == "generator") and not torch.equal(
+            got[key], want[key]
+        ):
+            raise AssertionError(f"{kind}: captured {key} != eager")
+    if worst > atol:
+        raise AssertionError(f"{kind}: captured params differ from eager by "
+                             f"{worst}, budget {atol}")
+    what = ("params, Adam state, step, env carry, metrics and generator "
+            "bitwise" if kind == "mlp" else
+            f"params within {worst:.3g} (budget {atol:.3g}), generator "
+            "bitwise")
+    print(f"[capture] {kind} M={m}: {iterations} iterations captured == "
+          f"eager: {what} ({updates} optimizer steps)")
+
+
+def poisoned_health_run():
+    """The ring/MLP at M=64 with ``fused_chunk=2 health=true
+    recovery=true``: one ``_poison_carry(nan)`` before the third chunk. The
+    health word skips the poisoned iterations, the ladder rolls back to the
+    last good checkpoint, and the run ends on finite parameters with a
+    rollback in ``recovery.jsonl``."""
+    import shutil
+
+    import torch
+
+    from marl_distributedformation_tpu_torch.train import cli
+    from marl_distributedformation_tpu_torch.train.recovery import (
+        read_recovery_log,
+    )
+
+    name = "smoke_health"
+    shutil.rmtree(ROOT / "logs" / name, ignore_errors=True)
+    trainer = cli.build_trainer([
+        f"name={name}", "device=cuda", "num_formation=64",
+        "total_timesteps=32000", "fused_chunk=2", "health=true",
+        "recovery=true", "keep_last_n=3",
+    ])
+    run_chunk = trainer.run_chunk
+    chunks = []
+
+    def poisoned():
+        if len(chunks) == 2:
+            trainer._poison_carry(float("nan"))
+        chunks.append(1)
+        return run_chunk()
+
+    trainer.run_chunk = poisoned
+    trainer.train()
+    del trainer.run_chunk
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in trainer.model.parameters())
+    events = read_recovery_log(Path(trainer.log_dir) / "recovery.jsonl")
+    kinds = [e["event"] for e in events]
+    if not finite or "rollback" not in kinds or trainer.halted:
+        raise AssertionError(f"health run: finite {finite}, halted "
+                             f"{trainer.halted}, recovery events {kinds}")
+    print(f"[health] MLP M=64 fused_chunk=2, NaN poison before chunk 3: "
+          f"ends finite at {trainer.num_timesteps} steps; recovery.jsonl "
+          f"{kinds}")
 
 
 def train_phase():
@@ -468,8 +647,9 @@ def train_phase():
         latest_checkpoint,
     )
 
-    trainer, rewards, got = train_run("smoke_gnn100", GNN100,
-                                      "gnn100 M=1024 N=100")
+    trainer, rewards, got, captured_s = train_run(
+        "smoke_gnn100", GNN100 + ("fused_chunk=10",),
+        "gnn100 M=1024 N=100 fused_chunk=10")
     want = 1 + len(rewards) * trainer.ppo.n_steps
     if got != {"knn_fused": want, "knn_tiled": 0}:
         raise AssertionError(f"gnn100 launches {got}, want fused {want}")
@@ -493,20 +673,47 @@ def train_phase():
                              f"fails: {ret}")
     print(f"[gnn100] learned {ret['policy']:.2f} > baseline "
           f"{ret['baseline']:.2f} > zero {ret['zero']:.2f} (M=1024)")
-    rollout_kernel_equals_plain(trainer.model, 100, 1024)
-    profile_window(trainer.run_iteration, "train gnn100 M=1024 N=100, one "
-                   "iteration after warm-up", 1, "iteration")
+    rollout_graph_equals_plain(trainer.model, 100, 1024)
+    profile_window(lambda: trainer._dispatch(1), "train gnn100 M=1024 N=100, "
+                   "one captured iteration", 1, "iteration")
+    elapsed("gnn100 captured")
 
-    trainer, rewards, got = train_run("smoke_gnn1024", GNN1024,
-                                      "gnn1024 M=8 N=1024")
+    *_, eager_s = train_run(
+        "smoke_gnn100_eager",
+        GNN100[:-1] + ("total_timesteps=3072000",),
+        "gnn100 M=1024 N=100, 3 iterations", capture=False)
+    print(f"[capture] gnn100: captured {captured_s:.4f} s/iteration, eager "
+          f"{eager_s:.4f} s/iteration, {eager_s / captured_s:.2f}x")
+    elapsed("gnn100 eager")
+
+    trainer, rewards, got, _ = train_run("smoke_gnn1024", GNN1024,
+                                         "gnn1024 M=8 N=1024")
     want = 1 + len(rewards) * trainer.ppo.n_steps
     if got != {"knn_fused": 0, "knn_tiled": want}:
         raise AssertionError(f"gnn1024 launches {got}, want tiled {want}")
     launches["knn_tiled"] = got["knn_tiled"]
     learning_check(rewards, "gnn1024", 0.0)
-    rollout_kernel_equals_plain(trainer.model, 1024, 8)
+    rollout_graph_equals_plain(trainer.model, 1024, 8)
+    profile_window(trainer.run_iteration, "train gnn1024 M=8 N=1024, one "
+                   "captured iteration", 1, "iteration")
 
-    train_run("smoke_mlp", MLP_DEFAULT, "ring/MLP default M=1000 N=5")
+    trainer, *_, captured_s = train_run(
+        "smoke_mlp", MLP_DEFAULT, "ring/MLP default M=1000 N=5")
+    elapsed("gnn1024 captured, ring/MLP captured")
+    profile_window(trainer.run_iteration, "train ring/MLP default, one "
+                   "captured iteration", 1, "iteration")
+    elapsed("ring/MLP profile")
+    *_, eager_s = train_run(
+        "smoke_mlp_eager", ("total_timesteps=50000",),
+        "ring/MLP default M=1000 N=5, 1 iteration", capture=False)
+    print(f"[capture] ring/MLP default: captured {captured_s:.4f} "
+          f"s/iteration, eager {eager_s:.4f} s/iteration, "
+          f"{eager_s / captured_s:.2f}x")
+
+    elapsed("ring/MLP eager")
+    captured_equals_eager("mlp")
+    captured_equals_eager("gnn")
+    poisoned_health_run()
     return launches
 
 
@@ -537,6 +744,8 @@ def main() -> int:
         if "entry function" in line or "Used" in line or "spill" in line:
             print(f"[ptxas] {line.strip()}")
 
+    elapsed("phase 1, build")
+
     # Phase 2: each kernel against its plain version, at the shape of the
     # training path that launches it and at the eval path's.
     shapes = {
@@ -550,6 +759,8 @@ def main() -> int:
                for path, shape in by_path.items()}
         for name, (fn, reps, by_path) in shapes.items()
     }
+
+    elapsed("phase 2, kernels")
 
     # Phase 3: the k-NN swarm evaluation at full width.
     gen = torch.Generator().manual_seed(0)
@@ -572,6 +783,8 @@ def main() -> int:
     kernel_equals_plain_end_to_end(gnn, p100, 32)
     kernel_equals_plain_end_to_end(gnn, p1024.replace(max_steps=18), 4)
 
+    elapsed("phase 3, k-NN swarm evaluation")
+
     # Phase 4: the committed MLP checkpoint through the evaluate CLI.
     res = evaluate_cli.main([
         f"checkpoint={CKPT}", "eval_formations=4096", "device=cuda",
@@ -583,8 +796,11 @@ def main() -> int:
     print(f"[mlp] learned {ret['policy']:.2f} > baseline "
           f"{ret['baseline']:.2f} > zero {ret['zero']:.2f}")
 
+    elapsed("phase 4, committed checkpoint")
+
     # Phase 5: training through the kernels, this slice's main paths.
     launches = train_phase()
+    elapsed("phase 5, training")
 
     replaces = {
         "knn_fused": "marl_distributedformation_tpu/ops/knn_pallas.py:117",

@@ -10,7 +10,8 @@ clip_by_global_norm(max_grad_norm), adam(lr, eps=adam_eps))``
 - ``mu = (1-b1)*g + b1*mu``, ``nu = (1-b2)*g*g + b2*nu``, ``count += 1``;
 - ``u = mu_hat / (sqrt(nu_hat) + eps)`` with ``mu_hat = mu / (1 - b1**count)``
   and ``nu_hat = nu / (1 - b2**count)``;
-- ``p = p + (-lr * u)``.
+- ``p = p + (-lr * u)``, with ``lr`` a float or a 0-d tensor (the trainer
+  keeps it on the device, so that a captured step reads its current value).
 
 ``torch.optim.Adam`` rounds ``sqrt(nu)/sqrt(bc2)`` where optax rounds
 ``sqrt(nu/bc2)``, and ``torch.nn.utils.clip_grad_norm_`` scales by
@@ -23,7 +24,7 @@ a checkpoint's ``opt_state/1/0/{count,mu,nu}``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Sequence, Tuple
+from typing import Dict, List, Mapping, Sequence, Tuple, Union
 
 import torch
 
@@ -83,7 +84,7 @@ def adam_step(
     params: Sequence[Tensor],
     grads: Sequence[Tensor],
     state: AdamState,
-    lr: float,
+    lr: Union[float, Tensor],
     eps: float,
 ) -> None:
     """One Adam step in place on ``params`` and ``state`` (optax ``adam``
@@ -115,7 +116,7 @@ def clipped_adam_step(
     params: Sequence[Tensor],
     grads: Sequence[Tensor],
     state: AdamState,
-    lr: float,
+    lr: Union[float, Tensor],
     max_grad_norm: float,
     eps: float,
 ) -> Tensor:

@@ -13,16 +13,19 @@ metrics and quirks:
 - the ``log_std`` ceiling is computed from the step before the optimizer
   step and applied after it, one step behind (ADVICE.md); kept as it is.
 
-The JAX package scans the minibatches inside one program; here they are a
-Python loop whose metrics stay on the device until the end of the update.
-The schedules are computed on the host in float32 from the host's step
-counter, so no minibatch waits for the device.
+The JAX package scans the minibatches inside one program. Here one
+minibatch step is a function of device tensors only (``PPOUpdate.step``):
+the optimizer step counter, the learning rate, the schedules, the
+minibatch's rows (picked by a device counter from permutations drawn up
+front) and the metrics all live on the device, so the step can be captured
+once as a CUDA graph and replayed (``train/capture.py``), and it reads
+nothing back to the host.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -97,11 +100,11 @@ def ppo_loss(
     model: torch.nn.Module,
     mb: MinibatchData,
     config: PPOConfig,
-    ent_coef: Optional[float] = None,
+    ent_coef: Union[float, Tensor, None] = None,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Clipped-surrogate PPO loss on one minibatch (SB3 semantics) and its
-    metrics (detached). ``ent_coef`` overrides ``config.ent_coef`` when the
-    entropy coefficient is scheduled."""
+    metrics (detached). ``ent_coef`` (a float or a 0-d tensor) overrides
+    ``config.ent_coef`` when the entropy coefficient is scheduled."""
     if mb.weights is not None:
         raise NotImplementedError(
             "weighted PPO loss (padded formations) is not ported yet "
@@ -153,33 +156,90 @@ def ppo_loss(
     return loss, metrics
 
 
-def schedule_values(
-    config: PPOConfig, step: int, expected_total: int
-) -> Dict[str, np.float32]:
-    """``ent_coef`` and ``log_std_ceiling`` at optimizer step ``step``, in
-    float32 as the JAX package computes them (only the scheduled ones)."""
-    out: Dict[str, np.float32] = {}
-    f32 = np.float32
-    hi = f32(step // 4096)
-    lo = f32(step % 4096)
-    progress = np.clip(
-        hi * f32(4096.0 / expected_total) + lo / f32(expected_total),
-        f32(0.0), f32(1.0),
-    )
-    if config.ent_coef_final is not None:
-        out["ent_coef"] = f32(config.ent_coef) + progress * f32(
-            config.ent_coef_final - config.ent_coef
-        )
-    if config.log_std_final is not None:
+SCHEDULE_METRICS = ("ent_coef", "log_std_ceiling")
+SPLIT = 4096  # the two limbs of the step: step // SPLIT, step % SPLIT
+
+
+def scheduled(config: PPOConfig) -> Tuple[str, ...]:
+    """The schedule metrics ``config`` turns on, in ``SCHEDULE_METRICS``
+    order."""
+    on = (config.ent_coef_final is not None, config.log_std_final is not None)
+    return tuple(n for n, o in zip(SCHEDULE_METRICS, on) if o)
+
+
+def _divisor(value: float, device: torch.device) -> Tensor:
+    # A 1-element tensor, never a Python scalar: CUDA divides by a scalar as
+    # a multiplication by its reciprocal, which rounds differently.
+    return torch.tensor([value], dtype=torch.float32, device=device)
+
+
+class Schedules:
+    """``ent_coef`` and ``log_std_ceiling`` at a device step counter, in
+    float32 on the device as the JAX package computes them: progress from
+    the two limbs ``step // 4096`` and ``step % 4096``, so that it stays
+    monotone past 2^24. XLA contracts ``a + p*(b-a)`` into one fused
+    multiply-add; here it rounds twice, so values agree within one rounding
+    of the schedule's span. The divisors are made on the device once, at
+    construction (never under capture)."""
+
+    def __init__(
+        self, config: PPOConfig, expected_total: int, device: torch.device
+    ) -> None:
+        self.config = config
+        f32 = np.float32
+        self._hi_scale = float(f32(SPLIT / expected_total))
+        self._total = _divisor(float(f32(expected_total)), device)
         start = config.log_std_decay_start
-        sprog = np.clip(
-            (progress - f32(start)) / f32(max(1.0 - start, 1e-8)),
-            f32(0.0), f32(1.0),
-        )
-        out["log_std_ceiling"] = f32(config.log_std_init) + sprog * f32(
-            config.log_std_final - config.log_std_init
-        )
-    return out
+        self._start = float(f32(start))
+        self._span = _divisor(float(f32(max(1.0 - start, 1e-8))), device)
+
+    def __call__(self, step: Tensor) -> Dict[str, Tensor]:
+        c = self.config
+        hi = torch.div(step, SPLIT, rounding_mode="floor").to(torch.float32)
+        lo = torch.remainder(step, SPLIT).to(torch.float32)
+        progress = torch.clamp(
+            hi * self._hi_scale + lo / self._total, 0.0, 1.0
+        ).reshape(())
+        out: Dict[str, Tensor] = {}
+        if c.ent_coef_final is not None:
+            out["ent_coef"] = c.ent_coef + progress * (
+                c.ent_coef_final - c.ent_coef
+            )
+        if c.log_std_final is not None:
+            sprog = torch.clamp(
+                (progress - self._start) / self._span, 0.0, 1.0
+            ).reshape(())
+            out["log_std_ceiling"] = c.log_std_init + sprog * (
+                c.log_std_final - c.log_std_init
+            )
+        return out
+
+
+def schedule_values(
+    config: PPOConfig, step: Union[int, Tensor], expected_total: int
+) -> Dict[str, Tensor]:
+    """``ent_coef`` and ``log_std_ceiling`` (only the scheduled ones) at
+    optimizer step ``step``, as 0-d float32 tensors on ``step``'s device."""
+    step = torch.as_tensor(step, dtype=torch.int64)
+    return Schedules(config, expected_total, step.device)(step)
+
+
+def draw_permutations(
+    generator: Optional[torch.Generator],
+    n_epochs: int,
+    total: int,
+    used: int,
+    device: torch.device,
+) -> Tensor:
+    """``(n_epochs, used)`` int64: each epoch's ``torch.randperm(total,
+    generator)`` cut to the ``used`` rows of whole minibatches, drawn in
+    epoch order. ``randperm`` on the card draws its keys from the
+    generator's Philox stream and sorts on the device, so a captured draw
+    replays the stream as the eager one does."""
+    return torch.stack([
+        torch.randperm(total, generator=generator, device=device)[:used]
+        for _ in range(n_epochs)
+    ])
 
 
 def _check_schedules(model: torch.nn.Module, config: PPOConfig) -> None:
@@ -206,74 +266,163 @@ def _check_schedules(model: torch.nn.Module, config: PPOConfig) -> None:
             )
 
 
+class PPOUpdate:
+    """``n_epochs`` of shuffled minibatch steps over ``rows`` flat rollout
+    rows, as device state and one step function.
+
+    ``load`` copies an iteration's rows into static buffers, draws (or takes)
+    every epoch's permutation and rewinds the minibatch counter; ``step``
+    runs the next minibatch: its rows picked by the counter, the loss, the
+    gradients, optax's clipped Adam with the learning rate ``lr`` (a 0-d
+    tensor), the ``log_std`` ceiling, and one row of metrics written at the
+    counter. ``means`` averages each epoch's rows and then the epochs. The
+    optimizer step ``step_count`` (0-d int64) is the schedules' clock and
+    advances in place; ``model``'s parameters and ``opt_state`` are updated
+    in place. Every tensor a step reads or writes keeps its storage from
+    call to call, so a captured step replays correctly; the buffers are
+    made on the first ``load``, which must not run under capture.
+    """
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        opt_state: AdamState,
+        config: PPOConfig,
+        rows: int,
+        step_count: Tensor,
+        lr: Tensor,
+    ) -> None:
+        _check_schedules(model, config)
+        self.model = model
+        self.opt_state = opt_state
+        self.config = config
+        self.rows = rows
+        self.batch_size = min(config.batch_size, rows)
+        self.num_minibatches = rows // self.batch_size
+        self.used = self.num_minibatches * self.batch_size
+        self.num_steps = config.n_epochs * self.num_minibatches
+        self.step_count = step_count
+        self.lr = lr
+        device = step_count.device
+        self.device = device
+        named = list(model.named_parameters())
+        self._params = [p for _, p in named]
+        self._log_std = [p for n, p in named if n.split(".")[-1] == "log_std"]
+        self.schedules: Optional[Schedules] = None
+        if scheduled(config):
+            expected_total = (
+                config.total_iterations * config.n_epochs
+                * self.num_minibatches
+            )
+            self.schedules = Schedules(config, expected_total, device)
+        self.names: Tuple[str, ...] = (
+            LOSS_METRICS + ("grad_norm",) + scheduled(config)
+        )
+        self.data: Optional[MinibatchData] = None
+        self.perms = torch.zeros(
+            (self.num_steps, self.batch_size), dtype=torch.int64, device=device
+        )
+        self.counter = torch.zeros((), dtype=torch.int64, device=device)
+        self.buf = torch.zeros(
+            (self.num_steps, len(self.names)), dtype=torch.float32,
+            device=device,
+        )
+
+    def load(
+        self,
+        data: MinibatchData,
+        generator: Optional[torch.Generator],
+        permutations: Optional[Tensor] = None,
+    ) -> None:
+        """Take an iteration's rows and its permutations ``(n_epochs,
+        used)``, drawn from ``generator`` (``draw_permutations``) unless
+        given, and rewind to the first minibatch."""
+        if data.obs.shape[0] != self.rows:
+            raise ValueError(
+                f"PPOUpdate was built for {self.rows} rows, got "
+                f"{data.obs.shape[0]}"
+            )
+        if self.data is None:
+            self.data = MinibatchData(**{
+                f.name: None if getattr(data, f.name) is None
+                else torch.empty_like(getattr(data, f.name))
+                for f in dataclasses.fields(data)
+            })
+        for f in dataclasses.fields(data):
+            src = getattr(data, f.name)
+            if src is not None:
+                getattr(self.data, f.name).copy_(src)
+        if permutations is None:
+            permutations = draw_permutations(
+                generator, self.config.n_epochs, self.rows, self.used,
+                self.device,
+            )
+        self.perms.copy_(permutations.reshape(self.perms.shape))
+        self.counter.zero_()
+
+    def step(self) -> None:
+        """One minibatch step (see the class docstring)."""
+        config = self.config
+        at = self.counter.reshape(1)
+        idx = self.perms.index_select(0, at).reshape(-1)
+        mb = self.data.take(idx)
+        values = {} if self.schedules is None else self.schedules(
+            self.step_count
+        )
+        loss, metrics = ppo_loss(self.model, mb, config, values.get("ent_coef"))
+        grads = torch.autograd.grad(loss, self._params)
+        metrics["grad_norm"] = clipped_adam_step(
+            self._params, grads, self.opt_state, self.lr,
+            config.max_grad_norm, config.adam_eps,
+        )
+        metrics.update(values)
+        with torch.no_grad():
+            self.step_count.add_(1)
+            if "log_std_ceiling" in values:
+                for p in self._log_std:
+                    p.clamp_(max=values["log_std_ceiling"])
+            row = torch.stack([metrics[n] for n in self.names])
+            self.buf.index_copy_(0, at, row.reshape(1, -1))
+            self.counter.add_(1)
+
+    def means(self) -> Tensor:
+        """``(len(names),)``: each epoch's mean over its minibatches, then
+        the mean over the epochs."""
+        per = self.buf.reshape(
+            self.config.n_epochs, self.num_minibatches, len(self.names)
+        )
+        return per.mean(dim=1).mean(dim=0)
+
+    def run(self) -> None:
+        for _ in range(self.num_steps):
+            self.step()
+
+
 def ppo_update(
     model: torch.nn.Module,
     opt_state: AdamState,
-    step: int,
+    step: Union[int, Tensor],
     data: MinibatchData,
     generator: Optional[torch.Generator],
     config: PPOConfig,
     permutations: Optional[Tensor] = None,
-) -> Tuple[int, Dict[str, object]]:
-    """``n_epochs`` of shuffled minibatch steps over flat rollout rows.
+) -> Tuple[Union[int, Tensor], Dict[str, Tensor]]:
+    """``n_epochs`` of shuffled minibatch steps over flat rollout rows, in
+    one call (``PPOUpdate`` eagerly).
 
     Updates ``model``'s parameters and ``opt_state`` in place and returns
     ``(step after the update, metrics)``: 0-d device tensors averaged over
-    the minibatches of each epoch and then over the epochs, plus the
-    schedules' host floats. Each epoch's permutation is
-    ``torch.randperm(total, generator)[:used]``; ``permutations``
-    ``(n_epochs, used)`` replaces them (tests feed the JAX package's).
+    the minibatches of each epoch and then over the epochs. ``step`` is the
+    optimizer step before the update, an int (an int is returned) or a 0-d
+    int64 tensor (advanced in place). ``permutations`` ``(n_epochs, used)``
+    replaces the draw (tests feed the JAX package's).
     """
-    _check_schedules(model, config)
-    total = data.obs.shape[0]
-    batch_size = min(config.batch_size, total)
-    num_minibatches = total // batch_size
-    used = num_minibatches * batch_size
-    expected_total = config.total_iterations * config.n_epochs * num_minibatches
-
-    named = list(model.named_parameters())
-    params = [p for _, p in named]
-    log_std = [p for n, p in named if n.split(".")[-1] == "log_std"]
     device = data.obs.device
-    names = LOSS_METRICS + ("grad_norm",)
-    buf = torch.empty(
-        (config.n_epochs, num_minibatches, len(names)), device=device
-    )
-    sched = {}
-    for epoch in range(config.n_epochs):
-        if permutations is None:
-            perm = torch.randperm(
-                total, generator=generator, device=device
-            )[:used]
-        else:
-            perm = permutations[epoch].to(device)
-        idx = perm.reshape(num_minibatches, batch_size)
-        for i in range(num_minibatches):
-            mb = data.take(idx[i])
-            values = {}
-            if expected_total > 0:
-                values = schedule_values(config, step, expected_total)
-            ent_coef = values.get("ent_coef")
-            loss, metrics = ppo_loss(
-                model, mb, config,
-                None if ent_coef is None else float(ent_coef),
-            )
-            grads = torch.autograd.grad(loss, params)
-            metrics["grad_norm"] = clipped_adam_step(
-                params, grads, opt_state, config.learning_rate,
-                config.max_grad_norm, config.adam_eps,
-            )
-            step += 1
-            if "log_std_ceiling" in values:
-                with torch.no_grad():
-                    for p in log_std:
-                        p.clamp_(max=float(values["log_std_ceiling"]))
-            buf[epoch, i] = torch.stack([metrics[n] for n in names])
-            for k, v in values.items():
-                sched.setdefault(k, []).append(v)
-    means = buf.mean(dim=1).mean(dim=0)
-    out: Dict[str, object] = {n: means[j] for j, n in enumerate(names)}
-    for k, v in sched.items():
-        per_epoch = np.asarray(v, np.float32).reshape(config.n_epochs, -1)
-        out[k] = float(per_epoch.mean(axis=1).mean())
-    return step, out
+    step_t = torch.as_tensor(step, dtype=torch.int64).to(device)
+    lr = torch.tensor(config.learning_rate, dtype=torch.float32, device=device)
+    update = PPOUpdate(model, opt_state, config, data.obs.shape[0], step_t, lr)
+    update.load(data, generator, permutations)
+    update.run()
+    means = update.means()
+    metrics = {n: means[j] for j, n in enumerate(update.names)}
+    return (int(step_t) if isinstance(step, int) else step_t), metrics

@@ -9,11 +9,16 @@ transposed. The optimizer state is optax's
 nu}, 1: {}}}`` with ``mu`` and ``nu`` shaped like ``{"params": ...}``; the
 port's side of it is a plain ``{"count", "mu", "nu"}`` dict, with ``mu`` and
 ``nu`` keyed by parameter name (the fields of ``algo.optim.AdamState``).
+With the learning rate in the optimizer state (the recovery ladder's
+backoff), the tree is optax's ``inject_hyperparams(adam)`` layout,
+``{0: {}, 1: {count, hyperparams, hyperparams_states, inner_state: {0: {count,
+mu, nu}, 1: {}}}}``, as the JAX trainer builds it with
+``recovery_lr_backoff != 1``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -59,11 +64,18 @@ def params_from_jax(
     return out
 
 
+def _numpy(value: Any) -> np.ndarray:
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
 def params_to_jax(
-    params: Mapping[str, torch.Tensor], policy: str
+    params: Mapping[str, Any], policy: str
 ) -> Dict[str, Any]:
     """The inverse of ``params_from_jax``: ``{"params": nested dicts of
-    float32 numpy arrays}`` in the JAX package's layout."""
+    float32 numpy arrays}`` in the JAX package's layout, from tensors or
+    numpy arrays."""
     _check_layers({name.split(".")[0] for name in params}, policy)
     inner: Dict[str, Any] = {}
     for name, value in params.items():
@@ -71,7 +83,7 @@ def params_to_jax(
         node = inner
         for part in path:
             node = node.setdefault(part, {})
-        arr = value.detach().cpu().numpy().astype(np.float32)
+        arr = _numpy(value).astype(np.float32)
         if leaf == "weight":
             node["kernel"] = np.ascontiguousarray(arr.T)
         else:
@@ -79,29 +91,60 @@ def params_to_jax(
     return {"params": inner}
 
 
+def inject_hyperparams(learning_rate: float, eps: float) -> Dict[str, Any]:
+    """The ``hyperparams`` of ``optax.inject_hyperparams(optax.adam)(
+    learning_rate, eps=eps)``, float32 as optax keeps them."""
+    f32 = np.float32
+    return {
+        "b1": np.asarray(0.9, f32), "b2": np.asarray(0.999, f32),
+        "eps": np.asarray(eps, f32), "eps_root": np.asarray(0.0, f32),
+        "learning_rate": np.asarray(learning_rate, f32),
+    }
+
+
 def opt_state_to_jax(
-    state: Mapping[str, Any], policy: str
+    state: Mapping[str, Any],
+    policy: str,
+    hyperparams: Optional[Mapping[str, Any]] = None,
 ) -> Dict[str, Any]:
     """optax's ``chain(clip_by_global_norm, adam)`` state tree from the
-    port's ``{"count", "mu", "nu"}``."""
+    port's ``{"count", "mu", "nu"}`` (tensors or numpy arrays); with
+    ``hyperparams`` (``inject_hyperparams``), the ``inject_hyperparams``
+    layout."""
+    count = np.asarray(_numpy(state["count"]), np.int32)
     adam = {
-        "count": np.asarray(state["count"].cpu().numpy(), np.int32),
+        "count": count,
         "mu": params_to_jax(state["mu"], policy),
         "nu": params_to_jax(state["nu"], policy),
     }
-    return {"0": {}, "1": {"0": adam, "1": {}}}
+    if hyperparams is None:
+        return {"0": {}, "1": {"0": adam, "1": {}}}
+    return {"0": {}, "1": {
+        "count": count.copy(),
+        "hyperparams": dict(hyperparams),
+        "hyperparams_states": {},
+        "inner_state": {"0": adam, "1": {}},
+    }}
 
 
 def opt_state_from_jax(
     tree: Mapping[str, Any], policy: str
 ) -> Dict[str, Any]:
     """The port's ``{"count", "mu", "nu"}`` on the CPU from optax's state
-    tree as a checkpoint (or flax's ``to_state_dict``) holds it. Keys follow
-    the parameters'."""
-    adam = tree["1"]["0"]
-    return {
+    tree as a checkpoint (or flax's ``to_state_dict``) holds it, either
+    layout; from the ``inject_hyperparams`` layout also ``"learning_rate"``
+    (a float). Keys follow the parameters'."""
+    outer = tree["1"]
+    injected = "inner_state" in outer
+    adam = outer["inner_state"]["0"] if injected else outer["0"]
+    out = {
         "count": torch.tensor(int(np.asarray(adam["count"])),
                               dtype=torch.int32),
         "mu": params_from_jax(adam["mu"], policy),
         "nu": params_from_jax(adam["nu"], policy),
     }
+    if injected:
+        out["learning_rate"] = float(
+            np.asarray(outer["hyperparams"]["learning_rate"])
+        )
+    return out

@@ -42,6 +42,13 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def count_replay(launches: Dict[str, int]) -> None:
+    """A replay of a captured CUDA graph launches each kernel the graph
+    holds again: add the graph's ``launches`` (``train/capture.py``)."""
+    for name, count in launches.items():
+        LAUNCHES[name] += count
+
+
 _typed_lib: Optional[ctypes.CDLL] = None
 
 

@@ -5,13 +5,19 @@ name=x`` workflow on PyTorch.
     python -m marl_distributedformation_tpu_torch.train name=gnn100 \\
         policy=gnn obs_mode=knn num_agents_per_formation=100 \\
         num_formation=1024 preset=tpu total_timesteps=30720000
+    python -m marl_distributedformation_tpu_torch.train name=gnn100 \\
+        policy=gnn obs_mode=knn num_agents_per_formation=100 \\
+        num_formation=1024 preset=tpu fused_chunk=10 health=true
 
 Reads ``cfg/config.yaml`` with ``key=value`` overrides, as the root
 ``train.py`` does, and never writes it. ``device`` defaults to ``cuda``; the
 CPU runs only with ``device=cpu``. Metrics go to ``logs/{name}/metrics.jsonl``,
 checkpoints to ``logs/{name}/rl_model_{steps}_steps.msgpack`` and the
 resolved config, with the device that ran it, to ``logs/{name}/config.json``
-(``config_resume.json`` on a resume).
+(``config_resume.json`` on a resume). On the card the iteration runs as
+captured CUDA graphs (``train/capture.py``); ``fused_chunk``,
+``iters_per_dispatch``, ``health``, ``recovery*`` and ``keep_last_n`` mean
+what they mean to the JAX trainer.
 
 A mistyped key exits with a did-you-mean. A knob of a feature the port does
 not have yet exits naming its ROADMAP item when set to anything but its
@@ -56,19 +62,8 @@ _UNLISTED_DEFAULTS = {
 
 # Knobs of features not ported yet, and the ROADMAP item that ports each.
 UNPORTED = {
-    "fused_chunk": "A11 (fused dispatch)",
-    "iters_per_dispatch": "A11 (fused dispatch)",
     "num_seeds": "A11 (populations)",
     "learning_rates": "A11 (populations)",
-    "health": "A11 (health word)",
-    "health_grad_norm_max": "A11 (health word)",
-    "health_param_drift_max": "A11 (health word)",
-    "recovery": "A11 (recovery)",
-    "recovery_breach_iters": "A11 (recovery)",
-    "recovery_max_rollbacks": "A11 (recovery)",
-    "recovery_lr_backoff": "A11 (recovery)",
-    "recovery_severity_backoff": "A11 (recovery)",
-    "keep_last_n": "A11 (recovery)",
     "curriculum": "A9 (hetero and curriculum)",
     "scenarios": "A6 (scenarios)",
     "scenario_severity": "A6 (scenarios)",
@@ -152,6 +147,21 @@ def train_config_from_config(cfg) -> TrainConfig:
         use_tensorboard=bool(cfg.get("use_tensorboard", False)),
         resume=bool(cfg.get("resume", False)),
         log_interval=cfg.log_interval,
+        iters_per_dispatch=int(cfg.get("iters_per_dispatch", 1)),
+        fused_chunk=int(cfg.get("fused_chunk", 0)),
+        health=bool(cfg.get("health", False)),
+        health_grad_norm_max=float(cfg.get("health_grad_norm_max", 1.0e6)),
+        health_param_drift_max=float(
+            cfg.get("health_param_drift_max", 10.0)
+        ),
+        recovery=bool(cfg.get("recovery", False)),
+        recovery_breach_iters=int(cfg.get("recovery_breach_iters", 3)),
+        recovery_max_rollbacks=int(cfg.get("recovery_max_rollbacks", 3)),
+        recovery_lr_backoff=float(cfg.get("recovery_lr_backoff", 1.0)),
+        recovery_severity_backoff=float(
+            cfg.get("recovery_severity_backoff", 1.0)
+        ),
+        keep_last_n=int(cfg.get("keep_last_n", 0)),
     )
 
 
@@ -199,9 +209,10 @@ def snapshot_config(cfg, log_dir: str, device: torch.device) -> Path:
     return out
 
 
-def build_trainer(argv=None) -> Trainer:
+def build_trainer(argv=None, capture: bool = True) -> Trainer:
     """The run ``argv`` (or the command line) asks for, set up but not
-    started; writes the config snapshot."""
+    started; writes the config snapshot. ``capture=False`` runs the
+    iteration eagerly on the card (comparisons only; not a config key)."""
     overrides = sys.argv[1:] if argv is None else list(argv)
     validate_override_keys(overrides, extra_keys=TRAIN_KEYS)
     cfg = load_config(overrides)
@@ -214,6 +225,7 @@ def build_trainer(argv=None) -> Trainer:
         config=train_config_from_config(cfg),
         model=build_model(cfg, env_params, cfg.get("policy", "mlp")),
         device=device,
+        capture=capture,
     )
     snapshot_config(cfg, trainer.log_dir, device)
     print(

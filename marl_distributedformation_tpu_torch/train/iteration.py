@@ -1,0 +1,298 @@
+"""The training iteration as three phases over a static carry.
+
+Counterpart of the body of the JAX package's ``make_ppo_iteration``
+(``train/trainer.py``), cut where the port's CUDA graphs are cut
+(``train/capture.py``):
+
+- ``rollout``: the health guard's backups (with the health word on), the
+  ``n_steps`` rollout, GAE, the flat rows and every epoch's permutation
+  into ``PPOUpdate``, the new env state and observation into pending
+  buffers, and the rollout's metrics into a buffer;
+- ``minibatch``: one ``PPOUpdate.step``, run ``num_minibatch_steps`` times;
+- ``end``: the iteration's metrics row (rollout, the update's epoch means,
+  the health flags), the health select or the plain write-back of the env
+  carry, and the row into the metrics ring.
+
+Every tensor one phase hands to another, and all the carry (parameters,
+Adam state, optimizer step, learning rate, env state, observation,
+metrics), keeps its storage from iteration to iteration and is only
+written in place, so that each phase can be captured once and replayed. A
+phase draws only from the iteration's generator. Nothing reads back to the
+host; the metrics leave the device when the trainer drains the ring.
+
+Buffers whose shapes the first iteration decides (the update's rows, the
+rollout metrics, the ring) are made on the first call of their phase,
+which is always eager (``train/capture.py`` warms each phase up before it
+captures it).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from marl_distributedformation_tpu_torch.algo import (
+    AdamState,
+    MinibatchData,
+    PPOConfig,
+    collect_rollout,
+    compute_gae,
+)
+from marl_distributedformation_tpu_torch.algo.ppo import PPOUpdate
+from marl_distributedformation_tpu_torch.env.types import (
+    EnvParams,
+    FormationState,
+)
+from marl_distributedformation_tpu_torch.train.recovery import HEALTH_METRICS
+
+Tensor = torch.Tensor
+
+ENV_FIELDS = ("agents", "goal", "obstacles", "steps")
+ROLLOUT_TOTALS = ("reward", "episode_dones")
+
+
+class MetricsRing:
+    """``rows`` metric rows on the device, written in turn by the end phase
+    at a device position, so that a captured end phase writes each
+    iteration's row to the next slot. The host keeps the same position
+    (``take``): the trainer reads back a dispatch's rows once."""
+
+    def __init__(self, names: Tuple[str, ...], rows: int, device) -> None:
+        self.names = names
+        self.rows = rows
+        self.buf = torch.zeros((rows, len(names)), dtype=torch.float32,
+                               device=device)
+        self.pos = torch.zeros((), dtype=torch.int64, device=device)
+        self.host_pos = 0
+
+    def write(self, row: Tensor) -> None:
+        at = self.pos.reshape(1)
+        self.buf.index_copy_(0, at, row.reshape(1, -1))
+        self.pos.add_(1).remainder_(self.rows)
+
+    def advance(self) -> None:
+        """The host's position follows one ``write``."""
+        self.host_pos = (self.host_pos + 1) % self.rows
+
+    def take(self, count: int) -> Tensor:
+        """``(count, len(names))``: the rows of the last ``count``
+        iterations, which a dispatch of ``count`` iterations starting at a
+        multiple of ``count`` keeps contiguous."""
+        start = (self.host_pos - count) % self.rows
+        if start + count > self.rows:
+            raise ValueError(
+                f"{count} rows from slot {start} wrap the ring of "
+                f"{self.rows}; dispatch a divisor of the ring's size"
+            )
+        return self.buf[start:start + count]
+
+
+class PhasedIteration:
+    """One training iteration of ``model`` on M formations, in phases (see
+    the module docstring), over its own static carry.
+
+    ``env_state`` and ``obs`` are copied into the carry; ``step`` (the
+    optimizer step, the schedules' clock) and ``lr`` become 0-d device
+    tensors. ``opt_state`` and the model's parameters are the trainer's and
+    are updated in place. Per-formation models (the GNN) are minibatched by
+    whole formations, ``batch_size // N`` of them; ``batch_size`` stays in
+    agent-transitions. ``env_step_fn`` replaces the env step (tests inject
+    the JAX package's resets).
+    """
+
+    def __init__(
+        self,
+        env_params: EnvParams,
+        ppo: PPOConfig,
+        model: torch.nn.Module,
+        opt_state: AdamState,
+        generator: Optional[torch.Generator],
+        env_state: FormationState,
+        obs: Tensor,
+        *,
+        step: int = 0,
+        lr: Optional[float] = None,
+        ring_rows: int = 2,
+        env_step_fn: Any = None,
+    ) -> None:
+        self.env_params = env_params
+        self.ppo = ppo
+        self.model = model
+        self.opt_state = opt_state
+        self.generator = generator
+        self.env_step_fn = env_step_fn
+        self.per_formation = bool(model.per_formation)
+        device = obs.device
+        self.device = device
+        n = env_params.num_agents
+        if self.per_formation:
+            update_ppo = dataclasses.replace(
+                ppo, batch_size=max(1, ppo.batch_size // n)
+            )
+            self.row_shape: Tuple[int, ...] = (n,)
+        else:
+            update_ppo = ppo
+            self.row_shape = ()
+        m = obs.shape[0]
+        rows = ppo.n_steps * m * (1 if self.per_formation else n)
+        self.env = FormationState(**{
+            f: getattr(env_state, f).detach().clone() for f in ENV_FIELDS
+        })
+        self.obs = obs.detach().clone()
+        self._pending_env = FormationState(**{
+            f: torch.empty_like(getattr(self.env, f)) for f in ENV_FIELDS
+        })
+        self._pending_obs = torch.empty_like(self.obs)
+        self.step = torch.tensor(int(step), dtype=torch.int64, device=device)
+        self.lr = torch.tensor(
+            ppo.learning_rate if lr is None else lr, dtype=torch.float32,
+            device=device,
+        )
+        self.params = [p for _, p in model.named_parameters()]
+        self.update = PPOUpdate(
+            model, opt_state, update_ppo, rows, self.step, self.lr
+        )
+        self.ring_rows = ring_rows
+        self.health: Any = None
+        self._rollout_names: Optional[Tuple[str, ...]] = None
+        self._rollout_row: Optional[Tensor] = None
+        self.ring: Optional[MetricsRing] = None
+
+    @property
+    def num_minibatch_steps(self) -> int:
+        return self.update.num_steps
+
+    def learner_tensors(self) -> List[Tensor]:
+        """What an iteration's update changes: the parameters, then Adam's
+        count, mu and nu, then the optimizer step."""
+        return [
+            *self.params, self.opt_state.count,
+            *self.opt_state.mu.values(), *self.opt_state.nu.values(),
+            self.step,
+        ]
+
+    def env_pairs(self) -> List[Tuple[Tensor, Tensor]]:
+        """``(carry, pending)`` of the env state and the observation."""
+        pairs = [
+            (getattr(self.env, f), getattr(self._pending_env, f))
+            for f in ENV_FIELDS
+        ]
+        return pairs + [(self.obs, self._pending_obs)]
+
+    # ------------------------------------------------------------------
+    # The phases
+    # ------------------------------------------------------------------
+
+    def rollout(
+        self, noise: Optional[Tensor] = None,
+        permutations: Optional[Tensor] = None,
+    ) -> None:
+        """Backups, rollout, GAE, the update's rows and permutations, the
+        pending env carry and the rollout metrics. ``noise`` and
+        ``permutations`` replace the generator's draws (tests)."""
+        if self.health is not None:
+            self.health.save()
+        p = self.env_params
+        env, last_obs, batch, last_value = collect_rollout(
+            self.model, self.env, self.obs, self.generator, p,
+            self.ppo.n_steps, env_step_fn=self.env_step_fn, noise=noise,
+        )
+        advantages, returns = compute_gae(
+            batch.rewards, batch.values, batch.dones, last_value,
+            self.ppo.gamma, self.ppo.gae_lambda,
+        )
+        shape = self.row_shape
+        flat = MinibatchData(
+            obs=batch.obs.reshape(-1, *shape, p.obs_dim),
+            actions=batch.actions.reshape(-1, *shape, p.act_dim),
+            old_log_probs=batch.log_probs.reshape(-1, *shape),
+            advantages=advantages.reshape(-1, *shape),
+            returns=returns.reshape(-1, *shape),
+        )
+        self.update.load(flat, self.generator, permutations)
+        with torch.no_grad():
+            for f in ENV_FIELDS:
+                getattr(self._pending_env, f).copy_(getattr(env, f))
+            self._pending_obs.copy_(last_obs)
+            if self._rollout_names is None:
+                self._rollout_names = tuple(
+                    k for k in batch.metrics if k not in ROLLOUT_TOTALS
+                ) + ROLLOUT_TOTALS
+                self._rollout_row = torch.zeros(
+                    len(self._rollout_names), dtype=torch.float32,
+                    device=self.device,
+                )
+            values = [
+                batch.metrics[k].mean()
+                for k in self._rollout_names[:-len(ROLLOUT_TOTALS)]
+            ]
+            # Formation-level episode count: dones are broadcast to agents.
+            values += [batch.rewards.mean(), batch.dones[..., 0].sum()]
+            self._rollout_row.copy_(torch.stack(values))
+
+    def minibatch(self) -> None:
+        """One minibatch step of the update."""
+        self.update.step()
+
+    def end(self) -> None:
+        """The metrics row, the health select or the env write-back, and
+        the row into the ring."""
+        with torch.no_grad():
+            upd = self.update.means()
+            row = torch.cat([self._rollout_row, upd])
+            names = self.update.names
+            if self.health is not None:
+                flags = self.health.apply(
+                    upd[names.index("loss")], upd[names.index("grad_norm")],
+                    self.env_pairs(),
+                )
+                row = torch.cat([row, flags])
+            else:
+                for carry, pending in self.env_pairs():
+                    carry.copy_(pending)
+            if self.ring is None:
+                self.ring = MetricsRing(
+                    self.metric_names(), self.ring_rows, self.device
+                )
+            self.ring.write(row)
+
+    def metric_names(self) -> Tuple[str, ...]:
+        """The names of a metrics row, in its order."""
+        if self._rollout_names is None:
+            raise RuntimeError("metric names are known after a rollout")
+        return (
+            self._rollout_names + self.update.names
+            + (HEALTH_METRICS if self.health is not None else ())
+        )
+
+    def run(
+        self, noise: Optional[Tensor] = None,
+        permutations: Optional[Tensor] = None,
+        mark: Optional[Callable[[str], None]] = None,
+        phases: Optional[Tuple[Callable[[], None], ...]] = None,
+    ) -> None:
+        """One whole iteration: the phases eagerly, or ``phases`` (the
+        trainer's ``PhaseGraph``s of ``rollout``, ``minibatch`` and
+        ``end``); ``mark(phase)`` is called at "rollout", "update" and
+        "end"."""
+        rollout, minibatch, end = phases or (
+            lambda: self.rollout(noise, permutations), self.minibatch,
+            self.end,
+        )
+        if mark is not None:
+            mark("rollout")
+        rollout()
+        if mark is not None:
+            mark("update")
+        for _ in range(self.num_minibatch_steps):
+            minibatch()
+        end()
+        if mark is not None:
+            mark("end")
+        self.ring.advance()
+
+    def metrics(self, row: Tensor) -> Dict[str, Tensor]:
+        """A metrics row as ``{name: 0-d tensor}``."""
+        return {n: row[j] for j, n in enumerate(self.ring.names)}

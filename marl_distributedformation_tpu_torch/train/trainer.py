@@ -1,11 +1,20 @@
-"""PPO trainer: rollout, GAE and the minibatch epochs, in a host loop.
+"""PPO trainer: rollout, GAE and the minibatch epochs, dispatched as CUDA
+graphs, with metrics drained a dispatch late and checkpoints written off
+the hot path.
 
 Counterpart of the single-run path of the JAX package's ``train/trainer.py``
-(``TrainConfig``, ``make_ppo_iteration`` and ``Trainer``'s host loop). The
-JAX package compiles an iteration into one program; here an iteration is a
-sequence of eager launches that never waits for the device, and the host
-reads the device once per log interval: one batched transfer of the
-iteration's metrics.
+(``TrainConfig``, ``make_ppo_iteration``, ``make_fused_chunk`` and
+``Trainer``). The JAX package compiles an iteration, or ``fused_chunk``
+iterations, into one program. Here an iteration is three phases over a
+static carry (``train/iteration.py``), each captured once as a CUDA graph
+and replayed (``train/capture.py``); a dispatch replays them for one,
+``iters_per_dispatch`` or ``fused_chunk`` iterations without reading the
+device. The host reads the metrics once a dispatch, one batched transfer of
+the rows the dispatch wrote; with ``fused_chunk`` it does so after the next
+chunk is queued, so the device computes while the host logs, and
+checkpoints go to a background writer from a device-side snapshot. On the
+CPU, and on the card with ``capture=False`` (tests compare the two), the
+same phases run eagerly.
 
 Timestep accounting matches SB3: ``num_timesteps`` counts agent-transitions
 (``n_steps * M * N`` an iteration) and the default budget is ``5000 * M``
@@ -16,29 +25,24 @@ Randomness: the model is initialised from a CPU generator seeded with
 ``seed``; resets, action noise and minibatch permutations draw, in that
 order, from one generator on the training device seeded with ``seed +
 2**32``. Its state is checkpointed, so a resume continues the stream.
-Mesh, scenarios, health and recovery, fused dispatch and populations are
-not ported (ROADMAP Queue A).
+Mesh, scenarios, populations, the metrics registry and chaos fault points
+are not ported (ROADMAP Queue A).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import sys
-from typing import Any, Callable, Dict, Optional, Tuple
+import time
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from marl_distributedformation_tpu_torch.algo import (
-    AdamState,
-    MinibatchData,
-    PPOConfig,
-    adam_init,
-    collect_rollout,
-    compute_gae,
-    ppo_update,
-)
+from marl_distributedformation_tpu_torch.algo import PPOConfig, adam_init
 from marl_distributedformation_tpu_torch.compat.convert import (
+    inject_hyperparams,
     opt_state_from_jax,
     opt_state_to_jax,
     params_from_jax,
@@ -53,9 +57,28 @@ from marl_distributedformation_tpu_torch.env.types import (
     EnvParams,
     FormationState,
 )
+from marl_distributedformation_tpu_torch.train.capture import PhaseGraph
+from marl_distributedformation_tpu_torch.train.iteration import (
+    ENV_FIELDS,
+    PhasedIteration,
+)
+from marl_distributedformation_tpu_torch.train.recovery import (
+    RecoveryConfig,
+    RecoveryLadder,
+    fold_recovery_generator,
+    scale_injected_lr,
+    wrap_health,
+)
 from marl_distributedformation_tpu_torch.utils.checkpoint import (
+    AsyncCheckpointWriter,
+    checkpoint_path,
+    device_snapshot,
+    nonfinite_leaf,
+    prune_checkpoints,
+    quarantine_checkpoint,
     restore_latest_partial,
     save_checkpoint,
+    tree_to_host,
 )
 from marl_distributedformation_tpu_torch.utils.config import repo_root
 from marl_distributedformation_tpu_torch.utils.logging import (
@@ -67,7 +90,6 @@ Tensor = torch.Tensor
 
 # The run generator is seeded apart from the init generator.
 RUN_SEED_OFFSET = 1 << 32
-ENV_FIELDS = ("agents", "goal", "obstacles", "steps")
 RESUME_KEYS = (
     "policy", "params", "opt_state", "num_timesteps", "learning_rate",
     "torch_generator", "torch_env_state", "torch_obs", "torch_step",
@@ -76,7 +98,7 @@ RESUME_KEYS = (
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Run-level configuration of the single-run host loop; fields and
+    """Run-level configuration of the single-run trainer; fields and
     defaults as the JAX package's."""
 
     num_formations: int = 1000  # cfg/config.yaml:3
@@ -90,6 +112,22 @@ class TrainConfig:
     use_tensorboard: bool = False
     resume: bool = False
     log_interval: int = 1  # rollouts between metric records
+    iters_per_dispatch: int = 1  # iterations a dispatch of the host loop;
+    #   metrics are the burst's mean (episode_dones: sum, health_*: min)
+    fused_chunk: int = 0  # > 0: dispatch chunks of this many iterations,
+    #   drain their per-iteration metrics one chunk late, checkpoint at
+    #   chunk boundaries on a background writer; excludes iters_per_dispatch
+    health: bool = False  # the health word and skip-update guard
+    health_grad_norm_max: float = 1.0e6  # raw global grad-norm bound
+    health_param_drift_max: float = 10.0  # |p_new| <= this * (|p_old|+1)
+    recovery: bool = False  # the escalation ladder (needs health)
+    recovery_breach_iters: int = 3  # skipped iterations in a row = breach
+    recovery_max_rollbacks: int = 3  # retries before a halt
+    recovery_lr_backoff: float = 1.0  # learning-rate factor a rollback
+    #   (!= 1 checkpoints optax's inject_hyperparams layout)
+    recovery_severity_backoff: float = 1.0  # scenario severity factor a
+    #   rollback (no scenarios are ported: nothing to scale)
+    keep_last_n: int = 0  # keep the newest N checkpoints (0 = all)
 
 
 def default_total_timesteps(config: TrainConfig) -> int:
@@ -126,63 +164,45 @@ def make_ppo_iteration(
     per_formation: bool = False,
     env_step_fn: Any = None,
 ) -> Iteration:
-    """The training iteration ``(model, opt_state, step, env_state, obs,
-    generator, noise=None, permutations=None, mark=None) -> (step,
-    env_state, last_obs, metrics)``; updates ``model`` and ``opt_state`` in
-    place.
+    """One training iteration as a function, run eagerly: ``(model,
+    opt_state, step, env_state, obs, generator, noise=None,
+    permutations=None, mark=None) -> (step, env_state, last_obs,
+    metrics)``; updates ``model`` and ``opt_state`` in place.
 
-    Per-formation models (the GNN) are minibatched by whole formations,
-    ``batch_size // N`` of them, so the pooled critic sees every agent;
-    ``batch_size`` stays in agent-transitions. ``noise``, ``permutations``
-    and ``env_step_fn`` let tests inject the JAX package's draws.
-    ``mark(phase)`` is called at "rollout", "update" and "end".
+    A ``PhasedIteration`` for one call (the trainer keeps one for the run).
+    ``noise``, ``permutations`` and ``env_step_fn`` let tests inject the
+    JAX package's draws; ``mark(phase)`` is called at "rollout", "update"
+    and "end".
     """
-    if per_formation:
-        n = env_params.num_agents
-        update_ppo = dataclasses.replace(
-            ppo, batch_size=max(1, ppo.batch_size // n)
-        )
-        row_shape: Tuple[int, ...] = (n,)
-    else:
-        update_ppo = ppo
-        row_shape = ()
 
     def iteration(model, opt_state, step, env_state, obs, generator,
                   noise=None, permutations=None, mark=None):
-        if mark is not None:
-            mark("rollout")
-        env_state, last_obs, batch, last_value = collect_rollout(
-            model, env_state, obs, generator, env_params, ppo.n_steps,
-            env_step_fn=env_step_fn, noise=noise,
+        if bool(model.per_formation) != per_formation:
+            raise ValueError(
+                f"per_formation={per_formation} but the model's is "
+                f"{model.per_formation}"
+            )
+        it = PhasedIteration(
+            env_params, ppo, model, opt_state, generator, env_state, obs,
+            step=int(step), env_step_fn=env_step_fn,
         )
-        advantages, returns = compute_gae(
-            batch.rewards, batch.values, batch.dones, last_value,
-            ppo.gamma, ppo.gae_lambda,
-        )
-        flat = MinibatchData(
-            obs=batch.obs.reshape(-1, *row_shape, env_params.obs_dim),
-            actions=batch.actions.reshape(-1, *row_shape, env_params.act_dim),
-            old_log_probs=batch.log_probs.reshape(-1, *row_shape),
-            advantages=advantages.reshape(-1, *row_shape),
-            returns=returns.reshape(-1, *row_shape),
-        )
-        if mark is not None:
-            mark("update")
-        step, update_metrics = ppo_update(
-            model, opt_state, step, flat, generator, update_ppo, permutations
-        )
-        metrics: Dict[str, Any] = {
-            k: v.mean() for k, v in batch.metrics.items()
-        }
-        metrics.update(update_metrics)
-        metrics["reward"] = batch.rewards.mean()
-        # Formation-level episode count: dones are broadcast to the agents.
-        metrics["episode_dones"] = batch.dones[..., 0].sum()
-        if mark is not None:
-            mark("end")
-        return step, env_state, last_obs, metrics
+        it.run(noise, permutations, mark)
+        return int(it.step), it.env, it.obs, it.metrics(it.ring.take(1)[0])
 
     return iteration
+
+
+def reduce_burst(names: Tuple[str, ...], rows: Tensor) -> Tensor:
+    """One metrics row from the rows of a burst of iterations, as the JAX
+    package's ``make_fused_chunk(reduce_metrics=True)``: ``episode_dones``
+    sums, the ``health_*`` flags take the minimum (one skip marks the
+    burst), the rest the mean."""
+    sums, mins, means = rows.sum(0), rows.min(0).values, rows.mean(0)
+    return torch.stack([
+        sums[j] if n == "episode_dones"
+        else mins[j] if n.startswith("health_") else means[j]
+        for j, n in enumerate(names)
+    ])
 
 
 def metrics_to_host(metrics: Dict[str, Any]) -> Dict[str, float]:
@@ -196,9 +216,30 @@ def metrics_to_host(metrics: Dict[str, Any]) -> Dict[str, float]:
     return dict(sorted(out.items()))
 
 
+@dataclasses.dataclass
+class ChunkMetrics:
+    """The metric rows a dispatch wrote, still on the device, and the event
+    that closes the dispatch (CUDA)."""
+
+    names: Tuple[str, ...]
+    rows: Tensor  # (iterations, len(names))
+    ready: Optional[Any]
+
+    def to_host(self) -> Dict[str, np.ndarray]:
+        """``{name: (iterations,) float32}``, in one transfer that waits for
+        this dispatch only."""
+        host = tree_to_host({"rows": self.rows}, self.ready)["rows"]
+        return {n: host[:, j] for j, n in enumerate(self.names)}
+
+
 class Trainer:
-    """The single-run training loop of ``model``: iterations, metrics,
-    checkpoints and resume."""
+    """The single-run training loop of ``model``: dispatches, metrics,
+    checkpoints, resume, the health word and the recovery ladder.
+
+    On CUDA the iteration's phases run as captured graphs; ``capture=False``
+    runs them eagerly (tests and ``chip_smoke.py`` compare the two; there
+    is no config key for it).
+    """
 
     def __init__(
         self,
@@ -208,6 +249,7 @@ class Trainer:
         *,
         model: torch.nn.Module,
         device: DeviceLike = None,
+        capture: bool = True,
     ) -> None:
         self.device = resolve_device(device)
         ppo = fill_ent_schedule(ppo, env_params, config)
@@ -219,64 +261,174 @@ class Trainer:
         self.policy = type(model).__name__
         self.per_formation = model.per_formation
 
+        self._iters_per_dispatch = max(1, int(config.iters_per_dispatch))
+        self._fused_chunk = max(0, int(config.fused_chunk))
+        if self._fused_chunk and self._iters_per_dispatch > 1:
+            raise SystemExit(
+                "fused_chunk and iters_per_dispatch are two spellings of "
+                "dispatch fusion; set exactly one (fused_chunk: stacked "
+                "per-iteration metrics drained a chunk late, background "
+                "checkpoints; iters_per_dispatch: the host loop's burst)"
+            )
+        if config.recovery and not config.health:
+            raise SystemExit(
+                "recovery=true needs health=true: the escalation ladder "
+                "reads the health flags at the drain; without them it is "
+                "blind"
+            )
+
         self.generator = torch.Generator(device=self.device).manual_seed(
             config.seed + RUN_SEED_OFFSET
         )
-        self.env_state = reset_batch(
+        env_state = reset_batch(
             env_params, config.num_formations, self.generator, self.device
         )
-        self.obs = compute_obs(
-            self.env_state.agents, self.env_state.goal, env_params
-        )
+        obs = compute_obs(env_state.agents, env_state.goal, env_params)
         self.opt_state = adam_init(dict(self.model.named_parameters()))
-        self.step = 0  # optimizer steps, the schedules' clock
+        self._iteration = wrap_health(PhasedIteration(
+            env_params, ppo, self.model, self.opt_state, self.generator,
+            env_state, obs,
+            ring_rows=2 * max(self._fused_chunk, self._iters_per_dispatch),
+        ), config)
+        self.capture = capture and self.device.type == "cuda"
+        it = self._iteration
+        self._phases = tuple(
+            PhaseGraph(name, fn, [self.generator], self.capture)
+            for name, fn in (("rollout", it.rollout),
+                             ("minibatch", it.minibatch), ("end", it.end))
+        )
+        # optax's inject_hyperparams layout in checkpoints (JAX: inject_lr).
+        self.injected_lr = config.recovery_lr_backoff != 1.0
+
         self.num_timesteps = 0
         self._vec_steps_since_save = 0
-        self._iteration = make_ppo_iteration(
-            env_params, ppo, self.per_formation
-        )
         self.log_dir = config.log_dir or str(
             repo_root() / "logs" / config.name
         )
         self.last_record: Dict[str, float] = {}
+        # Called with "rollout", "update" and "end" at each iteration's
+        # phase boundaries (chip_smoke.py records CUDA events there).
+        self.phase_hook: Optional[Callable[[str], None]] = None
+        self.halted = False
+        self.recovery_ladder: Optional[RecoveryLadder] = None
+        self._recovery_verdict: Optional[str] = None
+        self._last_good_ckpt: Optional[Path] = None
+        self._rollback_anchor: Optional[Dict[str, Any]] = None
+        if config.recovery:
+            self.recovery_ladder = RecoveryLadder(
+                RecoveryConfig(
+                    breach_iters=config.recovery_breach_iters,
+                    max_rollbacks=config.recovery_max_rollbacks,
+                    lr_backoff=config.recovery_lr_backoff,
+                    severity_backoff=config.recovery_severity_backoff,
+                ),
+                self.log_dir,
+            )
         if config.resume:
             self._try_resume()
+        if self.recovery_ladder is not None:
+            # The last-resort rollback target: the run's starting state.
+            self._rollback_anchor = self._host_tree()
+
+    # ------------------------------------------------------------------
+    # The carry
+    # ------------------------------------------------------------------
 
     @property
     def total_timesteps(self) -> int:
         return default_total_timesteps(self.config)
 
-    def run_iteration(
-        self, mark: Optional[Callable[[str], None]] = None
-    ) -> Dict[str, Any]:
-        """One rollout and update; returns the metrics, still on the
-        device. ``mark`` is passed to the iteration (``make_ppo_iteration``)."""
-        self.step, self.env_state, self.obs, metrics = self._iteration(
-            self.model, self.opt_state, self.step, self.env_state, self.obs,
-            self.generator, mark=mark,
-        )
-        self.num_timesteps += self.ppo.n_steps * self.num_envs
-        self._vec_steps_since_save += self.ppo.n_steps
-        return metrics
+    @property
+    def env_state(self) -> FormationState:
+        return self._iteration.env
 
-    def train(self) -> Dict[str, float]:
-        """The full run with metrics and checkpoints; returns the last
-        record."""
-        logger = MetricsLogger(
+    @property
+    def obs(self) -> Tensor:
+        return self._iteration.obs
+
+    @property
+    def step(self) -> int:
+        """Optimizer steps so far, the schedules' clock (reads the
+        device)."""
+        return int(self._iteration.step)
+
+    @property
+    def metric_names(self) -> Tuple[str, ...]:
+        return self._iteration.metric_names()
+
+    def graph_stats(self) -> List[Dict[str, object]]:
+        """Nodes, capture seconds and calls of each phase's graph."""
+        return [phase.stats() for phase in self._phases]
+
+    # ------------------------------------------------------------------
+    # Dispatch
+    # ------------------------------------------------------------------
+
+    def _dispatch(self, rollouts: int) -> ChunkMetrics:
+        """``rollouts`` iterations, queued without reading the device, and
+        the host counters advanced; returns their metric rows."""
+        for _ in range(rollouts):
+            self._iteration.run(mark=self.phase_hook, phases=self._phases)
+        self.num_timesteps += rollouts * self.ppo.n_steps * self.num_envs
+        self._vec_steps_since_save += rollouts * self.ppo.n_steps
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record()
+        return ChunkMetrics(
+            self.metric_names, self._iteration.ring.take(rollouts), ready
+        )
+
+    def run_iteration(self) -> Dict[str, Tensor]:
+        """One host-loop dispatch, ``iters_per_dispatch`` iterations (1 by
+        default); returns the metrics on the device, the burst's reduction
+        (``reduce_burst``)."""
+        if self._fused_chunk:
+            raise RuntimeError(
+                "a fused_chunk trainer dispatches with run_chunk()"
+            )
+        chunk = self._dispatch(self._iters_per_dispatch)
+        row = reduce_burst(chunk.names, chunk.rows)
+        return self._iteration.metrics(row)
+
+    def run_chunk(self) -> ChunkMetrics:
+        """One chunk of ``fused_chunk`` iterations, queued; its
+        per-iteration metric rows stay on the device until drained."""
+        if not self._fused_chunk:
+            raise RuntimeError("run_chunk() needs fused_chunk > 0")
+        return self._dispatch(self._fused_chunk)
+
+    # ------------------------------------------------------------------
+    # Training
+    # ------------------------------------------------------------------
+
+    def _logger(self) -> MetricsLogger:
+        return MetricsLogger(
             self.log_dir,
             run_name=self.config.name,
             use_wandb=self.config.use_wandb,
             use_tensorboard=self.config.use_tensorboard,
         )
+
+    def train(self) -> Dict[str, float]:
+        """The full run with metrics and checkpoints; returns the last
+        record."""
+        if self._fused_chunk:
+            return self._train_fused()
+        logger = self._logger()
         meter = Throughput()
         iteration = 0
         try:
-            while self.num_timesteps < self.total_timesteps:
+            while (self.num_timesteps < self.total_timesteps
+                   and not self.halted):
                 metrics = self.run_iteration()
                 iteration += 1
-                meter.tick(self.ppo.n_steps * self.config.num_formations)
+                meter.tick(self._iters_per_dispatch * self.ppo.n_steps
+                           * self.config.num_formations)
                 if iteration % self.config.log_interval == 0:
                     record = metrics_to_host(metrics)
+                    if self._observe_health(record, iteration):
+                        continue  # rolled back or halted: drop the record
                     record["env_steps_per_sec"] = meter.rate()
                     self.last_record = record
                     logger.log(record, self.num_timesteps)
@@ -284,82 +436,347 @@ class Trainer:
                     self.config.checkpoint
                     and self._vec_steps_since_save >= self.config.save_freq
                 ):
-                    self.save()
-            if self.config.checkpoint:
+                    if (
+                        self.recovery_ladder is not None
+                        and iteration % self.config.log_interval != 0
+                    ):
+                        # This dispatch's flags were not read: read them
+                        # before publishing its state.
+                        flags = metrics_to_host({
+                            k: metrics[k]
+                            for k in ("health_ok", "health_word")
+                        })
+                        if self._observe_health(flags, iteration):
+                            continue
+                    if not self._saves_suspended():
+                        self.save()
+            if self.recovery_ladder is not None and not self.halted:
+                self._ensure_finite_final_state(None, iteration)
+            if self.config.checkpoint and not self._saves_suspended():
                 self.save()
         finally:
             logger.close()
         return self.last_record
 
+    def _train_fused(self) -> Dict[str, float]:
+        """Dispatch chunk N+1, then drain chunk N (the device computes while
+        the host logs); checkpoint at chunk boundaries on a background
+        writer from a device snapshot. Records are per iteration, as the
+        host loop's, ``log_interval`` counted on the global iteration."""
+        logger = self._logger()
+        meter = Throughput()
+        writer = (
+            AsyncCheckpointWriter(
+                keep_last_n=self.config.keep_last_n,
+                protect=self._protected_paths,
+            )
+            if self.config.checkpoint else None
+        )
+        k = self._fused_chunk
+        iteration = 0
+        pending = None  # the chunk in flight, drained a dispatch later
+        try:
+            while (self.num_timesteps < self.total_timesteps
+                   and not self.halted):
+                steps_before = self.num_timesteps
+                chunk = self.run_chunk()
+                if pending is not None:
+                    self._drain_chunk(logger, meter, *pending)
+                    if self._act_on_recovery_verdict(writer, iteration):
+                        # The chunk just queued trained from the diverged
+                        # state: abandon it undrained.
+                        pending = None
+                        continue
+                pending = (chunk, iteration, steps_before)
+                iteration += k
+                if (
+                    writer is not None
+                    and self._vec_steps_since_save >= self.config.save_freq
+                    and not self._saves_suspended()
+                ):
+                    self.save_async(writer)
+            if pending is not None:
+                self._drain_chunk(logger, meter, *pending)
+                self._act_on_recovery_verdict(writer, iteration)
+            if self.recovery_ladder is not None and not self.halted:
+                self._ensure_finite_final_state(writer, iteration)
+            if writer is not None:
+                if not self._saves_suspended():
+                    self.save_async(writer)
+                writer.close()  # the last write is on disk before return
+                writer = None
+        finally:
+            if writer is not None:
+                writer.close_quietly()
+            logger.close()
+        return self.last_record
+
+    def _drain_chunk(
+        self, logger: MetricsLogger, meter: Throughput, chunk: ChunkMetrics,
+        first_iteration: int, steps_before: int,
+    ) -> None:
+        """One transfer for a chunk's metrics, the ladder's look at its
+        health flags, then a record an iteration at the JAX trainer's
+        steps."""
+        host = chunk.to_host()
+        meter.tick(self._fused_chunk * self.ppo.n_steps
+                   * self.config.num_formations)
+        if "health_ok" in host and self.recovery_ladder is not None:
+            self._recovery_verdict = self.recovery_ladder.observe(
+                host["health_ok"], host.get("health_word"), first_iteration
+            )
+        per_iter = self.ppo.n_steps * self.num_envs
+        for i in range(self._fused_chunk):
+            if (first_iteration + i + 1) % self.config.log_interval:
+                continue
+            record = {name: float(host[name][i]) for name in sorted(host)}
+            record["env_steps_per_sec"] = meter.rate()
+            logger.log(record, steps_before + (i + 1) * per_iter)
+            self.last_record = record
+
+    # ------------------------------------------------------------------
+    # The recovery ladder's actions
+    # ------------------------------------------------------------------
+
+    def _saves_suspended(self) -> bool:
+        """While the ladder suspects the state, nothing is saved: a finite
+        but diverged state passes the non-finite gate."""
+        return (self.recovery_ladder is not None
+                and self.recovery_ladder.suspect)
+
+    def _poison_carry(self, value: float) -> None:
+        """Multiply the live parameters by ``value`` (NaN kills the loss; a
+        finite 1e18 explodes the gradients): the stand-in for divergence
+        that tests use, at a dispatch boundary."""
+        with torch.no_grad():
+            for p in self.model.parameters():
+                p.mul_(value)
+
+    def _observe_health(self, host_metrics: Dict[str, Any],
+                        iteration: int) -> bool:
+        """Feed a host-loop record's health flags to the ladder and act on
+        its verdict; True when the state was restored (or the run
+        halted)."""
+        if "health_ok" not in host_metrics or self.recovery_ladder is None:
+            return False
+        self._recovery_verdict = self.recovery_ladder.observe(
+            host_metrics["health_ok"], host_metrics.get("health_word"),
+            iteration,
+        )
+        return self._act_on_recovery_verdict(None, iteration)
+
+    def _act_on_recovery_verdict(
+        self, writer: Optional[AsyncCheckpointWriter], iteration: int
+    ) -> bool:
+        """Act on the verdict of the last drain: roll back, or roll back
+        and halt; True when the state was restored."""
+        verdict, self._recovery_verdict = self._recovery_verdict, None
+        if verdict in (None, "ok"):
+            return False
+        if verdict == "rollback":
+            self._perform_rollback(writer, iteration)
+            return True
+        self._perform_rollback(
+            writer, iteration,
+            halt_reason=(
+                "sustained divergence with the rollback budget exhausted "
+                f"({self.recovery_ladder.recoveries} recoveries spent)"
+            ),
+        )
+        return True
+
+    def _perform_rollback(
+        self,
+        writer: Optional[AsyncCheckpointWriter],
+        iteration: int,
+        halt_reason: Optional[str] = None,
+    ) -> None:
+        """Restore the newest valid good state (the checkpoint walk, or the
+        run's starting state) into the static carry, move the generator
+        into the next retry stream and apply the learning-rate backoff;
+        with ``halt_reason`` the run ends there, on finite parameters."""
+        t0 = time.perf_counter()
+        ladder = self.recovery_ladder
+        if writer is not None:
+            try:
+                writer.wait()  # it may be publishing the file to restore
+            except RuntimeError:
+                pass  # a failed write never blocks recovery
+        found = None
+        if self.config.checkpoint:
+            for _ in range(8):
+                found = restore_latest_partial(self.log_dir, RESUME_KEYS)
+                if (
+                    found is not None and ladder is not None
+                    and ladder.last_rollback_path == str(found[0])
+                ):
+                    # The last rollback restored this file and the run
+                    # diverged again with no healthy progress: the file is
+                    # the poison.
+                    quarantine_checkpoint(
+                        found[0], "rollback target re-diverged (finite but "
+                        "unhealthy state); walking back",
+                    )
+                    found = None
+                    continue
+                break
+        if found is not None:
+            path, restored = found
+        else:
+            path, restored = None, self._rollback_anchor
+        self._load_tree(restored, path or "the run's starting state")
+        recoveries_next = (ladder.recoveries if ladder is not None else 0) + 1
+        fold_recovery_generator(self.generator, recoveries_next)
+        lr_scale = None
+        if self.config.recovery_lr_backoff != 1.0:
+            scale_injected_lr(self._iteration.lr,
+                              self.config.recovery_lr_backoff)
+            lr_scale = self.config.recovery_lr_backoff
+        self._vec_steps_since_save = 0
+        if path is not None:
+            self._last_good_ckpt = Path(path)
+        mttr_s = time.perf_counter() - t0
+        if ladder is None:
+            return
+        if halt_reason is None:
+            ladder.note_rollback(
+                to_step=self.num_timesteps,
+                path=str(path) if path is not None else None,
+                mttr_s=mttr_s, iteration=iteration, lr_scale=lr_scale,
+            )
+        else:
+            ladder.note_halt(iteration, halt_reason)
+            self.halted = True
+
+    def _ensure_finite_final_state(
+        self, writer: Optional[AsyncCheckpointWriter], iteration: int
+    ) -> None:
+        """The run ends on finite parameters, even when the budget ran out
+        mid-breach: one host read at the end of the run."""
+        params = tree_to_host(dict(self.model.named_parameters()))
+        if nonfinite_leaf(params) is not None:
+            self._perform_rollback(writer, iteration)
+
+    def _protected_paths(self) -> set:
+        """The ladder's current rollback target survives pruning."""
+        return {self._last_good_ckpt} if self._last_good_ckpt else set()
+
     # ------------------------------------------------------------------
     # Checkpoints
     # ------------------------------------------------------------------
 
-    def _checkpoint_tree(self) -> Dict[str, Any]:
-        """The checkpoint: the JAX trainer's learner keys in its layout, and
-        the port's own resume state under ``torch_`` keys, which the JAX
-        package's reader ignores (a learner-only checkpoint to it)."""
-        params = dict(self.model.named_parameters())
+    def _checkpoint_state(self) -> Dict[str, Any]:
+        """What a checkpoint holds, as device tensors and host values."""
+        it = self._iteration
+        state = {
+            "params": {k: p.detach()
+                       for k, p in self.model.named_parameters()},
+            "opt": {"count": self.opt_state.count,
+                    "mu": dict(self.opt_state.mu),
+                    "nu": dict(self.opt_state.nu)},
+            "num_timesteps": int(self.num_timesteps),
+            "generator": self.generator.get_state(),
+            "env": {f: getattr(it.env, f) for f in ENV_FIELDS},
+            "obs": it.obs,
+            "step": it.step,
+        }
+        if self.injected_lr:
+            state["lr"] = it.lr
+        return state
+
+    def _checkpoint_tree(self, host: Dict[str, Any]) -> Dict[str, Any]:
+        """The checkpoint from ``_checkpoint_state`` on the host: the JAX
+        trainer's learner keys in its layout, and the port's own resume
+        state under ``torch_`` keys, which the JAX package's reader ignores
+        (a learner-only checkpoint to it). Reads nothing else that
+        changes, so it runs on the writer's thread."""
+        hyper = None
+        if "lr" in host:
+            hyper = inject_hyperparams(float(host["lr"]), self.ppo.adam_eps)
         return {
             "policy": self.policy,
-            "params": params_to_jax(params, self.policy),
-            "opt_state": opt_state_to_jax(vars(self.opt_state), self.policy),
-            "num_timesteps": int(self.num_timesteps),
+            "params": params_to_jax(host["params"], self.policy),
+            "opt_state": opt_state_to_jax(host["opt"], self.policy, hyper),
+            "num_timesteps": host["num_timesteps"],
             "learning_rate": float(self.ppo.learning_rate),
-            "torch_generator": self.generator.get_state().numpy(),
-            "torch_env_state": {
-                f: getattr(self.env_state, f).cpu().numpy()
-                for f in ENV_FIELDS
-            },
-            "torch_obs": self.obs.cpu().numpy(),
-            "torch_step": int(self.step),
+            "torch_generator": host["generator"],
+            "torch_env_state": host["env"],
+            "torch_obs": host["obs"],
+            "torch_step": int(host["step"]),
         }
 
+    def _host_tree(self) -> Dict[str, Any]:
+        return self._checkpoint_tree(tree_to_host(self._checkpoint_state()))
+
     def save(self) -> Optional[str]:
-        """Write a checkpoint; returns its path, or None when the
+        """Write a checkpoint now; returns its path, or None when the
         non-finite gate refused the state."""
         path = save_checkpoint(
-            self.log_dir, self.num_timesteps, self._checkpoint_tree()
+            self.log_dir, self.num_timesteps, self._host_tree()
         )
         self._vec_steps_since_save = 0
-        return None if path is None else str(path)
+        if path is None:
+            return None
+        self._last_good_ckpt = path
+        if self.config.keep_last_n > 0:
+            prune_checkpoints(self.log_dir, self.config.keep_last_n,
+                              protect=self._protected_paths())
+        return str(path)
 
-    def _try_resume(self) -> None:
-        """Restore the newest valid checkpoint in ``log_dir``. Params and,
-        when present, the Adam state and ``num_timesteps`` come from the
-        JAX trainer's keys; the generator, env state, observation and step
-        from the port's ``torch_`` keys. A file without them (one the JAX
-        package wrote) resumes the learner only, with a fresh env and step
-        0, as the JAX package does with a learner-only file."""
-        found = restore_latest_partial(self.log_dir, RESUME_KEYS)
-        if found is None:
-            return
-        path, raw = found
+    def save_async(self, writer: AsyncCheckpointWriter) -> str:
+        """A checkpoint that does not stall the dispatch loop: a device
+        snapshot queued behind the work that produced the state, brought
+        to the host and written by ``writer``'s thread. The same bytes as
+        ``save``."""
+        path = checkpoint_path(self.log_dir, self.num_timesteps)
+
+        def on_done(p: Path) -> None:
+            self._last_good_ckpt = Path(p)
+
+        writer.submit(
+            path,
+            device_snapshot(self._checkpoint_state(),
+                            finish=self._checkpoint_tree),
+            on_done=on_done,
+        )
+        self._vec_steps_since_save = 0
+        return str(path)
+
+    def _load_tree(self, raw: Dict[str, Any], origin: Any) -> None:
+        """Copy a checkpoint tree (``RESUME_KEYS``) into the static carry.
+        Params and, when present, the Adam state (with its learning rate in
+        the ``inject_hyperparams`` layout) and ``num_timesteps`` come from
+        the JAX trainer's keys; the generator, env state, observation and
+        step from the port's ``torch_`` keys. A file without them (one the
+        JAX package wrote) restores the learner only, and the step from 0,
+        as the JAX package does with a learner-only file."""
         policy = raw.get("policy", "MLPActorCritic")
         if policy != self.policy:
             raise ValueError(
-                f"checkpoint {path} holds a {policy}, this run trains a "
+                f"checkpoint {origin} holds a {policy}, this run trains a "
                 f"{self.policy}"
             )
         if "num_timesteps" not in raw:
-            raise ValueError(f"checkpoint {path} has no num_timesteps")
+            raise ValueError(f"checkpoint {origin} has no num_timesteps")
+        it = self._iteration
         self.model.load_state_dict(params_from_jax(raw["params"], policy))
         if "opt_state" in raw:
-            opt = AdamState(**opt_state_from_jax(raw["opt_state"], policy))
+            opt = opt_state_from_jax(raw["opt_state"], policy)
             for k, p in self.model.named_parameters():
-                if opt.mu[k].shape != p.shape or opt.nu[k].shape != p.shape:
-                    raise ValueError(
-                        f"checkpoint {path}: Adam state of {k} has shape "
-                        f"{tuple(opt.mu[k].shape)}, the model {tuple(p.shape)}"
-                    )
-            # In the model's parameter order, which the optimizer zips by.
-            names = [k for k, _ in self.model.named_parameters()]
-            self.opt_state = dataclasses.replace(
-                opt,
-                count=opt.count.to(self.device),
-                mu={k: opt.mu[k].to(self.device) for k in names},
-                nu={k: opt.nu[k].to(self.device) for k in names},
-            )
+                for moment in ("mu", "nu"):
+                    if opt[moment][k].shape != p.shape:
+                        raise ValueError(
+                            f"checkpoint {origin}: Adam {moment} of {k} has "
+                            f"shape {tuple(opt[moment][k].shape)}, the model "
+                            f"{tuple(p.shape)}"
+                        )
+            with torch.no_grad():
+                self.opt_state.count.copy_(opt["count"])
+                for k in self.opt_state.mu:
+                    self.opt_state.mu[k].copy_(opt["mu"][k])
+                    self.opt_state.nu[k].copy_(opt["nu"][k])
+                if "learning_rate" in opt:
+                    it.lr.fill_(opt["learning_rate"])
         self.num_timesteps = int(raw["num_timesteps"])
         ckpt_lr = raw.get("learning_rate")
         if ckpt_lr is not None and not np.isclose(
@@ -377,18 +794,24 @@ class Trainer:
             )
         if "torch_env_state" in raw:
             env = raw["torch_env_state"]
-            if np.shape(env["agents"]) != tuple(self.env_state.agents.shape):
+            if np.shape(env["agents"]) != tuple(it.env.agents.shape):
                 raise ValueError(
-                    f"checkpoint {path}: env state of shape "
+                    f"checkpoint {origin}: env state of shape "
                     f"{np.shape(env['agents'])}, this run has "
-                    f"{tuple(self.env_state.agents.shape)}"
+                    f"{tuple(it.env.agents.shape)}"
                 )
-            self.env_state = FormationState(**{
-                f: torch.from_numpy(np.array(env[f])).to(self.device)
-                for f in ENV_FIELDS
-            })
-            self.obs = torch.from_numpy(np.array(raw["torch_obs"])).to(
-                self.device
-            )
-        self.step = int(raw.get("torch_step", 0))
+            with torch.no_grad():
+                for f in ENV_FIELDS:
+                    getattr(it.env, f).copy_(torch.from_numpy(np.array(env[f])))
+                it.obs.copy_(torch.from_numpy(np.array(raw["torch_obs"])))
+        it.step.fill_(int(raw.get("torch_step", 0)))
+
+    def _try_resume(self) -> None:
+        """Restore the newest valid checkpoint in ``log_dir``
+        (``_load_tree``)."""
+        found = restore_latest_partial(self.log_dir, RESUME_KEYS)
+        if found is None:
+            return
+        path, raw = found
+        self._load_tree(raw, path)
         print(f"[trainer] resumed from {path} at {self.num_timesteps} steps")

@@ -8,20 +8,31 @@ read (footer-less legacy files pass whole). A write goes to a dot-prefixed
 temp file and is renamed into place, so a torn write is never discovered,
 and a tree holding a non-finite float is refused. Discovery picks the
 largest step number; resume walks back past corrupt files, moving each aside
-as ``{name}.quarantined``.
+as ``{name}.quarantined`` with a line in ``quarantine.jsonl``.
+
+Writes can leave the training loop: ``device_snapshot`` copies the state on
+the device behind the work that produced it, and ``AsyncCheckpointWriter``
+brings the copy to the host and writes it on a background thread, one write
+at a time, in order. ``prune_checkpoints`` keeps the newest N files.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import random
 import re
 import struct
 import sys
+import threading
+import time
 import zlib
 from pathlib import Path
-from typing import Any, Iterable, Mapping, Optional, Tuple
+from typing import Any, Callable, Iterable, List, Mapping, Optional, Tuple
 
 import msgpack
 import numpy as np
+import torch
 
 _STEP_RE = re.compile(r"rl_model_(\d+)_steps")
 _CKPT_MAGIC = b"MARLCKPT"
@@ -194,13 +205,37 @@ def checkpoint_step(path: str | Path) -> int:
     return int(m.group(1))
 
 
+def quarantine_checkpoint(path: str | Path, reason: str) -> Optional[Path]:
+    """Move a bad checkpoint aside as ``{name}.quarantined`` (no longer a
+    ``.msgpack``, so discovery never serves it) and append a line to
+    ``quarantine.jsonl`` beside it. Returns the new path, or None when the
+    rename failed; never raises."""
+    path = Path(path)
+    target: Optional[Path] = path.with_name(path.name + ".quarantined")
+    try:
+        path.replace(target)
+    except OSError:
+        target = None
+    try:
+        with open(path.parent / "quarantine.jsonl", "a") as f:
+            f.write(json.dumps({
+                "time": round(time.time(), 3),
+                "file": path.name,
+                "quarantined_as": target.name if target else None,
+                "reason": str(reason)[:300],
+            }) + "\n")
+    except OSError:
+        pass
+    return target
+
+
 def restore_latest_partial(
     log_dir: str | Path, keys: Iterable[str]
 ) -> Optional[Tuple[Path, dict]]:
     """Resume from the newest valid checkpoint in ``log_dir``: ``(path,
     {key: value})`` for each of ``keys`` the file holds (extra keys are
-    ignored), or None when there is none. A corrupt file is renamed to
-    ``{name}.quarantined`` and the walk steps down to the next; if the
+    ignored), or None when there is none. A corrupt file is quarantined
+    (``quarantine_checkpoint``) and the walk steps down to the next; if the
     rename fails, the error is raised."""
     keys = list(keys)
     while True:
@@ -211,11 +246,230 @@ def restore_latest_partial(
             raw = msgpack_restore_file(path)
         except CorruptCheckpointError as e:
             print(f"[checkpoint] quarantined {path.name}: {e}", file=sys.stderr)
-            try:
-                path.replace(path.with_name(path.name + ".quarantined"))
-            except OSError:
+            if quarantine_checkpoint(path, str(e)) is None:
                 raise e
             continue
         if not isinstance(raw, dict):
             raise ValueError(f"checkpoint {path} is not a dict")
         return path, {k: raw[k] for k in keys if k in raw}
+
+
+def prune_checkpoints(
+    log_dir: str | Path, keep_last_n: int, protect: Iterable[Any] = ()
+) -> List[Path]:
+    """The retention ring: delete all but the newest ``keep_last_n``
+    discoverable ``rl_model_*`` checkpoints in ``log_dir`` (0 keeps all).
+    Quarantined, temporary and other files are never touched, nor any path
+    in ``protect`` (the recovery ladder's last good file). Best effort;
+    returns the paths removed."""
+    keep_last_n = int(keep_last_n)
+    log_dir = Path(log_dir)
+    if keep_last_n <= 0 or not log_dir.is_dir():
+        return []
+    protected = {Path(p).resolve() for p in (protect or ()) if p is not None}
+    candidates = sorted(
+        (
+            p for p in log_dir.iterdir()
+            if p.suffix == ".msgpack" and not p.name.startswith(".")
+            and _STEP_RE.search(p.name)
+        ),
+        key=checkpoint_step,
+        reverse=True,
+    )
+    pruned: List[Path] = []
+    for path in candidates[keep_last_n:]:
+        if path.resolve() in protected:
+            continue
+        try:
+            path.unlink()
+        except OSError:
+            continue
+        pruned.append(path)
+    return pruned
+
+
+# ---------------------------------------------------------------------------
+# Writing off the training loop
+# ---------------------------------------------------------------------------
+
+
+def _map_tree(fn: Callable[[Any], Any], tree: Any) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_to_host(tree: Any, ready: Optional[Any] = None) -> Any:
+    """``tree`` with every tensor as a numpy array, in one pass. With a
+    CUDA event ``ready``, the copies run on a side stream that first waits
+    for it, so they wait for the work the event closes and for nothing the
+    caller queued after it."""
+    def leaf(x: Any) -> Any:
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+    if ready is None:
+        return _map_tree(leaf, tree)
+    stream = torch.cuda.Stream()
+    stream.wait_event(ready)
+    with torch.cuda.stream(stream):
+        return _map_tree(leaf, tree)
+
+
+@dataclasses.dataclass
+class DeviceSnapshot:
+    """Device copies of a state tree and the event that closes them;
+    ``result()`` brings them to the host and applies ``finish``."""
+
+    tree: Any
+    ready: Optional[Any]
+    finish: Optional[Callable[[Any], Any]] = None
+
+    def result(self) -> Any:
+        host = tree_to_host(self.tree, self.ready)
+        return host if self.finish is None else self.finish(host)
+
+
+def device_snapshot(
+    tree: Any, finish: Optional[Callable[[Any], Any]] = None
+) -> DeviceSnapshot:
+    """A copy of every tensor of ``tree`` on its device, queued behind the
+    work that produced it, with an event recorded after the copies on the
+    current stream (CUDA). The live tensors can then be overwritten by the
+    next dispatch while a writer thread reads the snapshot. Host leaves
+    pass as they are; ``finish(host_tree)`` runs when the snapshot is read
+    (on the writer's thread, so it must read nothing else that changes)."""
+    copy = _map_tree(
+        lambda x: x.detach().clone() if isinstance(x, torch.Tensor) else x,
+        tree,
+    )
+    ready = None
+    if any(
+        isinstance(x, torch.Tensor) and x.is_cuda
+        for x in _leaves(copy)
+    ):
+        ready = torch.cuda.Event()
+        ready.record()
+    return DeviceSnapshot(copy, ready, finish)
+
+
+def _leaves(tree: Any) -> List[Any]:
+    if isinstance(tree, Mapping):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+class AsyncCheckpointWriter:
+    """Checkpoint writes on a background thread.
+
+    At most one write is in flight: ``submit`` joins the previous write
+    first, so writes land in the order submitted and one snapshot is held
+    at a time. A write is ``write_atomic``'s, so a crash at any point
+    leaves at most a dot-prefixed temporary file that discovery never
+    picks up. An ``OSError`` is retried ``IO_RETRIES`` times with jittered
+    backoff and then skipped (``writes_skipped``), as is a state the
+    non-finite gate refuses: training goes on and the next save tries
+    again. Any other failure is raised as ``RuntimeError`` on the next
+    ``submit``, ``wait`` or ``close``.
+    """
+
+    IO_RETRIES = 3
+    IO_BACKOFF_S = 0.05
+
+    def __init__(
+        self,
+        keep_last_n: int = 0,
+        protect: Optional[Callable[[], Iterable[Any]]] = None,
+    ) -> None:
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self.writes_skipped = 0
+        self.keep_last_n = max(0, int(keep_last_n))
+        self._protect = protect
+
+    def submit(
+        self,
+        path: str | Path,
+        target: Any,
+        on_done: Optional[Callable[[Path], None]] = None,
+    ) -> Path:
+        """Queue one atomic write of ``target`` (a host tree, or a
+        ``DeviceSnapshot``) to ``path``. ``on_done(path)`` runs on the
+        writer's thread once the file is in place; then the retention ring
+        is pruned."""
+        path = Path(path)
+
+        def write() -> None:
+            tree = (
+                target.result() if isinstance(target, DeviceSnapshot)
+                else target
+            )
+            write_atomic(path, tree)
+            if on_done is not None:
+                on_done(path)
+            if self.keep_last_n > 0:
+                prune_checkpoints(
+                    path.parent, self.keep_last_n,
+                    protect=self._protect() if self._protect else (),
+                )
+
+        self.submit_write(write)
+        return path
+
+    def submit_write(self, write_fn: Callable[[], None]) -> None:
+        """Queue any checkpoint-writing callable on the writer's thread,
+        under the same contract as ``submit``."""
+        self.wait()
+        thread = threading.Thread(
+            target=self._run, args=(write_fn,), daemon=True,
+            name="ckpt-writer",
+        )
+        self._thread = thread
+        thread.start()
+
+    def _run(self, write_fn: Callable[[], None]) -> None:
+        try:
+            attempt = 0
+            while True:
+                try:
+                    write_fn()
+                    return
+                except OSError as e:
+                    attempt += 1
+                    if attempt > self.IO_RETRIES:
+                        self._skip(e)
+                        return
+                    time.sleep(
+                        self.IO_BACKOFF_S * 2.0 ** (attempt - 1)
+                        * random.uniform(0.5, 1.5)
+                    )
+                except NonFiniteCheckpointError as e:
+                    self._skip(e)
+                    return
+        except BaseException as e:  # noqa: BLE001 - raised on the next wait
+            self._error = e
+
+    def _skip(self, error: BaseException) -> None:
+        self.writes_skipped += 1
+        print(f"[checkpoint] write skipped: {error}", file=sys.stderr)
+
+    def wait(self) -> None:
+        """Join the write in flight, if any; raise its failure."""
+        thread, self._thread = self._thread, None
+        if thread is not None:
+            thread.join()
+        err, self._error = self._error, None
+        if err is not None:
+            raise RuntimeError(
+                f"async checkpoint write failed: {err!r}"
+            ) from err
+
+    def close(self) -> None:
+        """Drain the writer; raises if the last write failed."""
+        self.wait()
+
+    def close_quietly(self) -> None:
+        """Join without raising, on a path that is already failing."""
+        thread, self._thread = self._thread, None
+        if thread is not None:
+            thread.join()
+        self._error = None

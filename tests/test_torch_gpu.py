@@ -275,3 +275,153 @@ def test_rollout_kernel_path_equals_plain_path(cuda):
     assert torch.equal(o1, o2) and torch.equal(v1, v2)
     assert torch.equal(s1.agents, s2.agents)
     assert float(b1.dones.sum()) > 0  # resets inside the rollout
+
+
+# ---------------------------------------------------------------------------
+# The iteration captured as CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def _pair_of_trainers(tmp_path, kind, **cfg):
+    """A captured and an eager trainer from one seed (ring/MLP at M=16, or
+    the GNN at N=100, M=8)."""
+    from marl_distributedformation_tpu_torch.algo import PPOConfig
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.models import MLPActorCritic
+    from marl_distributedformation_tpu_torch.train import TrainConfig, Trainer
+
+    if kind == "mlp":
+        params, m = EnvParams(), 16
+    else:
+        params, m = EnvParams(num_agents=100, obs_mode="knn", knn_k=4), 8
+    out = {}
+    for capture in (True, False):
+        gen = torch.Generator().manual_seed(0)
+        model = (MLPActorCritic(params.obs_dim, generator=gen)
+                 if kind == "mlp" else _gnn(params))
+        out[capture] = Trainer(
+            params, PPOConfig(n_epochs=2, batch_size=200),
+            TrainConfig(num_formations=m, log_dir=str(tmp_path / str(capture)),
+                        checkpoint=False, **cfg),
+            model=model, device="cuda", capture=capture,
+        )
+    return out[True], out[False]
+
+
+@pytest.mark.parametrize("kind", ["mlp", "gnn"])
+def test_captured_iteration_equals_eager(cuda, tmp_path, kind):
+    """Three iterations (the third fully replayed): the MLP's parameters,
+    Adam state, env carry and metrics bitwise; the GNN's rollout of the
+    first iteration bitwise and its parameters within the Adam budget
+    (``lr`` a step; the gather's backward adds with atomics). The generator
+    state after every iteration equals the eager run's."""
+    captured, eager = _pair_of_trainers(tmp_path, kind)
+    for i in range(3):
+        got = captured.run_iteration()
+        want = eager.run_iteration()
+        torch.cuda.synchronize()
+        assert torch.equal(captured.generator.get_state(),
+                           eager.generator.get_state()), i
+        if kind == "mlp" or i == 0:
+            for name in ("reward", "avg_dist_to_goal", "episode_dones"):
+                assert torch.equal(got[name], want[name]), (i, name)
+    assert [g["calls"] for g in captured.graph_stats()] == [
+        3, 3 * captured._iteration.num_minibatch_steps, 3]
+    assert all(g["nodes"] for g in captured.graph_stats())
+    pairs = list(zip(captured.model.parameters(), eager.model.parameters()))
+    if kind == "mlp":
+        for a, b in pairs:
+            assert torch.equal(a, b)
+        for moment in ("mu", "nu"):
+            for k, v in getattr(captured.opt_state, moment).items():
+                assert torch.equal(v, getattr(eager.opt_state, moment)[k])
+        assert torch.equal(captured.obs, eager.obs)
+        assert torch.equal(captured._iteration.ring.buf,
+                           eager._iteration.ring.buf)
+    else:
+        atol = 3e-8 + 1e-3 * captured.step  # tests/adam_budget.py
+        for a, b in pairs:
+            assert float((a - b).detach().abs().max()) <= atol
+    assert captured.step == eager.step
+
+
+def test_launches_count_by_replay(cuda, tmp_path):
+    """The k-NN kernel launches once at reset and once a rollout step, in
+    the warm-up, the capture and every replay alike: 1 + 3 x n_steps."""
+    captured, _ = _pair_of_trainers(tmp_path, "gnn")
+    knn_cuda.reset_launches()
+    for _ in range(3):
+        captured.run_iteration()
+    torch.cuda.synchronize()
+    assert knn_cuda.LAUNCHES == {"knn_fused": 3 * captured.ppo.n_steps,
+                                 "knn_tiled": 0}
+    rollout = captured.graph_stats()[0]
+    assert rollout["calls"] == 3 and rollout["capture_s"] is not None
+
+
+def test_fused_chunk_with_health_on_cuda(cuda, tmp_path):
+    """``fused_chunk=2 health=true`` trains four captured iterations with
+    finite records, healthy flags and an async checkpoint; a NaN poisoned
+    into the parameters after a rollout (inside the chunk) is skipped by
+    the guard and leaves the carry finite."""
+    captured, _ = _pair_of_trainers(tmp_path, "mlp", fused_chunk=2,
+                                    health=True)
+    chunk = captured.run_chunk()
+    host = chunk.to_host()
+    assert host["health_ok"].tolist() == [1.0, 1.0]
+    poisoned = []
+
+    def hook(phase):
+        if phase == "update" and not poisoned:
+            poisoned.append(1)
+            captured._poison_carry(float("nan"))
+
+    captured.phase_hook = hook
+    host = captured.run_chunk().to_host()
+    captured.phase_hook = None
+    assert host["health_ok"].tolist() == [0.0, 1.0]
+    assert all(bool(torch.isfinite(p).all())
+               for p in captured.model.parameters())
+
+
+def test_rollout_graph_equals_eager_plain_rollout(cuda):
+    """A rollout captured through the kernel (``PhaseGraph``: warm-up,
+    capture, replay from the generator's state at capture) equals an eager
+    rollout through the plain k-NN from the same state, bitwise."""
+    from marl_distributedformation_tpu_torch.algo import collect_rollout
+    from marl_distributedformation_tpu_torch.env import (
+        EnvParams,
+        compute_obs,
+        reset_batch,
+    )
+    from marl_distributedformation_tpu_torch.train.capture import PhaseGraph
+
+    base = EnvParams(num_agents=100, obs_mode="knn", knn_k=4, max_steps=4)
+    model = _gnn(base).to(cuda)
+    runs = {}
+    for impl in ("auto", "torch"):
+        params = base.replace(knn_impl=impl)
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        state = reset_batch(params, 32, gen, cuda)
+        obs = compute_obs(state.agents, state.goal, params)
+        start = gen.get_state()
+        out = []
+
+        def rollout():
+            out[:] = collect_rollout(model, state, obs, gen, params, 10)
+
+        if impl == "auto":
+            graph = PhaseGraph("rollout", rollout, [gen])
+            graph()
+            gen.set_state(start)
+            graph()
+            assert graph.graph is not None and graph.nodes
+        else:
+            rollout()
+        runs[impl] = out
+    (_, o1, b1, v1), (_, o2, b2, v2) = runs["auto"], runs["torch"]
+    for field in ("obs", "actions", "log_probs", "values", "rewards",
+                  "dones"):
+        assert torch.equal(getattr(b1, field), getattr(b2, field)), field
+    assert torch.equal(o1, o2) and torch.equal(v1, v2)
+    assert float(b1.dones.sum()) > 0  # resets inside the captured rollout

@@ -84,7 +84,10 @@ def test_train_config_ported_fields_have_jax_defaults():
     assert set(port) == {
         "num_formations", "total_timesteps", "seed", "save_freq",
         "checkpoint", "name", "log_dir", "use_wandb", "use_tensorboard",
-        "resume", "log_interval",
+        "resume", "log_interval", "iters_per_dispatch", "fused_chunk",
+        "health", "health_grad_norm_max", "health_param_drift_max",
+        "recovery", "recovery_breach_iters", "recovery_max_rollbacks",
+        "recovery_lr_backoff", "recovery_severity_backoff", "keep_last_n",
     }
     for name, default in port.items():
         assert jax_fields[name] == default, name
@@ -257,6 +260,31 @@ def test_train_cli_refuses_unported_knobs(key):
     # The default itself passes the check.
     train_cli.refuse_unported(load_config([f"{key}={default}"]
                                           if default is not None else []))
+
+
+PORTED_KNOBS = {
+    "fused_chunk": 2, "iters_per_dispatch": 3, "health": True,
+    "health_grad_norm_max": 5.0e5, "health_param_drift_max": 4.0,
+    "recovery": True, "recovery_breach_iters": 2,
+    "recovery_max_rollbacks": 5, "recovery_lr_backoff": 0.5,
+    "recovery_severity_backoff": 0.25, "keep_last_n": 4,
+}
+
+
+@pytest.mark.parametrize("key", sorted(PORTED_KNOBS))
+def test_train_cli_accepts_ported_knobs(key, tmp_path, monkeypatch):
+    """The knobs of fused dispatch, the health word, the recovery ladder and
+    the retention ring reach ``TrainConfig`` from the command line, as the
+    JAX package's ``train.py`` passes them."""
+    monkeypatch.setattr(train_cli, "repo_root", lambda: tmp_path)
+    value = PORTED_KNOBS[key]
+    extra = ["health=true"] if key == "recovery" else []
+    trainer = train_cli.build_trainer([
+        f"{key}={str(value).lower() if isinstance(value, bool) else value}",
+        "device=cpu", "num_formation=2", *extra,
+    ])
+    assert getattr(trainer.config, key) == value
+    assert key not in train_cli.UNPORTED
 
 
 @pytest.mark.parametrize("override,match", [
