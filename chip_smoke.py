@@ -50,9 +50,36 @@ Phases (any failure exits non-zero):
      budget (its gather's backward adds with atomics).
    - a ``health=true recovery=true`` run poisoned with NaN once: it must
      end on finite parameters with a rollback in ``recovery.jsonl``.
-6. Print the kernels' JSON line (launches and timings at the training
-   paths' shapes, those of the eval paths under ``eval``), the card line,
-   and the last line ``{"ok": true, "device": {...}}``.
+6. Train populations (``train/sweep.py``) through the ``train`` CLI, every
+   member's formations folded into one env batch, the iteration captured:
+   - ``pop4``: ``gnn100``'s command with ``num_seeds=4`` (30 iterations,
+     ``fused_chunk=10``): ``knn_fused`` must launch 1 + 30 x 10 times (one
+     launch a step for the whole population, at (4096,100,4)); the
+     population mean of the last 3 iterations must beat the first 3 by 20
+     and the best member end above 0; member 0's reward an iteration is
+     printed beside phase 5's ``gnn100`` (the same seed), and iteration 1,
+     before any update, must agree within ``ITER1_RTOL``; its s/iteration
+     is set against 4 x ``gnn100``'s; the evaluate CLI's sweep mode (M=1024,
+     full episode) must rank best member > baseline > zero.
+   - ``pop1024`` (``gnn1024``'s command, 2 members, 4 iterations):
+     ``knn_tiled`` must launch 1 + 4 x 10 times.
+   - a 10-step population rollout at each shape, captured through the
+     kernel with the K generators registered, against an eager rollout
+     through the plain k-NN from the same states: bitwise.
+   - ``sweep8``, the published population command
+     (``docs/acceptance/sweep8``, 200 iterations, K=8, ring/MLP, M=16,
+     N=3): the population mean over iterations 151-200 must beat 1-25 by
+     5, with the 25-iteration windows printed beside the TPU's record; the
+     best member must beat the baseline on 1024 held-out formations.
+   - a ring/MLP lr sweep (K=4, M=64, 3 iterations): each member keeps its
+     rate, the first update's step grows with the rate, and a run resumed
+     from its anchor equals the uninterrupted one bitwise.
+   - a population (K=2, M=64) captured against eager: the MLP bitwise, the
+     GNN within the Adam budget.
+7. Print the kernels' JSON line (launches and timings at the training
+   paths' shapes, those of the eval paths under ``eval`` and the
+   population paths' under ``population``), the card line, and the last
+   line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero with no result when no GPU is found.
 """
@@ -408,11 +435,29 @@ def train_run(name, overrides, label, capture=True):
     trainer = cli.build_trainer([f"name={name}", "device=cuda", *overrides],
                                 capture=capture)
     events = record_phases(trainer)
+    member_rows = []
+    if hasattr(trainer, "num_seeds"):
+        # A population's records hold member means: keep each dispatch's
+        # per-member rows (a device copy queued behind it, no sync).
+        dispatch = trainer._dispatch
+
+        def keep_rows(rollouts):
+            chunk = dispatch(rollouts)
+            member_rows.append(chunk.rows.clone())
+            return chunk
+
+        trainer._dispatch = keep_rows
     trainer.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(knn_cuda.LAUNCHES)
     trainer.phase_hook = None
+    if member_rows:
+        del trainer._dispatch
+        rows = torch.cat(member_rows).cpu()
+        # (iterations, K): each member's reward an iteration.
+        trainer.smoke_member_rewards = rows[
+            ..., trainer.metric_names.index("reward")].numpy()
     lines = (Path(trainer.log_dir) / "metrics.jsonl").read_text().splitlines()
     records = [json.loads(line) for line in lines]
     for r in records:
@@ -429,21 +474,26 @@ def train_run(name, overrides, label, capture=True):
     s_iter = (roll + upd) / 1e3
     m = trainer.config.num_formations
     n = trainer.env_params.num_agents
-    rate = trainer.ppo.n_steps * m / s_iter
+    k = getattr(trainer, "num_seeds", 1)  # a population's members
+    rate = trainer.ppo.n_steps * m * k / s_iter
     steps_per_iter = trainer.step // iters
     graphs = "; ".join(
         f"{g['phase']} {g['nodes']} nodes, captured in "
         f"{g['capture_s']:.3f} s, {g['calls']} calls"
         for g in trainer.graph_stats() if g["capture_s"] is not None
     ) or "none (eager)"
+    per_member = (f" (population of {k}; per member {rate / k:.1f} "
+                  f"formation-steps/s, {rate * n / k:.1f} "
+                  "agent-transitions/s)") if k > 1 else ""
     print(f"[train] {label} ({'captured' if capture else 'eager'}): {iters} "
           f"iterations in {wall:.2f} s ({wall / iters:.3f} s each with "
           f"start-up, capture and saves); steady {s_iter:.4f} s/iteration = "
           f"rollout+GAE {roll / 1e3:.4f} + update {upd / 1e3:.4f} "
           f"({steps_per_iter} optimizer steps, "
           f"{steps_per_iter / (upd / 1e3):.1f}/s); {rate:.1f} "
-          f"formation-steps/s, {rate * n:.1f} agent-transitions/s "
-          f"(metrics.jsonl: {records[-1]['env_steps_per_sec']:.1f}); peak "
+          f"formation-steps/s, {rate * n:.1f} agent-transitions/s"
+          f"{per_member} (metrics.jsonl: "
+          f"{records[-1]['env_steps_per_sec']:.1f}); peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
           f"{launches}; graphs: {graphs}")
     return trainer, [r["reward"] for r in records], launches, s_iter
@@ -462,9 +512,11 @@ def learning_check(rewards, label, margin):
 def rollout_graph_equals_plain(model, n, m):
     """A 10-step rollout of ``model`` on M formations of N agents captured
     as a CUDA graph through the k-NN kernel ``auto`` picks (warmed up,
-    captured, replayed from the generator's state at capture) against an
-    eager rollout through the plain k-NN from the same state: bitwise
-    equal. The kernel's launches count by replay."""
+    captured, replayed from the generators' states at capture) against an
+    eager rollout through the plain k-NN from the same states: bitwise
+    equal. A population (``PopulationModel``) rolls its K members' M
+    formations each, folded into one batch, from K generators. The
+    kernel's launches count by replay."""
     import torch
 
     from marl_distributedformation_tpu_torch.algo import collect_rollout
@@ -473,28 +525,38 @@ def rollout_graph_equals_plain(model, n, m):
         compute_obs,
         reset_batch,
     )
+    from marl_distributedformation_tpu_torch.models.population import (
+        PopulationModel,
+    )
     from marl_distributedformation_tpu_torch.ops import knn_cuda
     from marl_distributedformation_tpu_torch.train.capture import PhaseGraph
 
     dev = torch.device("cuda")
+    k = getattr(model, "num_members", None)
     runs = {}
     for impl in ("auto", "torch"):
         params = EnvParams(num_agents=n, obs_mode="knn", knn_k=4,
                            knn_impl=impl)
-        gen = torch.Generator(device=dev).manual_seed(17)
-        state = reset_batch(params, m, gen, dev)
+        gens = [torch.Generator(device=dev).manual_seed(17 + i)
+                for i in range(k or 1)]
+        streams = gens if k else gens[0]
+        state = reset_batch(params, (k or 1) * m, streams, dev)
         obs = compute_obs(state.agents, state.goal, params)
-        start = gen.get_state()
+        start = [g.get_state() for g in gens]
         out = []
 
+        forward = PopulationModel.rollout_forward if k else None
+
         def rollout():
-            out[:] = collect_rollout(model, state, obs, gen, params, 10)
+            out[:] = collect_rollout(model, state, obs, streams, params, 10,
+                                     forward=forward)
 
         if impl == "auto":
             knn_cuda.reset_launches()
-            graph = PhaseGraph("rollout", rollout, [gen])
+            graph = PhaseGraph("rollout", rollout, gens)
             graph()  # the warm-up, eager
-            gen.set_state(start)
+            for g, s in zip(gens, start):
+                g.set_state(s)
             graph()  # captured, then replayed
             torch.cuda.synchronize()
             launches = dict(knn_cuda.LAUNCHES)
@@ -511,15 +573,19 @@ def rollout_graph_equals_plain(model, n, m):
                                  "!= eager plain path")
     if not (torch.equal(o1, o2) and torch.equal(v1, v2)):
         raise AssertionError("rollout last obs/value: graph != eager plain")
-    print(f"[rollout] N={n} M={m}, 10 steps: captured graph through the "
+    who = f"K={k} x M={m}" if k else f"M={m}"
+    print(f"[rollout] N={n} {who}, 10 steps: captured graph through the "
           f"kernel == eager plain path bitwise (obs, actions, log_probs, "
           f"values, rewards); {graph.nodes} nodes; launches {launches}")
 
 
 def _carry(trainer):
     """The trainer's state as tensors: parameters, Adam state, step, env
-    carry, the metrics ring and the generator."""
+    carry, the metrics ring and the generators (a population's K)."""
+    import torch
+
     it = trainer._iteration
+    gens = getattr(trainer, "generators", None) or [trainer.generator]
     return {
         **{f"param {k}": p.detach().clone()
            for k, p in trainer.model.named_parameters()},
@@ -528,17 +594,19 @@ def _carry(trainer):
         "count": trainer.opt_state.count.clone(), "step": it.step.clone(),
         "agents": it.env.agents.clone(), "obs": it.obs.clone(),
         "metrics": it.ring.buf.clone(),
-        "generator": trainer.generator.get_state(),
+        "generator": torch.stack([g.get_state() for g in gens]),
     }
 
 
-def captured_equals_eager(kind, iterations=3):
+def captured_equals_eager(kind, iterations=3, members=None):
     """Two trainers from one seed on the card, one captured and one eager,
     ``iterations`` iterations each (the last fully replayed): the MLP's
     parameters, Adam state, step, env carry, metrics and generator bitwise
     equal; the GNN's parameters within ``tests/adam_budget.py``'s budget
     (``lr`` a step: the gather's backward adds with atomics, so two GNN
-    updates on the card are not bitwise), its generator equal."""
+    updates on the card are not bitwise), its generator equal. With
+    ``members`` K, two populations of K (members from seeds 3, 4, ...),
+    every member's state and generator held the same way."""
     import torch
 
     from marl_distributedformation_tpu_torch.algo import PPOConfig
@@ -551,23 +619,32 @@ def captured_equals_eager(kind, iterations=3):
         TrainConfig,
         Trainer,
     )
+    from marl_distributedformation_tpu_torch.train.sweep import SweepTrainer
 
     if kind == "mlp":
         params, m, ppo = EnvParams(), 64, PPOConfig()
     else:
         params = EnvParams(num_agents=100, obs_mode="knn", knn_k=4)
         m, ppo = 64, PPOConfig(batch_size=16384)
+
+    def make(seed):
+        gen = torch.Generator().manual_seed(seed)
+        return (MLPActorCritic(params.obs_dim, generator=gen)
+                if kind == "mlp" else GNNActorCritic(k=4, generator=gen))
+
     carries = {}
     for capture in (True, False):
-        gen = torch.Generator().manual_seed(3)
-        model = (MLPActorCritic(params.obs_dim, generator=gen)
-                 if kind == "mlp" else GNNActorCritic(k=4, generator=gen))
-        trainer = Trainer(
-            params, ppo,
-            TrainConfig(num_formations=m, seed=3, checkpoint=False,
-                        log_dir=str(ROOT / "logs" / "smoke_compare")),
-            model=model, device="cuda", capture=capture,
-        )
+        config = TrainConfig(num_formations=m, seed=3, checkpoint=False,
+                             log_dir=str(ROOT / "logs" / "smoke_compare"))
+        if members:
+            trainer = SweepTrainer(
+                params, ppo, config, members,
+                models=[make(3 + i) for i in range(members)],
+                device="cuda", capture=capture,
+            )
+        else:
+            trainer = Trainer(params, ppo, config, model=make(3),
+                              device="cuda", capture=capture)
         for _ in range(iterations):
             trainer.run_iteration()
         torch.cuda.synchronize()
@@ -590,7 +667,8 @@ def captured_equals_eager(kind, iterations=3):
             "bitwise" if kind == "mlp" else
             f"params within {worst:.3g} (budget {atol:.3g}), generator "
             "bitwise")
-    print(f"[capture] {kind} M={m}: {iterations} iterations captured == "
+    who = f"K={members} x M={m}" if members else f"M={m}"
+    print(f"[capture] {kind} {who}: {iterations} iterations captured == "
           f"eager: {what} ({updates} optimizer steps)")
 
 
@@ -641,7 +719,9 @@ def poisoned_health_run():
 
 
 def train_phase():
-    """Phase 5; returns the training paths' launch counts."""
+    """Phase 5; returns the training paths' launch counts and the captured
+    ``gnn100`` run's rewards and s/iteration (phase 6 sets them beside its
+    population's)."""
     from marl_distributedformation_tpu_torch import evaluate as evaluate_cli
     from marl_distributedformation_tpu_torch.utils.checkpoint import (
         latest_checkpoint,
@@ -650,6 +730,7 @@ def train_phase():
     trainer, rewards, got, captured_s = train_run(
         "smoke_gnn100", GNN100 + ("fused_chunk=10",),
         "gnn100 M=1024 N=100 fused_chunk=10")
+    gnn100 = {"rewards": rewards, "s_iter": captured_s}
     want = 1 + len(rewards) * trainer.ppo.n_steps
     if got != {"knn_fused": want, "knn_tiled": 0}:
         raise AssertionError(f"gnn100 launches {got}, want fused {want}")
@@ -714,6 +795,192 @@ def train_phase():
     captured_equals_eager("mlp")
     captured_equals_eager("gnn")
     poisoned_health_run()
+    return launches, gnn100
+
+
+# The published population command (docs/acceptance/sweep8/README.md) and
+# its record, the TPU's (docs/acceptance/sweep8/REGRESSION.md: population
+# mean reward in 25-iteration windows; eval_all_members_tpu.json).
+SWEEP8 = ("num_seeds=8", "num_formation=16", "num_agents_per_formation=3",
+          "strict_parity=false", "max_steps=64", "n_steps=16",
+          "batch_size=192", "n_epochs=4", "total_timesteps=153600",
+          "save_freq=3200", "use_wandb=false")
+SWEEP8_ENV = ("num_agents_per_formation=3", "strict_parity=false",
+              "max_steps=64")
+TPU_SWEEP8_WINDOWS = {(1, 25): -47.3, (76, 100): -38.3, (126, 150): -37.1,
+                      (151, 175): -36.7, (176, 200): -38.1}
+SWEEP8_MARGIN = 5.0
+POP4 = GNN100 + ("num_seeds=4", "fused_chunk=10")
+# The N=1024 population: gnn1024's command, 2 members, 4 iterations.
+POP1024 = GNN1024[:-1] + ("total_timesteps=327680", "num_seeds=2")
+LR_SWEEP = ("num_formation=64", "num_seeds=4",
+            "learning_rates=[1e-4,3e-4,1e-3,3e-3]")
+# Member 0 of pop4 and the single gnn100 run share seed 0: iteration 1
+# (before any update) differs only by the rounding of the members' batched
+# matmuls, so its population-mean reward agrees to this relative tolerance.
+ITER1_RTOL = 1e-3
+
+
+def sweep_eval(name, env):
+    """The evaluate CLI's sweep mode on the run's member directories
+    (1024 held-out formations, seed 1234)."""
+    from marl_distributedformation_tpu_torch import evaluate as evaluate_cli
+
+    return evaluate_cli.main([f"name={name}", *env, "eval_formations=1024",
+                              "eval_seed=1234", "device=cuda"])
+
+
+def lr_sweep_check():
+    """The ring/MLP lr sweep, 3 iterations: each member's rate is its own
+    in the device ``lr``, the anchor and its member file; the first
+    update's mean parameter step grows with the members' rates; and a run
+    of 2 iterations resumed from its anchor for a third equals the run of
+    3 bitwise (parameters, Adam state, steps, env carry, generators)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from marl_distributedformation_tpu_torch.train import cli
+    from marl_distributedformation_tpu_torch.utils.checkpoint import (
+        latest_checkpoint,
+        latest_sweep_state,
+        msgpack_restore_file,
+    )
+
+    per_iter = 64 * 5 * 10
+    rates = np.float32([1e-4, 3e-4, 1e-3, 3e-3])
+    for name in ("smoke_lr_full", "smoke_lr_part"):
+        shutil.rmtree(ROOT / "logs" / name, ignore_errors=True)
+    full = cli.build_trainer(["name=smoke_lr_full", "device=cuda", *LR_SWEEP,
+                              f"total_timesteps={3 * per_iter}"])
+    before = {k: p.detach().clone() for k, p in full.model.params.items()}
+    full.run_iteration()
+    step = torch.stack([
+        (full.model.params[k] - before[k]).abs().reshape(4, -1).mean(1)
+        for k in before
+    ]).mean(0).tolist()
+    full.train()
+    if not (step[0] < step[1] < step[2] < step[3]):
+        raise AssertionError(f"lr sweep: mean first-update steps {step} do "
+                             f"not grow with the rates {rates.tolist()}")
+    got = full._iteration.lr.cpu().numpy()
+    anchor = msgpack_restore_file(latest_sweep_state(full.log_dir))
+    hyper = anchor["opt_state"]["1"]["hyperparams"]["learning_rate"]
+    member = [msgpack_restore_file(latest_checkpoint(
+        Path(full.log_dir) / f"seed{i}"))["learning_rate"] for i in range(4)]
+    for what, value in (("device lr", got), ("anchor", anchor[
+            "learning_rates"]), ("anchor opt_state", hyper),
+            ("member files", np.float32(member))):
+        if not np.array_equal(np.asarray(value, np.float32), rates):
+            raise AssertionError(f"lr sweep: {what} rates {value}, want "
+                                 f"{rates.tolist()}")
+    part = cli.build_trainer(["name=smoke_lr_part", "device=cuda", *LR_SWEEP,
+                              f"total_timesteps={2 * per_iter}"])
+    part.train()
+    resumed = cli.build_trainer(["name=smoke_lr_part", "device=cuda",
+                                 *LR_SWEEP, f"total_timesteps={3 * per_iter}",
+                                 "resume=true"])
+    resumed.train()
+    torch.cuda.synchronize()
+    a, b = _carry(full), _carry(resumed)
+    for key in a:
+        if key != "metrics" and not torch.equal(a[key], b[key]):
+            raise AssertionError(f"lr sweep: resumed {key} != the "
+                                 "uninterrupted run's")
+    print(f"[sweep] lr sweep ring/MLP K=4 M=64: rates "
+          f"{[f'{x:g}' for x in rates]} in the device lr, the anchor and the "
+          f"member files; mean first update {[f'{x:.3g}' for x in step]}; "
+          f"resumed from the anchor at "
+          f"{2 * per_iter} steps == uninterrupted at {3 * per_iter}, "
+          "bitwise")
+
+
+def population_phase(gnn100):
+    """Phase 6, populations; returns their paths' launch counts."""
+    import numpy as np
+
+    trainer, rewards, got, pop_s = train_run(
+        "smoke_pop4", POP4, "pop4 K=4 M=1024 N=100 fused_chunk=10")
+    want = 1 + len(rewards) * trainer.ppo.n_steps
+    if got != {"knn_fused": want, "knn_tiled": 0}:
+        raise AssertionError(f"pop4 launches {got}, want fused {want}")
+    launches = {"knn_fused": got["knn_fused"]}
+    member0 = trainer.smoke_member_rewards[:, 0]
+    single = gnn100["rewards"]
+    print("[learn] pop4 member 0 (seed 0) reward by iteration beside the "
+          "single gnn100 run of phase 5: " + ", ".join(
+              f"{i + 1}: {a:.2f} ({b:.2f})"
+              for i, (a, b) in enumerate(zip(member0, single))))
+    if not abs(member0[0] - single[0]) <= ITER1_RTOL * abs(single[0]):
+        raise AssertionError(f"pop4 member 0 iteration 1 {member0[0]} != "
+                             f"gnn100 {single[0]} within rtol {ITER1_RTOL}")
+    learning_check(rewards, "pop4 population mean", LEARN_MARGIN)
+    best = float(trainer.smoke_member_rewards[-1].max())
+    if not best > 0:
+        raise AssertionError(f"pop4: best member ends at {best}, not > 0")
+    print(f"[pop4] last iteration's member rewards "
+          f"{np.round(trainer.smoke_member_rewards[-1], 3).tolist()}; "
+          f"s/iteration {pop_s:.4f} against 4 x gnn100's "
+          f"{gnn100['s_iter']:.4f}: ratio {pop_s / (4 * gnn100['s_iter']):.3f}")
+    res = sweep_eval("smoke_pop4", ("obs_mode=knn", "policy=gnn",
+                                    "num_agents_per_formation=100"))
+    if not res["best_return"] > res["baseline_return"] > res["zero_return"]:
+        raise AssertionError(f"pop4 ranking best > baseline > zero fails: "
+                             f"{res}")
+    print(f"[pop4] best member {res['best_member']} {res['best_return']:.2f} "
+          f"> baseline {res['baseline_return']:.2f} > zero "
+          f"{res['zero_return']:.2f} (M=1024)")
+    rollout_graph_equals_plain(trainer.model, 100, 1024)
+    profile_window(lambda: trainer._dispatch(1), "train pop4 K=4 M=1024 "
+                   "N=100, one captured iteration", 1, "iteration")
+    elapsed("pop4")
+
+    trainer, rewards, got, _ = train_run("smoke_pop1024", POP1024,
+                                         "pop1024 K=2 M=8 N=1024")
+    want = 1 + len(rewards) * trainer.ppo.n_steps
+    if got != {"knn_fused": 0, "knn_tiled": want}:
+        raise AssertionError(f"pop1024 launches {got}, want tiled {want}")
+    launches["knn_tiled"] = got["knn_tiled"]
+    rollout_graph_equals_plain(trainer.model, 1024, 8)
+    profile_window(trainer.run_iteration, "train pop1024 K=2 M=8 N=1024, "
+                   "one captured iteration", 1, "iteration")
+    elapsed("pop1024")
+
+    trainer, rewards, *_ = train_run("smoke_sweep8", SWEEP8,
+                                     "sweep8 K=8 ring/MLP M=16 N=3")
+    if len(rewards) != 200:
+        raise AssertionError(f"sweep8: {len(rewards)} iterations, want 200")
+    windows = {w: float(np.mean(rewards[w[0] - 1:w[1]]))
+               for w in TPU_SWEEP8_WINDOWS}
+    print("[learn] sweep8 population mean reward by 25-iteration window, "
+          "port (the TPU's record): " + ", ".join(
+              f"{a}-{b}: {windows[(a, b)]:.2f} ({tpu})"
+              for (a, b), tpu in TPU_SWEEP8_WINDOWS.items()))
+    early, late = windows[(1, 25)], float(np.mean(rewards[150:200]))
+    print(f"[learn] sweep8: iterations 1-25 {early:.3f}, 151-200 {late:.3f}")
+    if not late >= early + SWEEP8_MARGIN:
+        raise AssertionError(f"sweep8: 151-200 mean {late:.3f} does not "
+                             f"beat 1-25 {early:.3f} by {SWEEP8_MARGIN}")
+    res = sweep_eval("smoke_sweep8", SWEEP8_ENV)
+    if not res["beats_baseline"]:
+        raise AssertionError(f"sweep8: best member does not beat the "
+                             f"baseline: {res}")
+    tpu = json.loads((ROOT / "docs/acceptance/sweep8/"
+                      "eval_all_members_tpu.json").read_text())
+    print(f"[sweep8] best member {res['best_member']} {res['best_return']:.2f}"
+          f" > baseline {res['baseline_return']:.2f} (zero "
+          f"{res['zero_return']:.2f}); the TPU's record: best "
+          f"{tpu['best_member']} {tpu['best_return']:.2f}, baseline "
+          f"{tpu['baseline_return']:.2f}")
+    profile_window(trainer.run_iteration, "train sweep8 K=8 M=16 N=3, one "
+                   "captured iteration", 1, "iteration")
+    elapsed("sweep8")
+
+    lr_sweep_check()
+    captured_equals_eager("mlp", members=2)
+    captured_equals_eager("gnn", members=2)
+    elapsed("lr sweep, population captured == eager")
     return launches
 
 
@@ -750,15 +1017,19 @@ def main() -> int:
     # training path that launches it and at the eval path's.
     shapes = {
         "knn_fused": (knn_cuda.knn_fused, 200,
-                      {"train": (1024, 100, 4), "eval": (4096, 100, 4)}),
+                      {"train": (1024, 100, 4), "eval": (4096, 100, 4),
+                       "population": (4096, 100, 4)}),
         "knn_tiled": (knn_cuda.knn_tiled, 50,
-                      {"train": (8, 1024, 4), "eval": (512, 1024, 4)}),
+                      {"train": (8, 1024, 4), "eval": (512, 1024, 4),
+                       "population": (16, 1024, 4)}),
     }
-    stats = {
-        name: {path: check_kernel(name, fn, *shape, reps)
-               for path, shape in by_path.items()}
-        for name, (fn, reps, by_path) in shapes.items()
-    }
+    stats = {}
+    for name, (fn, reps, by_path) in shapes.items():
+        done = {}  # a shape two paths share is checked once
+        for path, shape in by_path.items():
+            if shape not in done:
+                done[shape] = check_kernel(name, fn, *shape, reps)
+            stats.setdefault(name, {})[path] = done[shape]
 
     elapsed("phase 2, kernels")
 
@@ -798,15 +1069,20 @@ def main() -> int:
 
     elapsed("phase 4, committed checkpoint")
 
-    # Phase 5: training through the kernels, this slice's main paths.
-    launches = train_phase()
+    # Phase 5: training through the kernels.
+    launches, gnn100 = train_phase()
     elapsed("phase 5, training")
+
+    # Phase 6: populations through the kernels, this slice's main paths.
+    pop_launches = population_phase(gnn100)
+    elapsed("phase 6, populations")
 
     replaces = {
         "knn_fused": "marl_distributedformation_tpu/ops/knn_pallas.py:117",
         "knn_tiled": "marl_distributedformation_tpu/ops/knn_pallas.py:155",
     }
     paths = {"knn_fused": "train gnn100", "knn_tiled": "train gnn1024"}
+    pop_paths = {"knn_fused": "train pop4", "knn_tiled": "train pop1024"}
     # The launches and timings of the training path that launches each
     # kernel (this slice's main path); those of phase 3's eval under "eval".
     kernels = [
@@ -815,7 +1091,10 @@ def main() -> int:
          "replaces": replaces[name], "path": paths[name],
          "launches": launches[name], **stats[name]["train"],
          "library_ms": None,
-         "eval": {"launches": eval_launches[name], **stats[name]["eval"]}}
+         "eval": {"launches": eval_launches[name], **stats[name]["eval"]},
+         "population": {"path": pop_paths[name],
+                        "launches": pop_launches[name],
+                        **stats[name]["population"]}}
         for name in ("knn_fused", "knn_tiled")
     ]
     print(json.dumps({"kernels": kernels}))

@@ -24,7 +24,7 @@ a checkpoint's ``opt_state/1/0/{count,mu,nu}``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Sequence, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -54,10 +54,18 @@ def adam_init(params: Mapping[str, Tensor]) -> AdamState:
     )
 
 
-def global_norm(grads: Sequence[Tensor]) -> Tensor:
-    """``sqrt(sum_i |g_i|^2)`` as a 0-d tensor, from one norm a tensor."""
-    norms = torch.stack(torch._foreach_norm(list(grads)))
-    return torch.sqrt((norms * norms).sum())
+def global_norm(
+    grads: Sequence[Tensor], members: Optional[int] = None
+) -> Tensor:
+    """``sqrt(sum_i |g_i|^2)`` as a 0-d tensor, from one norm a tensor.
+    With ``members`` K (tensors stacked ``(K, ...)``, a population's),
+    ``(K,)``: each member's own, from the norms of its slices."""
+    if members is None:
+        norms = torch.stack(torch._foreach_norm(list(grads)))
+        return torch.sqrt((norms * norms).sum())
+    slices = [g[i] for i in range(members) for g in grads]
+    norms = torch.stack(torch._foreach_norm(slices)).reshape(members, -1)
+    return torch.sqrt((norms * norms).sum(1))
 
 
 def clip_by_global_norm(
@@ -110,6 +118,36 @@ def adam_step(
     updates = torch._foreach_div(mu_hat, den)
     torch._foreach_mul_(updates, -lr)
     torch._foreach_add_(list(params), updates)
+
+
+def population_adam_init(params: Mapping[str, Tensor]) -> AdamState:
+    """``adam_init`` of a population's stacked ``(K, ...)`` parameters:
+    zero moments of their shapes and one count a member ``(K,)``."""
+    state = adam_init(params)
+    k = next(iter(params.values())).shape[0]
+    state.count = torch.zeros((k,), dtype=torch.int32,
+                              device=state.count.device)
+    return state
+
+
+def member_views(
+    params: Sequence[Tensor], state: AdamState
+) -> Tuple[List[List[Tensor]], List[AdamState]]:
+    """Member i's parameters and Adam state as views of a population's
+    stacked tensors, for each i: what ``clipped_adam_step`` updates in
+    place for one member. Made once; the views follow the storage."""
+    k = state.count.shape[0]
+    with torch.no_grad():
+        views = [[p[i] for p in params] for i in range(k)]
+        states = [
+            AdamState(
+                count=state.count[i],
+                mu={n: t[i] for n, t in state.mu.items()},
+                nu={n: t[i] for n, t in state.nu.items()},
+            )
+            for i in range(k)
+        ]
+    return views, states
 
 
 def clipped_adam_step(

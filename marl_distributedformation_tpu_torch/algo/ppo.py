@@ -25,14 +25,17 @@ nothing back to the host.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+import functools
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch.func import vmap
 
 from marl_distributedformation_tpu_torch.algo.optim import (
     AdamState,
     clipped_adam_step,
+    member_views,
 )
 from marl_distributedformation_tpu_torch.models import distributions
 
@@ -174,8 +177,9 @@ def _divisor(value: float, device: torch.device) -> Tensor:
 
 
 class Schedules:
-    """``ent_coef`` and ``log_std_ceiling`` at a device step counter, in
-    float32 on the device as the JAX package computes them: progress from
+    """``ent_coef`` and ``log_std_ceiling`` at a device step counter (0-d,
+    or one a member ``(K,)``), in float32 on the device as the JAX package
+    computes them: progress from
     the two limbs ``step // 4096`` and ``step % 4096``, so that it stays
     monotone past 2^24. XLA contracts ``a + p*(b-a)`` into one fused
     multiply-add; here it rounds twice, so values agree within one rounding
@@ -199,7 +203,7 @@ class Schedules:
         lo = torch.remainder(step, SPLIT).to(torch.float32)
         progress = torch.clamp(
             hi * self._hi_scale + lo / self._total, 0.0, 1.0
-        ).reshape(())
+        ).reshape(step.shape)
         out: Dict[str, Tensor] = {}
         if c.ent_coef_final is not None:
             out["ent_coef"] = c.ent_coef + progress * (
@@ -208,7 +212,7 @@ class Schedules:
         if c.log_std_final is not None:
             sprog = torch.clamp(
                 (progress - self._start) / self._span, 0.0, 1.0
-            ).reshape(())
+            ).reshape(step.shape)
             out["log_std_ceiling"] = c.log_std_init + sprog * (
                 c.log_std_final - c.log_std_init
             )
@@ -319,14 +323,34 @@ class PPOUpdate:
             LOSS_METRICS + ("grad_norm",) + scheduled(config)
         )
         self.data: Optional[MinibatchData] = None
+        lead = self._members()
         self.perms = torch.zeros(
-            (self.num_steps, self.batch_size), dtype=torch.int64, device=device
+            (self.num_steps, *lead, self.batch_size), dtype=torch.int64,
+            device=device,
         )
         self.counter = torch.zeros((), dtype=torch.int64, device=device)
         self.buf = torch.zeros(
-            (self.num_steps, len(self.names)), dtype=torch.float32,
+            (self.num_steps, *lead, len(self.names)), dtype=torch.float32,
             device=device,
         )
+
+    def _members(self) -> Tuple[int, ...]:
+        """The member axis of the buffers: none for one run."""
+        return ()
+
+    def _stage(self, data: MinibatchData) -> None:
+        """Copy an iteration's rows into the static buffers (made on the
+        first call)."""
+        if self.data is None:
+            self.data = MinibatchData(**{
+                f.name: None if getattr(data, f.name) is None
+                else torch.empty_like(getattr(data, f.name))
+                for f in dataclasses.fields(data)
+            })
+        for f in dataclasses.fields(data):
+            src = getattr(data, f.name)
+            if src is not None:
+                getattr(self.data, f.name).copy_(src)
 
     def load(
         self,
@@ -342,16 +366,7 @@ class PPOUpdate:
                 f"PPOUpdate was built for {self.rows} rows, got "
                 f"{data.obs.shape[0]}"
             )
-        if self.data is None:
-            self.data = MinibatchData(**{
-                f.name: None if getattr(data, f.name) is None
-                else torch.empty_like(getattr(data, f.name))
-                for f in dataclasses.fields(data)
-            })
-        for f in dataclasses.fields(data):
-            src = getattr(data, f.name)
-            if src is not None:
-                getattr(self.data, f.name).copy_(src)
+        self._stage(data)
         if permutations is None:
             permutations = draw_permutations(
                 generator, self.config.n_epochs, self.rows, self.used,
@@ -386,16 +401,148 @@ class PPOUpdate:
             self.counter.add_(1)
 
     def means(self) -> Tensor:
-        """``(len(names),)``: each epoch's mean over its minibatches, then
-        the mean over the epochs."""
+        """``(len(names),)`` (``(K, len(names))`` for a population): each
+        epoch's mean over its minibatches, then the mean over the
+        epochs."""
         per = self.buf.reshape(
-            self.config.n_epochs, self.num_minibatches, len(self.names)
+            self.config.n_epochs, self.num_minibatches, *self.buf.shape[1:]
         )
         return per.mean(dim=1).mean(dim=0)
 
     def run(self) -> None:
         for _ in range(self.num_steps):
             self.step()
+
+
+class PopulationUpdate(PPOUpdate):
+    """``PPOUpdate`` over a population's member axis (a
+    ``models.population.PopulationModel``; the counterpart of ``jax.vmap``
+    of the update in the JAX package's ``train/sweep.py``).
+
+    Every member has its own ``rows`` flat rows ``(K, rows, ...)``, its
+    own permutations drawn from its own generator, its own minibatch (a
+    ``(K, batch_size)`` index), advantages normalised over its own
+    minibatch, its own loss, raw global gradient norm, clip and Adam step
+    (``clipped_adam_step`` on views of the stacked tensors, so that member
+    i's clip never reads member j's gradients), at its own learning rate
+    ``lr[i]`` of the ``(K,)`` device ``lr`` and its own optimizer step
+    ``step_count[i]`` (``(K,)``: a member that the health guard holds
+    back keeps its own). The schedules and the ``log_std`` ceiling follow
+    each member's step. The layers run once for all members
+    (``torch.func.vmap``), and one ``autograd.grad`` of the members'
+    summed losses gives every member its own gradients. A metrics row is
+    ``(K, len(names))``.
+    """
+
+    def _members(self) -> Tuple[int, ...]:
+        return (self.model.num_members,)
+
+    def __init__(
+        self,
+        model: Any,
+        opt_state: AdamState,
+        config: PPOConfig,
+        rows: int,
+        step_count: Tensor,
+        lr: Tensor,
+    ) -> None:
+        super().__init__(model, opt_state, config, rows, step_count, lr)
+        self.k = model.num_members
+        self._member_params, self._member_states = member_views(
+            self._params, opt_state
+        )
+        # Member i's rows start at i * rows of the flattened buffers.
+        self._offsets = (
+            torch.arange(self.k, dtype=torch.int64, device=self.device)
+            * rows
+        )[:, None]
+
+    def load(
+        self,
+        data: MinibatchData,
+        generators: Sequence[torch.Generator],
+        permutations: Optional[Tensor] = None,
+    ) -> None:
+        """Take an iteration's rows ``(K, rows, ...)`` and the members'
+        permutations ``(K, n_epochs, used)``, member i's drawn from
+        ``generators[i]`` unless given, and rewind."""
+        if tuple(data.obs.shape[:2]) != (self.k, self.rows):
+            raise ValueError(
+                f"PopulationUpdate was built for {self.k} members of "
+                f"{self.rows} rows, got {tuple(data.obs.shape[:2])}"
+            )
+        self._stage(data)
+        if permutations is None:
+            permutations = torch.stack([
+                draw_permutations(g, self.config.n_epochs, self.rows,
+                                  self.used, self.device)
+                for g in generators
+            ])
+        per_member = permutations.reshape(
+            self.k, self.num_steps, self.batch_size
+        )
+        self.perms.copy_(per_member.transpose(0, 1) + self._offsets)
+        self.counter.zero_()
+
+    def _minibatch(self, idx: Tensor) -> Dict[str, Tensor]:
+        """The rows at flat indices ``idx (K*batch_size,)`` as ``(K,
+        batch_size, ...)`` tensors."""
+        out = {}
+        for f in dataclasses.fields(self.data):
+            t = getattr(self.data, f.name)
+            if t is None:
+                continue
+            flat = t.reshape(self.k * self.rows, *t.shape[2:])
+            out[f.name] = flat.index_select(0, idx).reshape(
+                self.k, self.batch_size, *t.shape[2:]
+            )
+        return out
+
+    def step(self) -> None:
+        """One minibatch step of every member (see the class
+        docstring)."""
+        config = self.config
+        at = self.counter.reshape(1)
+        idx = self.perms.index_select(0, at).reshape(-1)
+        rows = self._minibatch(idx)
+        values = {} if self.schedules is None else self.schedules(
+            self.step_count
+        )
+        call = self.model.member_call
+
+        def member_loss(params, rows, coef=None):
+            return ppo_loss(functools.partial(call, params),
+                            MinibatchData(**rows), config, coef)
+
+        if "ent_coef" in values:
+            loss, metrics = vmap(member_loss)(
+                self.model.params, rows, values["ent_coef"]
+            )
+        else:
+            loss, metrics = vmap(member_loss)(self.model.params, rows)
+        # Contiguous, as one run's: a batched backward may hand a weight's
+        # gradient back transposed, and a norm's sum order follows layout.
+        grads = [g.contiguous() for g in
+                 torch.autograd.grad(loss.sum(), self._params)]
+        metrics["grad_norm"] = torch.stack([
+            clipped_adam_step(
+                self._member_params[i], [g[i] for g in grads],
+                self._member_states[i], self.lr[i], config.max_grad_norm,
+                config.adam_eps,
+            )
+            for i in range(self.k)
+        ])
+        metrics.update(values)
+        with torch.no_grad():
+            self.step_count.add_(1)
+            if "log_std_ceiling" in values:
+                ceiling = values["log_std_ceiling"]
+                for p in self._log_std:
+                    p.clamp_(max=ceiling.reshape(self.k,
+                                                 *[1] * (p.dim() - 1)))
+            row = torch.stack([metrics[n] for n in self.names], dim=-1)
+            self.buf.index_copy_(0, at, row.unsqueeze(0))
+            self.counter.add_(1)
 
 
 def ppo_update(

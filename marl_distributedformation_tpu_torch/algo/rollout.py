@@ -17,6 +17,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from marl_distributedformation_tpu_torch.device import Streams
 from marl_distributedformation_tpu_torch.env.formation import step_batch
 from marl_distributedformation_tpu_torch.env.types import (
     EnvParams,
@@ -60,19 +61,23 @@ def collect_rollout(
     model: torch.nn.Module,
     env_state: FormationState,
     obs: Tensor,
-    generator: Optional[torch.Generator],
+    generator: Streams,
     env_params: EnvParams,
     n_steps: int,
     env_step_fn: Optional[EnvStepFn] = None,
     noise: Optional[Tensor] = None,
+    forward: Optional[Callable[..., Tuple[Tensor, Tensor, Tensor]]] = None,
 ) -> Tuple[FormationState, Tensor, RolloutBatch, Tensor]:
     """Roll ``n_steps`` steps of M formations under the current policy.
 
     ``env_step_fn(state, velocity)`` defaults to ``step_batch`` with resets
     drawn from ``generator``; ``noise (T, M, N, act_dim)`` replaces the
-    generator's action draws. Returns ``(env_state, last_obs, batch,
-    last_value)``.
+    generator's action draws. ``forward(model, obs)`` defaults to
+    ``policy_forward``; a population (``models/population.py``) passes its
+    own, over its members' formations in turn, with their generators.
+    Returns ``(env_state, last_obs, batch, last_value)``.
     """
+    forward = forward or policy_forward
     if env_step_fn is None:
         def env_step_fn(state, velocity):
             return step_batch(state, velocity, env_params, generator)
@@ -81,7 +86,7 @@ def collect_rollout(
                             "rewards", "dones")}
     metrics: Dict[str, list] = {}
     for t in range(n_steps):
-        mean, log_std, value = policy_forward(model, obs)
+        mean, log_std, value = forward(model, obs)
         if noise is None:
             action = distributions.sample(generator, mean, log_std)
         else:
@@ -97,7 +102,7 @@ def collect_rollout(
         for k, v in tr.metrics.items():
             metrics.setdefault(k, []).append(v)
         obs = tr.obs
-    _, _, last_value = policy_forward(model, obs)
+    _, _, last_value = forward(model, obs)
     batch = RolloutBatch(
         **{k: torch.stack(v) for k, v in rows.items()},
         metrics={k: torch.stack(v) for k, v in metrics.items()},

@@ -14,6 +14,12 @@ backoff), the tree is optax's ``inject_hyperparams(adam)`` layout,
 ``{0: {}, 1: {count, hyperparams, hyperparams_states, inner_state: {0: {count,
 mu, nu}, 1: {}}}}``, as the JAX trainer builds it with
 ``recovery_lr_backoff != 1``.
+
+A population's trees (the JAX package's ``train/sweep.py``, ``jax.vmap``
+over the member axis) carry a leading member axis on every leaf: kernels
+swap their last two axes, and the Adam ``count`` and the injected
+hyperparameters are ``(K,)``. ``member_slice`` cuts one member's tree out
+of such a tree.
 """
 
 from __future__ import annotations
@@ -56,7 +62,9 @@ def params_from_jax(
                 continue
             arr = np.array(value, dtype=np.float32)  # a writable copy
             if name == "kernel":
-                out[f"{prefix}weight"] = torch.from_numpy(arr.T.copy())
+                out[f"{prefix}weight"] = torch.from_numpy(
+                    np.swapaxes(arr, -1, -2).copy()
+                )
             else:
                 out[f"{prefix}{name}"] = torch.from_numpy(arr)
 
@@ -85,20 +93,24 @@ def params_to_jax(
             node = node.setdefault(part, {})
         arr = _numpy(value).astype(np.float32)
         if leaf == "weight":
-            node["kernel"] = np.ascontiguousarray(arr.T)
+            node["kernel"] = np.ascontiguousarray(np.swapaxes(arr, -1, -2))
         else:
             node[leaf] = arr
     return {"params": inner}
 
 
-def inject_hyperparams(learning_rate: float, eps: float) -> Dict[str, Any]:
+def inject_hyperparams(learning_rate: Any, eps: float) -> Dict[str, Any]:
     """The ``hyperparams`` of ``optax.inject_hyperparams(optax.adam)(
-    learning_rate, eps=eps)``, float32 as optax keeps them."""
-    f32 = np.float32
+    learning_rate, eps=eps)``, float32 as optax keeps them; with one rate a
+    member (``(K,)``), every entry ``(K,)``, as ``jax.vmap`` stacks them."""
+    lr = np.asarray(learning_rate, np.float32)
+
+    def full(value: float) -> np.ndarray:
+        return np.full(lr.shape, value, np.float32)
+
     return {
-        "b1": np.asarray(0.9, f32), "b2": np.asarray(0.999, f32),
-        "eps": np.asarray(eps, f32), "eps_root": np.asarray(0.0, f32),
-        "learning_rate": np.asarray(learning_rate, f32),
+        "b1": full(0.9), "b2": full(0.999), "eps": full(eps),
+        "eps_root": full(0.0), "learning_rate": lr,
     }
 
 
@@ -133,18 +145,30 @@ def opt_state_from_jax(
     """The port's ``{"count", "mu", "nu"}`` on the CPU from optax's state
     tree as a checkpoint (or flax's ``to_state_dict``) holds it, either
     layout; from the ``inject_hyperparams`` layout also ``"learning_rate"``
-    (a float). Keys follow the parameters'."""
+    (a float; a ``(K,)`` tensor from a population's). Keys follow the
+    parameters'."""
     outer = tree["1"]
     injected = "inner_state" in outer
     adam = outer["inner_state"]["0"] if injected else outer["0"]
     out = {
-        "count": torch.tensor(int(np.asarray(adam["count"])),
-                              dtype=torch.int32),
+        "count": torch.from_numpy(np.array(adam["count"], dtype=np.int32)),
         "mu": params_from_jax(adam["mu"], policy),
         "nu": params_from_jax(adam["nu"], policy),
     }
     if injected:
-        out["learning_rate"] = float(
-            np.asarray(outer["hyperparams"]["learning_rate"])
+        lr = np.array(outer["hyperparams"]["learning_rate"], np.float32)
+        out["learning_rate"] = (
+            float(lr) if lr.ndim == 0 else torch.from_numpy(lr)
         )
     return out
+
+
+def member_slice(tree: Any, i: int) -> Any:
+    """Member ``i``'s tree from a population's host tree: every array leaf
+    indexed at ``i`` on its leading axis (owning copies), other leaves as
+    they are."""
+    if isinstance(tree, Mapping):
+        return {k: member_slice(v, i) for k, v in tree.items()}
+    if isinstance(tree, np.ndarray) and tree.ndim > 0:
+        return np.array(tree[i])
+    return tree

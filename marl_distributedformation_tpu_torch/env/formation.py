@@ -20,7 +20,12 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from marl_distributedformation_tpu_torch.device import DeviceLike, resolve_device
+from marl_distributedformation_tpu_torch.device import (
+    DeviceLike,
+    Streams,
+    draw,
+    resolve_device,
+)
 from marl_distributedformation_tpu_torch.env.types import (
     EnvParams,
     FormationState,
@@ -77,25 +82,28 @@ def integrate(
 def reset_uniforms(
     params: EnvParams,
     num_formations: int,
-    generator: Optional[torch.Generator],
+    generator: Streams,
     device: torch.device,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """The uniform [0, 1) draws of one reset: ``(obstacles (M, K, 2),
-    agents (M, N, 2), goal (M, 2))``."""
+    agents (M, N, 2), goal (M, 2))``. With a population's generators the
+    M formations are the members' in turn, each member's drawn from its
+    own generator as its single run draws them (``device.draw``)."""
     m = num_formations
 
-    def draw(*shape):
-        return torch.rand(
-            shape, generator=generator, device=device, dtype=torch.float32
-        )
+    def uniform(*shape):
+        return draw(torch.rand, generator, shape, device)
 
-    return draw(m, params.num_obstacles, 2), draw(m, params.num_agents, 2), draw(m, 2)
+    return (
+        uniform(m, params.num_obstacles, 2), uniform(m, params.num_agents, 2),
+        uniform(m, 2),
+    )
 
 
 def reset_batch(
     params: EnvParams,
     num_formations: int,
-    generator: Optional[torch.Generator] = None,
+    generator: Streams = None,
     device: DeviceLike = None,
     uniforms: Optional[Tuple[Tensor, Tensor, Tensor]] = None,
 ) -> FormationState:
@@ -268,7 +276,7 @@ def step_batch(
     state: FormationState,
     velocity: Tensor,
     params: EnvParams,
-    generator: Optional[torch.Generator] = None,
+    generator: Streams = None,
     fresh: Optional[FormationState] = None,
 ) -> Tuple[FormationState, Transition]:
     """Advance M formations one step with raw velocities ``(M, N, 2)``.

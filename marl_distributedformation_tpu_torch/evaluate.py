@@ -11,11 +11,19 @@ and one JSON line. Reads ``cfg/config.yaml`` with ``key=value`` overrides.
 
 ``device`` defaults to ``cuda``; the CPU runs only with ``device=cpu``. The
 policy architecture is the one the checkpoint records.
+
+A run directory with ``seed<N>/`` member directories (a population,
+``train/sweep.py``) is evaluated in sweep mode, as the repository's
+``evaluate.py`` does: every member's newest checkpoint, the baseline and
+zero actions on the same held-out initial states, a table ranked by
+return and one JSON line with ``eval_sweep``'s keys. Only directories named
+exactly ``seed`` and digits count.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import sys
 
 import torch
@@ -63,6 +71,13 @@ def main(argv=None) -> dict:
     ckpt = cfg.get("checkpoint")
     if not ckpt:
         log_dir = repo_root() / "logs" / str(cfg.name)
+        member_dirs = sorted(
+            (p for p in log_dir.glob("seed*")
+             if p.is_dir() and re.fullmatch(r"seed\d+", p.name)),
+            key=lambda p: int(p.name.removeprefix("seed")),
+        )
+        if member_dirs:
+            return eval_sweep(member_dirs, params, m, seed, det, dev)
         ckpt = latest_checkpoint(log_dir)
         if ckpt is None:
             raise SystemExit(
@@ -96,9 +111,61 @@ def main(argv=None) -> dict:
             rows["policy"]["episode_return_per_agent"]
             > rows["baseline"]["episode_return_per_agent"]
         ),
-        "resolved_device": (
-            torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-        ),
+        "resolved_device": _device_name(dev),
+    }
+    print(json.dumps(result))
+    return result
+
+
+def _device_name(dev: torch.device) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def eval_sweep(member_dirs, params, m: int, seed: int, deterministic: bool,
+               dev: torch.device) -> dict:
+    """Every member's newest checkpoint, then the baseline and zero
+    actions, on the same initial states; a ranked table and one JSON
+    line."""
+    rows = {}
+    for d in member_dirs:
+        ckpt = latest_checkpoint(d)
+        if ckpt is None:
+            print(f"[eval] {d.name}: no checkpoint, skipping")
+            continue
+        rows[d.name] = evaluate_checkpoint(str(ckpt), params, m, seed,
+                                           deterministic, dev)
+    if not rows:
+        raise SystemExit("no member checkpoints found under seed*/")
+    rows["baseline"] = evaluate(baseline_act_fn(params), params, m, seed, dev)
+    rows["zero"] = evaluate(zero_act_fn(), params, m, seed, dev)
+
+    key = "episode_return_per_agent"
+    ranked = sorted(rows, key=lambda n: rows[n][key], reverse=True)
+    members = [n for n in ranked if n.startswith("seed")]
+    best = members[0]
+    print(f"[eval] sweep: {len(members)} members, M={m} formations x "
+          f"N={params.num_agents} agents, seed={seed}, full episodes, "
+          f"device={dev}")
+    name_w = max(len(n) for n in rows)
+    print(f"{'':<{name_w}} | {key:>26} | final_avg_dist_to_goal")
+    for n in ranked:
+        marker = " <- best member" if n == best else ""
+        print(f"{n:<{name_w}} | {rows[n][key]:>26.2f} | "
+              f"{rows[n]['final_avg_dist_to_goal']:>22.2f}{marker}")
+    result = {
+        "sweep_members": len(members),
+        "eval_formations": m,
+        "num_agents": params.num_agents,
+        "seed": seed,
+        "eval_deterministic": deterministic,
+        "member_returns": {n: rows[n][key] for n in members},
+        "best_member": best,
+        "best_return": rows[best][key],
+        "baseline_return": rows["baseline"][key],
+        "beats_baseline": bool(rows[best][key] > rows["baseline"][key]),
+        "zero_return": rows["zero"][key],
+        "resolved_platform": dev.type,
+        "resolved_device": _device_name(dev),
     }
     print(json.dumps(result))
     return result

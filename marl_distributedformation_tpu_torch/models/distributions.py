@@ -2,28 +2,29 @@
 
 Counterpart of the JAX package's ``models/distributions.py`` (SB3's
 ``DiagGaussianDistribution``, reference vectorized_env.py:126). ``sample``
-draws from an explicit ``torch.Generator``.
+draws from an explicit ``torch.Generator`` (or a population's).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
 
 import torch
+
+from marl_distributedformation_tpu_torch.device import Streams, draw
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
 def sample(
-    generator: Optional[torch.Generator],
+    generator: Streams,
     mean: torch.Tensor,
     log_std: torch.Tensor,
 ) -> torch.Tensor:
-    """Reparameterized draw: ``mean + exp(log_std) * eps``."""
-    eps = torch.randn(
-        mean.shape, generator=generator, device=mean.device, dtype=mean.dtype
-    )
+    """Reparameterized draw: ``mean + exp(log_std) * eps``; with a
+    population's generators, member i's leading rows of ``eps`` from its
+    own (``device.draw``)."""
+    eps = draw(torch.randn, generator, mean.shape, mean.device, mean.dtype)
     return mean + torch.exp(log_std) * eps
 
 

@@ -8,6 +8,9 @@ name=x`` workflow on PyTorch.
     python -m marl_distributedformation_tpu_torch.train name=gnn100 \\
         policy=gnn obs_mode=knn num_agents_per_formation=100 \\
         num_formation=1024 preset=tpu fused_chunk=10 health=true
+    python -m marl_distributedformation_tpu_torch.train name=pop4 \\
+        policy=gnn obs_mode=knn num_agents_per_formation=100 \\
+        num_formation=1024 preset=tpu num_seeds=4 fused_chunk=10
 
 Reads ``cfg/config.yaml`` with ``key=value`` overrides, as the root
 ``train.py`` does, and never writes it. ``device`` defaults to ``cuda``; the
@@ -17,7 +20,9 @@ resolved config, with the device that ran it, to ``logs/{name}/config.json``
 (``config_resume.json`` on a resume). On the card the iteration runs as
 captured CUDA graphs (``train/capture.py``); ``fused_chunk``,
 ``iters_per_dispatch``, ``health``, ``recovery*`` and ``keep_last_n`` mean
-what they mean to the JAX trainer.
+what they mean to the JAX trainer. ``num_seeds > 1`` trains a population
+(``train/sweep.py``) with member checkpoints under ``logs/{name}/seed{i}/``,
+``learning_rates`` (one a member) its rates.
 
 A mistyped key exits with a did-you-mean. A knob of a feature the port does
 not have yet exits naming its ROADMAP item when set to anything but its
@@ -30,6 +35,7 @@ from __future__ import annotations
 import json
 import sys
 from pathlib import Path
+from typing import Optional, Union
 
 import torch
 
@@ -39,6 +45,7 @@ from marl_distributedformation_tpu_torch.models import (
     GNNActorCritic,
     MLPActorCritic,
 )
+from marl_distributedformation_tpu_torch.train.sweep import SweepTrainer
 from marl_distributedformation_tpu_torch.train.trainer import (
     TrainConfig,
     Trainer,
@@ -62,8 +69,6 @@ _UNLISTED_DEFAULTS = {
 
 # Knobs of features not ported yet, and the ROADMAP item that ports each.
 UNPORTED = {
-    "num_seeds": "A11 (populations)",
-    "learning_rates": "A11 (populations)",
     "curriculum": "A9 (hetero and curriculum)",
     "scenarios": "A6 (scenarios)",
     "scenario_severity": "A6 (scenarios)",
@@ -165,13 +170,18 @@ def train_config_from_config(cfg) -> TrainConfig:
     )
 
 
-def build_model(cfg, env_params, policy: str) -> torch.nn.Module:
+def build_model(
+    cfg, env_params, policy: str, seed: Optional[int] = None
+) -> torch.nn.Module:
     """The ``policy`` model with the config's tower widths and
-    ``log_std_init``, initialised from a CPU generator seeded with
-    ``seed``."""
+    ``log_std_init``, initialised from a CPU generator seeded with ``seed``
+    (the config's by default; a population's member i takes ``seed +
+    i``)."""
     sizes = cfg.get("hidden_sizes")
     extra = {"hidden": tuple(int(w) for w in sizes)} if sizes else {}
-    gen = torch.Generator().manual_seed(int(cfg.seed))
+    gen = torch.Generator().manual_seed(
+        int(cfg.seed if seed is None else seed)
+    )
     if policy == "gnn":
         if env_params.obs_mode != "knn":
             raise SystemExit(
@@ -209,27 +219,48 @@ def snapshot_config(cfg, log_dir: str, device: torch.device) -> Path:
     return out
 
 
-def build_trainer(argv=None, capture: bool = True) -> Trainer:
+def build_trainer(
+    argv=None, capture: bool = True
+) -> Union[Trainer, SweepTrainer]:
     """The run ``argv`` (or the command line) asks for, set up but not
-    started; writes the config snapshot. ``capture=False`` runs the
-    iteration eagerly on the card (comparisons only; not a config key)."""
+    started: a ``SweepTrainer`` of ``num_seeds`` members when it is above
+    1, as the root ``train.py`` dispatches, else a ``Trainer``; writes the
+    config snapshot. ``capture=False`` runs the iteration eagerly on the
+    card (comparisons only; not a config key)."""
     overrides = sys.argv[1:] if argv is None else list(argv)
     validate_override_keys(overrides, extra_keys=TRAIN_KEYS)
     cfg = load_config(overrides)
+    num_seeds = int(cfg.get("num_seeds", 1))
+    learning_rates = cfg.get("learning_rates")
+    if learning_rates and num_seeds <= 1:
+        raise SystemExit(
+            "learning_rates is a population knob: set num_seeds to the "
+            "number of rates (one member per rate)"
+        )
     refuse_unported(cfg)
     device = resolve_device(cfg.get("device"))
     env_params = env_params_from_config(cfg)
-    trainer = Trainer(
-        env_params,
-        ppo=ppo_from_config(cfg),
-        config=train_config_from_config(cfg),
-        model=build_model(cfg, env_params, cfg.get("policy", "mlp")),
-        device=device,
-        capture=capture,
-    )
+    policy = cfg.get("policy", "mlp")
+    common = dict(ppo=ppo_from_config(cfg),
+                  config=train_config_from_config(cfg), device=device,
+                  capture=capture)
+    if num_seeds > 1:
+        trainer = SweepTrainer(
+            env_params, num_seeds=num_seeds,
+            models=[build_model(cfg, env_params, policy, int(cfg.seed) + i)
+                    for i in range(num_seeds)],
+            learning_rates=learning_rates, **common,
+        )
+        what = f"{num_seeds} members x "
+    else:
+        trainer = Trainer(
+            env_params, model=build_model(cfg, env_params, policy),
+            **common,
+        )
+        what = ""
     snapshot_config(cfg, trainer.log_dir, device)
     print(
-        f"[train] {cfg.name}: M={cfg.num_formation} formations x "
+        f"[train] {cfg.name}: {what}M={cfg.num_formation} formations x "
         f"N={cfg.num_agents_per_formation} agents, "
         f"{trainer.total_timesteps} agent-transitions on {device}, "
         f"logs -> {trainer.log_dir}"
@@ -237,7 +268,7 @@ def build_trainer(argv=None, capture: bool = True) -> Trainer:
     return trainer
 
 
-def main(argv=None) -> Trainer:
+def main(argv=None) -> Union[Trainer, SweepTrainer]:
     trainer = build_trainer(argv)
     final = trainer.train()
     print(f"[train] done at {trainer.num_timesteps} steps: {final}")

@@ -29,7 +29,7 @@ captures it).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -40,10 +40,16 @@ from marl_distributedformation_tpu_torch.algo import (
     collect_rollout,
     compute_gae,
 )
-from marl_distributedformation_tpu_torch.algo.ppo import PPOUpdate
+from marl_distributedformation_tpu_torch.algo.ppo import (
+    PopulationUpdate,
+    PPOUpdate,
+)
 from marl_distributedformation_tpu_torch.env.types import (
     EnvParams,
     FormationState,
+)
+from marl_distributedformation_tpu_torch.models.population import (
+    PopulationModel,
 )
 from marl_distributedformation_tpu_torch.train.recovery import HEALTH_METRICS
 
@@ -59,17 +65,19 @@ class MetricsRing:
     iteration's row to the next slot. The host keeps the same position
     (``take``): the trainer reads back a dispatch's rows once."""
 
-    def __init__(self, names: Tuple[str, ...], rows: int, device) -> None:
+    def __init__(self, names: Tuple[str, ...], rows: int, device,
+                 lead: Tuple[int, ...] = ()) -> None:
         self.names = names
         self.rows = rows
-        self.buf = torch.zeros((rows, len(names)), dtype=torch.float32,
-                               device=device)
+        # A row is (len(names),), or (K, len(names)) for a population.
+        self.buf = torch.zeros((rows, *lead, len(names)),
+                               dtype=torch.float32, device=device)
         self.pos = torch.zeros((), dtype=torch.int64, device=device)
         self.host_pos = 0
 
     def write(self, row: Tensor) -> None:
         at = self.pos.reshape(1)
-        self.buf.index_copy_(0, at, row.reshape(1, -1))
+        self.buf.index_copy_(0, at, row.unsqueeze(0))
         self.pos.add_(1).remainder_(self.rows)
 
     def advance(self) -> None:
@@ -77,7 +85,7 @@ class MetricsRing:
         self.host_pos = (self.host_pos + 1) % self.rows
 
     def take(self, count: int) -> Tensor:
-        """``(count, len(names))``: the rows of the last ``count``
+        """``(count, [K,] len(names))``: the rows of the last ``count``
         iterations, which a dispatch of ``count`` iterations starting at a
         multiple of ``count`` keeps contiguous."""
         start = (self.host_pos - count) % self.rows
@@ -101,6 +109,9 @@ class PhasedIteration:
     agent-transitions. ``env_step_fn`` replaces the env step (tests inject
     the JAX package's resets).
     """
+
+    members: Optional[int] = None  # K for a population (see below)
+    forward = None  # collect_rollout's default, policy_forward
 
     def __init__(
         self,
@@ -135,7 +146,9 @@ class PhasedIteration:
         else:
             update_ppo = ppo
             self.row_shape = ()
-        m = obs.shape[0]
+        k = self.members or 1
+        m = obs.shape[0] // k
+        self.lead: Tuple[int, ...] = () if self.members is None else (k,)
         rows = ppo.n_steps * m * (1 if self.per_formation else n)
         self.env = FormationState(**{
             f: getattr(env_state, f).detach().clone() for f in ENV_FIELDS
@@ -145,13 +158,15 @@ class PhasedIteration:
             f: torch.empty_like(getattr(self.env, f)) for f in ENV_FIELDS
         })
         self._pending_obs = torch.empty_like(self.obs)
-        self.step = torch.tensor(int(step), dtype=torch.int64, device=device)
+        self.step = torch.full(self.lead, int(step), dtype=torch.int64,
+                               device=device)
         self.lr = torch.tensor(
             ppo.learning_rate if lr is None else lr, dtype=torch.float32,
             device=device,
-        )
+        ).expand(self.lead).clone()
         self.params = [p for _, p in model.named_parameters()]
-        self.update = PPOUpdate(
+        update = PPOUpdate if self.members is None else PopulationUpdate
+        self.update = update(
             model, opt_state, update_ppo, rows, self.step, self.lr
         )
         self.ring_rows = ring_rows
@@ -198,18 +213,18 @@ class PhasedIteration:
         env, last_obs, batch, last_value = collect_rollout(
             self.model, self.env, self.obs, self.generator, p,
             self.ppo.n_steps, env_step_fn=self.env_step_fn, noise=noise,
+            forward=self.forward,
         )
         advantages, returns = compute_gae(
             batch.rewards, batch.values, batch.dones, last_value,
             self.ppo.gamma, self.ppo.gae_lambda,
         )
-        shape = self.row_shape
         flat = MinibatchData(
-            obs=batch.obs.reshape(-1, *shape, p.obs_dim),
-            actions=batch.actions.reshape(-1, *shape, p.act_dim),
-            old_log_probs=batch.log_probs.reshape(-1, *shape),
-            advantages=advantages.reshape(-1, *shape),
-            returns=returns.reshape(-1, *shape),
+            obs=self._flat(batch.obs, p.obs_dim),
+            actions=self._flat(batch.actions, p.act_dim),
+            old_log_probs=self._flat(batch.log_probs),
+            advantages=self._flat(advantages),
+            returns=self._flat(returns),
         )
         self.update.load(flat, self.generator, permutations)
         with torch.no_grad():
@@ -221,16 +236,29 @@ class PhasedIteration:
                     k for k in batch.metrics if k not in ROLLOUT_TOTALS
                 ) + ROLLOUT_TOTALS
                 self._rollout_row = torch.zeros(
-                    len(self._rollout_names), dtype=torch.float32,
-                    device=self.device,
+                    (*self.lead, len(self._rollout_names)),
+                    dtype=torch.float32, device=self.device,
                 )
             values = [
-                batch.metrics[k].mean()
+                self._reduce(batch.metrics[k], "mean")
                 for k in self._rollout_names[:-len(ROLLOUT_TOTALS)]
             ]
             # Formation-level episode count: dones are broadcast to agents.
-            values += [batch.rewards.mean(), batch.dones[..., 0].sum()]
-            self._rollout_row.copy_(torch.stack(values))
+            values += [self._reduce(batch.rewards, "mean"),
+                       self._reduce(batch.dones[..., 0], "sum")]
+            self._rollout_row.copy_(torch.stack(values, dim=-1))
+
+    # One run's rollout rows and reductions; a population overrides them.
+
+    def _flat(self, x: Tensor, *tail: int) -> Tensor:
+        """Time-major rollout rows ``(T, M, N, *tail)`` as the update's flat
+        rows: agent rows, or whole formations for a per-formation model."""
+        return x.reshape(-1, *self.row_shape, *tail)
+
+    def _reduce(self, x: Tensor, op: str) -> Tensor:
+        """``x.mean()`` or ``x.sum()`` over a rollout tensor ``(T, M,
+        ...)``."""
+        return getattr(x, op)()
 
     def minibatch(self) -> None:
         """One minibatch step of the update."""
@@ -241,20 +269,21 @@ class PhasedIteration:
         the row into the ring."""
         with torch.no_grad():
             upd = self.update.means()
-            row = torch.cat([self._rollout_row, upd])
+            row = torch.cat([self._rollout_row, upd], dim=-1)
             names = self.update.names
             if self.health is not None:
                 flags = self.health.apply(
-                    upd[names.index("loss")], upd[names.index("grad_norm")],
-                    self.env_pairs(),
+                    upd[..., names.index("loss")],
+                    upd[..., names.index("grad_norm")], self.env_pairs(),
                 )
-                row = torch.cat([row, flags])
+                row = torch.cat([row, flags], dim=-1)
             else:
                 for carry, pending in self.env_pairs():
                     carry.copy_(pending)
             if self.ring is None:
                 self.ring = MetricsRing(
-                    self.metric_names(), self.ring_rows, self.device
+                    self.metric_names(), self.ring_rows, self.device,
+                    self.lead,
                 )
             self.ring.write(row)
 
@@ -294,5 +323,59 @@ class PhasedIteration:
         self.ring.advance()
 
     def metrics(self, row: Tensor) -> Dict[str, Tensor]:
-        """A metrics row as ``{name: 0-d tensor}``."""
-        return {n: row[j] for j, n in enumerate(self.ring.names)}
+        """A metrics row as ``{name: 0-d tensor}`` (``(K,)`` for a
+        population)."""
+        return {n: row[..., j] for j, n in enumerate(self.ring.names)}
+
+
+class PopulationIteration(PhasedIteration):
+    """One training iteration of a population of K members
+    (``models.population.PopulationModel``) in the same three phases over
+    one static carry: the counterpart of ``jax.vmap`` of the iteration in
+    the JAX package's ``train/sweep.py``.
+
+    The members' M formations each are folded into one env batch of K*M
+    formations, member i's at rows ``i*M`` to ``(i+1)*M``: one env step and
+    one k-NN launch a step advance the whole population (the env and the
+    k-NN are per formation, so the fold is exact). ``generator`` is the
+    members' K generators; each member draws its resets, action noise and
+    permutations from its own, in its single run's order. ``step`` and
+    ``lr`` become ``(K,)`` (``lr`` a float for every member, or one a
+    member); ``opt_state`` holds stacked moments and a ``(K,)`` count
+    (``algo.optim.population_adam_init``). The update is
+    ``algo.ppo.PopulationUpdate``; a metrics row is ``(K, names)``.
+    """
+
+    def __init__(
+        self,
+        env_params: EnvParams,
+        ppo: PPOConfig,
+        model: Any,
+        opt_state: AdamState,
+        generators: Sequence[torch.Generator],
+        env_state: FormationState,
+        obs: Tensor,
+        **kwargs: Any,
+    ) -> None:
+        self.members = model.num_members
+        if len(generators) != self.members:
+            raise ValueError(f"{len(generators)} generators for "
+                             f"{self.members} members")
+        super().__init__(env_params, ppo, model, opt_state, list(generators),
+                         env_state, obs, **kwargs)
+
+    forward = staticmethod(PopulationModel.rollout_forward)
+
+    def _by_member(self, x: Tensor) -> Tensor:
+        """``(T, K*M, ...)`` as ``(K, T, M, ...)``: each member's rows in
+        its single run's order."""
+        k = self.members
+        return x.reshape(x.shape[0], k, -1, *x.shape[2:]).transpose(0, 1)
+
+    def _flat(self, x: Tensor, *tail: int) -> Tensor:
+        return self._by_member(x).reshape(
+            self.members, -1, *self.row_shape, *tail
+        )
+
+    def _reduce(self, x: Tensor, op: str) -> Tensor:
+        return getattr(self._by_member(x).reshape(self.members, -1), op)(-1)

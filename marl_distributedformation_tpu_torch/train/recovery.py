@@ -101,10 +101,14 @@ def health_flags(
     params_old: Sequence[Tensor],
     params_new: Sequence[Tensor],
     health: HealthConfig,
+    members: Optional[int] = None,
 ) -> Tuple[Tensor, Tensor]:
     """``(healthy, word)``: a 0-d bool and the 0-d float32 health word of an
     iteration with mean ``loss``, mean raw ``grad_norm`` (None passes both
-    grad checks) and the parameters before and after it. No host read."""
+    grad checks) and the parameters before and after it. No host read.
+    With ``members`` K (a population: ``loss`` and ``grad_norm`` ``(K,)``,
+    parameters stacked ``(K, ...)``), one flag and word a member, each
+    from the member's own values only."""
     loss_ok = torch.isfinite(loss)
     if grad_norm is None:
         grad_finite = torch.ones_like(loss_ok)
@@ -113,8 +117,8 @@ def health_flags(
         grad_finite = torch.isfinite(grad_norm)
         # NaN <= x is False: a non-finite norm fails both flags.
         grad_bounded = grad_norm <= health.grad_norm_max
-    p_old = global_norm(params_old)
-    p_new = global_norm(params_new)
+    p_old = global_norm(params_old, members)
+    p_new = global_norm(params_new, members)
     drift_ok = torch.isfinite(p_new) & (
         p_new <= health.param_drift_max * (p_old + 1.0)
     )
@@ -134,18 +138,35 @@ class HealthGuard:
     tensors (parameters first, then the rest of what the update changes) to
     backups before the iteration; ``apply`` checks the iteration and writes
     the selected carry back. Backups keep their storage, so both run inside
-    a captured graph."""
+    a captured graph.
+
+    With ``members`` K (a population), every learner tensor and env carry
+    has the members in turn along its first axis, and the check and the
+    select are per member: a diverged member keeps its own state from
+    before the iteration while the others take their new state, as the JAX
+    package's guard does when wrapped before ``jax.vmap``."""
 
     def __init__(
         self,
         health: HealthConfig,
         params: Sequence[Tensor],
         learner: Sequence[Tensor],
+        members: Optional[int] = None,
     ) -> None:
         self.health = health
         self.params = list(params)
         self.learner = list(learner)
+        self.members = members
         self._backups = [torch.empty_like(t) for t in self.learner]
+
+    def _select(self, healthy: Tensor, new: Tensor, old: Tensor) -> Tensor:
+        """``new`` where healthy, else ``old``; per member along the first
+        axis with ``members``."""
+        if self.members is None:
+            return torch.where(healthy, new, old)
+        k = self.members
+        return torch.where(healthy.reshape(k, 1), new.reshape(k, -1),
+                           old.reshape(k, -1)).reshape(new.shape)
 
     def save(self) -> None:
         with torch.no_grad():
@@ -164,22 +185,24 @@ class HealthGuard:
         returns ``[health_ok, health_word]`` float32."""
         n = len(self.params)
         healthy, word = health_flags(
-            loss, grad_norm, self._backups[:n], self.params, self.health
+            loss, grad_norm, self._backups[:n], self.params, self.health,
+            self.members,
         )
         with torch.no_grad():
             for live, old in zip(self.learner, self._backups):
-                live.copy_(torch.where(healthy, live, old))
+                live.copy_(self._select(healthy, live, old))
             for carry, new in env_pairs:
-                carry.copy_(torch.where(healthy, new, carry))
-        return torch.stack([healthy.to(torch.float32), word])
+                carry.copy_(self._select(healthy, new, carry))
+        return torch.stack([healthy.to(torch.float32), word], dim=-1)
 
 
 def make_health_iteration(iteration: Any, health: HealthConfig) -> Any:
-    """``iteration`` (a ``train.iteration.PhasedIteration``) with the health
-    word and the skip-update guard: its metrics gain ``health_ok`` and
-    ``health_word``."""
+    """``iteration`` (a ``train.iteration.PhasedIteration``, or its
+    population counterpart) with the health word and the skip-update
+    guard: its metrics gain ``health_ok`` and ``health_word``."""
     iteration.health = HealthGuard(
-        health, iteration.params, iteration.learner_tensors()
+        health, iteration.params, iteration.learner_tensors(),
+        getattr(iteration, "members", None),
     )
     return iteration
 

@@ -25,8 +25,8 @@ Randomness: the model is initialised from a CPU generator seeded with
 ``seed``; resets, action noise and minibatch permutations draw, in that
 order, from one generator on the training device seeded with ``seed +
 2**32``. Its state is checkpointed, so a resume continues the stream.
-Mesh, scenarios, populations, the metrics registry and chaos fault points
-are not ported (ROADMAP Queue A).
+Populations are ``train/sweep.py``'s. Mesh, scenarios, the metrics
+registry and chaos fault points are not ported (ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -222,14 +222,14 @@ class ChunkMetrics:
     that closes the dispatch (CUDA)."""
 
     names: Tuple[str, ...]
-    rows: Tensor  # (iterations, len(names))
+    rows: Tensor  # (iterations, [K,] len(names))
     ready: Optional[Any]
 
     def to_host(self) -> Dict[str, np.ndarray]:
-        """``{name: (iterations,) float32}``, in one transfer that waits for
-        this dispatch only."""
+        """``{name: (iterations,) float32}`` (``(iterations, K)`` for a
+        population), in one transfer that waits for this dispatch only."""
         host = tree_to_host({"rows": self.rows}, self.ready)["rows"]
-        return {n: host[:, j] for j, n in enumerate(self.names)}
+        return {n: host[..., j] for j, n in enumerate(self.names)}
 
 
 class Trainer:

@@ -1,4 +1,5 @@
-"""``rl_model_{steps}_steps.msgpack`` checkpoints: writing and reading.
+"""``rl_model_{steps}_steps.msgpack`` checkpoints, and a population's
+``sweep_state_{steps}_steps.msgpack`` anchors: writing and reading.
 
 Counterpart of the JAX package's ``utils/checkpoint.py``, with ``msgpack``
 alone in flax's format: ext code 1 is an ndarray packed as ``(shape, dtype
@@ -35,6 +36,9 @@ import numpy as np
 import torch
 
 _STEP_RE = re.compile(r"rl_model_(\d+)_steps")
+# A population's resume anchor lives beside its seed{i}/ member directories;
+# its own prefix keeps it out of the rl_model_* discovery.
+_SWEEP_STEP_RE = re.compile(r"sweep_state_(\d+)_steps")
 _CKPT_MAGIC = b"MARLCKPT"
 _FOOTER = struct.Struct("<Iq8s")  # crc32, payload length, magic
 _EXT_NDARRAY = 1
@@ -52,6 +56,10 @@ class NonFiniteCheckpointError(ValueError):
 
 def checkpoint_path(log_dir: str | Path, num_timesteps: int) -> Path:
     return Path(log_dir) / f"rl_model_{num_timesteps}_steps.msgpack"
+
+
+def sweep_state_path(log_dir: str | Path, num_timesteps: int) -> Path:
+    return Path(log_dir) / f"sweep_state_{num_timesteps}_steps.msgpack"
 
 
 def with_footer(payload: bytes) -> bytes:
@@ -183,19 +191,45 @@ def save_checkpoint(
     return path
 
 
-def latest_checkpoint(log_dir: str | Path) -> Optional[Path]:
-    """The ``rl_model_*_steps.msgpack`` in ``log_dir`` with the largest step
-    number (reference visualize_policy.py:29-32), or None."""
+def save_sweep_state(
+    log_dir: str | Path, num_timesteps: int, tree: Any
+) -> Optional[Path]:
+    """Write a population's resume anchor,
+    ``sweep_state_{num_timesteps}_steps.msgpack``; returns its path, or
+    None (with a notice on stderr) when the non-finite gate refused it."""
+    path = sweep_state_path(log_dir, num_timesteps)
+    try:
+        write_atomic(path, tree)
+    except NonFiniteCheckpointError as e:
+        print(f"[checkpoint] skipped: {e}", file=sys.stderr)
+        return None
+    return path
+
+
+def _latest(log_dir: str | Path, step_re: re.Pattern) -> Optional[Path]:
     log_dir = Path(log_dir)
     if not log_dir.is_dir():
         return None
-    candidates = [
-        p for p in log_dir.iterdir()
-        if p.suffix == ".msgpack" and _STEP_RE.search(p.name)
-    ]
-    if not candidates:
+    steps = {}
+    for p in log_dir.iterdir():
+        m = step_re.search(p.name)
+        if p.suffix == ".msgpack" and m:
+            steps[p] = int(m.group(1))
+    if not steps:
         return None
-    return max(candidates, key=checkpoint_step)
+    return max(steps, key=steps.get)
+
+
+def latest_checkpoint(log_dir: str | Path) -> Optional[Path]:
+    """The ``rl_model_*_steps.msgpack`` in ``log_dir`` with the largest step
+    number (reference visualize_policy.py:29-32), or None."""
+    return _latest(log_dir, _STEP_RE)
+
+
+def latest_sweep_state(log_dir: str | Path) -> Optional[Path]:
+    """The newest ``sweep_state_*_steps.msgpack`` in ``log_dir``, or
+    None."""
+    return _latest(log_dir, _SWEEP_STEP_RE)
 
 
 def checkpoint_step(path: str | Path) -> int:

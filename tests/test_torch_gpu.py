@@ -425,3 +425,147 @@ def test_rollout_graph_equals_eager_plain_rollout(cuda):
         assert torch.equal(getattr(b1, field), getattr(b2, field)), field
     assert torch.equal(o1, o2) and torch.equal(v1, v2)
     assert float(b1.dones.sum()) > 0  # resets inside the captured rollout
+
+
+# ---------------------------------------------------------------------------
+# A population captured as CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def _pair_of_sweeps(tmp_path, kind, num_seeds=2, **cfg):
+    """A captured and an eager population from one seed (ring/MLP at M=16,
+    or the GNN at N=100, M=8), members initialised from seeds 0 and 1."""
+    from marl_distributedformation_tpu_torch.algo import PPOConfig
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.models import (
+        GNNActorCritic,
+        MLPActorCritic,
+    )
+    from marl_distributedformation_tpu_torch.train import TrainConfig
+    from marl_distributedformation_tpu_torch.train.sweep import SweepTrainer
+
+    if kind == "mlp":
+        params, m = EnvParams(), 16
+    else:
+        params, m = EnvParams(num_agents=100, obs_mode="knn", knn_k=4), 8
+
+    def model(seed):
+        gen = torch.Generator().manual_seed(seed)
+        if kind == "mlp":
+            return MLPActorCritic(params.obs_dim, generator=gen)
+        return GNNActorCritic(k=params.knn_k, generator=gen)
+
+    out = {}
+    for capture in (True, False):
+        out[capture] = SweepTrainer(
+            params, PPOConfig(n_epochs=2, batch_size=200),
+            TrainConfig(num_formations=m, checkpoint=False,
+                        log_dir=str(tmp_path / str(capture)), **cfg),
+            num_seeds, models=[model(i) for i in range(num_seeds)],
+            device="cuda", capture=capture,
+        )
+    return out[True], out[False]
+
+
+@pytest.mark.parametrize("kind", ["mlp", "gnn"])
+def test_population_captured_equals_eager(cuda, tmp_path, kind):
+    """Three population iterations (the third fully replayed) captured
+    against eager: after every iteration the K generators' states equal
+    the eager draws'; the MLP's stacked parameters, Adam state, env carry
+    and metrics bitwise, the GNN's first rollout bitwise and its
+    parameters within the Adam budget (``lr`` a step: the gather's
+    backward adds with atomics)."""
+    captured, eager = _pair_of_sweeps(tmp_path, kind)
+    for i in range(3):
+        got = captured.run_iteration()
+        want = eager.run_iteration()
+        torch.cuda.synchronize()
+        for g, h in zip(captured.generators, eager.generators):
+            assert torch.equal(g.get_state(), h.get_state()), i
+        if kind == "mlp" or i == 0:
+            for name in ("reward", "avg_dist_to_goal", "episode_dones"):
+                assert torch.equal(got[name], want[name]), (i, name)
+    assert [g["calls"] for g in captured.graph_stats()] == [
+        3, 3 * captured._iteration.num_minibatch_steps, 3]
+    pairs = [(captured.model.params[k], eager.model.params[k])
+             for k in captured.model.params]
+    if kind == "mlp":
+        for a, b in pairs:
+            assert torch.equal(a, b)
+        for moment in ("mu", "nu"):
+            for k, v in getattr(captured.opt_state, moment).items():
+                assert torch.equal(v, getattr(eager.opt_state, moment)[k])
+        assert torch.equal(captured.obs, eager.obs)
+        assert torch.equal(captured._iteration.ring.buf,
+                           eager._iteration.ring.buf)
+    else:
+        atol = 3e-8 + 1e-3 * captured.step  # tests/adam_budget.py
+        for a, b in pairs:
+            assert float((a - b).detach().abs().max()) <= atol
+    assert torch.equal(captured._iteration.step, eager._iteration.step)
+
+
+def test_population_launches_once_a_step(cuda, tmp_path):
+    """One ``knn_fused`` launch a step advances the whole population (its
+    K*M formations folded into one batch), in the warm-up, the capture and
+    every replay alike: 3 x n_steps over three iterations, not x K."""
+    captured, _ = _pair_of_sweeps(tmp_path, "gnn", num_seeds=3)
+    knn_cuda.reset_launches()
+    for _ in range(3):
+        captured.run_iteration()
+    torch.cuda.synchronize()
+    assert knn_cuda.LAUNCHES == {"knn_fused": 3 * captured.ppo.n_steps,
+                                 "knn_tiled": 0}
+
+
+def test_population_rollout_graph_follows_every_generator(cuda):
+    """A population rollout captured with its K generators registered
+    (warm-up, capture, replay from the generators' states at capture)
+    draws what eager draws from the same states: outputs bitwise, and each
+    generator's state after the replay equals its state after the eager
+    draws."""
+    from marl_distributedformation_tpu_torch.algo import collect_rollout
+    from marl_distributedformation_tpu_torch.env import (
+        EnvParams,
+        compute_obs,
+        reset_batch,
+    )
+    from marl_distributedformation_tpu_torch.models import GNNActorCritic
+    from marl_distributedformation_tpu_torch.models.population import (
+        PopulationModel,
+    )
+    from marl_distributedformation_tpu_torch.train.capture import PhaseGraph
+
+    params = EnvParams(num_agents=100, obs_mode="knn", knn_k=4, max_steps=4)
+    pop = PopulationModel([
+        GNNActorCritic(k=4, generator=torch.Generator().manual_seed(i))
+        for i in range(3)
+    ]).to(cuda)
+    gens = [torch.Generator(device=cuda).manual_seed(10 + i)
+            for i in range(3)]
+    state = reset_batch(params, 3 * 8, gens, cuda)
+    obs = compute_obs(state.agents, state.goal, params)
+    start = [g.get_state() for g in gens]
+    out = []
+
+    def rollout():
+        out[:] = collect_rollout(pop, state, obs, gens, params, 10,
+                                 forward=PopulationModel.rollout_forward)
+
+    graph = PhaseGraph("rollout", rollout, gens)
+    graph()  # the warm-up, eager
+    for g, s in zip(gens, start):
+        g.set_state(s)
+    graph()  # captured, then replayed
+    torch.cuda.synchronize()
+    replayed = [t.clone() for t in (out[2].obs, out[2].actions, out[1])]
+    after = [g.get_state() for g in gens]
+    for g, s in zip(gens, start):
+        g.set_state(s)
+    rollout()  # eager, from the same states
+    torch.cuda.synchronize()
+    for got, want in zip(replayed, (out[2].obs, out[2].actions, out[1])):
+        assert torch.equal(got, want)
+    for a, g in zip(after, gens):
+        assert torch.equal(a, g.get_state())
+    assert float(out[2].dones.sum()) > 0  # resets inside the rollout

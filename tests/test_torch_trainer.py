@@ -268,23 +268,46 @@ PORTED_KNOBS = {
     "recovery": True, "recovery_breach_iters": 2,
     "recovery_max_rollbacks": 5, "recovery_lr_backoff": 0.5,
     "recovery_severity_backoff": 0.25, "keep_last_n": 4,
+    # The population knobs build a SweepTrainer, as the root train.py does.
+    "num_seeds": 3, "learning_rates": "[3e-4,1e-3]",
 }
+POPULATION_KNOBS = ("num_seeds", "learning_rates")
 
 
 @pytest.mark.parametrize("key", sorted(PORTED_KNOBS))
 def test_train_cli_accepts_ported_knobs(key, tmp_path, monkeypatch):
-    """The knobs of fused dispatch, the health word, the recovery ladder and
-    the retention ring reach ``TrainConfig`` from the command line, as the
-    JAX package's ``train.py`` passes them."""
+    """The knobs of fused dispatch, the health word, the recovery ladder,
+    the retention ring and populations reach the trainer from the command
+    line, as the JAX package's ``train.py`` passes them; a population
+    member i is initialised from ``seed + i``."""
     monkeypatch.setattr(train_cli, "repo_root", lambda: tmp_path)
     value = PORTED_KNOBS[key]
-    extra = ["health=true"] if key == "recovery" else []
+    extra = {"recovery": ["health=true"],
+             "learning_rates": ["num_seeds=2"]}.get(key, [])
     trainer = train_cli.build_trainer([
         f"{key}={str(value).lower() if isinstance(value, bool) else value}",
         "device=cpu", "num_formation=2", *extra,
     ])
-    assert getattr(trainer.config, key) == value
     assert key not in train_cli.UNPORTED
+    if key not in POPULATION_KNOBS:
+        assert getattr(trainer.config, key) == value
+        return
+    from marl_distributedformation_tpu_torch.train.sweep import SweepTrainer
+
+    assert isinstance(trainer, SweepTrainer)
+    if key == "num_seeds":
+        assert trainer.num_seeds == 3 and trainer.learning_rates is None
+        cfg = load_config(["num_formation=2"])
+        for i in range(3):
+            member = train_cli.build_model(cfg, trainer.env_params, "mlp",
+                                           seed=i)
+            for k, p in member.named_parameters():
+                assert torch.equal(trainer.model.params[k][i], p)
+    else:  # YAML leaves "3e-4" a string; each is taken as a float
+        np.testing.assert_array_equal(trainer.learning_rates,
+                                      np.float32([3e-4, 1e-3]))
+        np.testing.assert_array_equal(trainer._iteration.lr.numpy(),
+                                      np.float32([3e-4, 1e-3]))
 
 
 @pytest.mark.parametrize("override,match", [
@@ -294,10 +317,16 @@ def test_train_cli_accepts_ported_knobs(key, tmp_path, monkeypatch):
     ("backend=torch", "device=cuda"),
     ("num_formations=4", "did you mean 'num_formation'"),
     ("policy=transformer", "not implemented"),
+    # As the root train.py: a population knob alone, and populations of
+    # the curriculum trainer (not ported).
+    ("learning_rates=[1e-3,3e-3]", "learning_rates is a population knob"),
+    ("num_seeds=2 curriculum=[{rollouts: 2, agent_counts: [3]}]",
+     "ROADMAP A9"),
 ])
 def test_train_cli_refuses(override, match):
     with pytest.raises(SystemExit, match=match):
-        train_cli.main([override, "device=cpu", "total_timesteps=0"])
+        train_cli.main([*override.split(" ", 1), "device=cpu",
+                        "total_timesteps=0"])
 
 
 def test_metrics_logger_as_jax(tmp_path, capsys):
