@@ -36,12 +36,15 @@ Phases (any failure exits non-zero):
      must launch 1 + 12 x 10 times; the last 3 iterations must beat the
      first 3.
    - the ring/MLP default (M=1000, N=5, ``batch_size=64``), 2 iterations
-     captured and 1 eager.
+     captured and 1 eager; its profile covers the rollout and the first of
+     the 10 epochs.
    - for every run: seconds an iteration split into rollout and update
      (CUDA events between graph replays), formation-steps/s,
-     agent-transitions/s, peak memory, each graph's nodes and capture
-     time, and the device's busy share over one profiled captured
-     iteration.
+     agent-transitions/s, peak memory (and above what earlier phases
+     hold), each graph's nodes and capture time, and the device's busy
+     share over one profiled captured iteration: the union of the device
+     intervals in the trace over the wall time, asserted <= 100%, with the
+     kernels' summed time beside it as a sum.
    - a 10-step rollout of each trained GNN at its training shape (N=100,
      M=1024; N=1024, M=8), captured through the kernel, against an eager
      rollout through the plain k-NN from one generator state: bitwise.
@@ -76,10 +79,33 @@ Phases (any failure exits non-zero):
      from its anchor equals the uninterrupted one bitwise.
    - a population (K=2, M=64) captured against eager: the MLP bitwise, the
      GNN within the Adam budget.
-7. Print the kernels' JSON line (launches and timings at the training
-   paths' shapes, those of the eval paths under ``eval`` and the
-   population paths' under ``population``), the card line, and the last
-   line ``{"ok": true, "device": {...}}``.
+7. CTDE and the heterogeneous curriculum through the ``train`` CLI:
+   - ``ctde20``, ``docs/acceptance/ctde20``'s command at full depth (25
+     iterations): the last 3 iterations beat the first 3 by 20 and end
+     above 0 (the curve printed beside the TPU v5e record); its checkpoint
+     through the evaluate CLI (M=64, full episodes) ranks learned >
+     baseline > zero.
+   - ``ctde_knn``: the CTDE actor on k-NN observations at N=100, M=1024, 3
+     iterations: ``knn_fused`` must launch 1 + 3 x 10 times by replay.
+   - ``hetero5``, ``docs/acceptance/hetero5``'s K=4 command at full depth
+     (200 iterations, 4 stages): in each of stages 0-2 the population mean
+     of the last 5 iterations beats the first 5 by 10 (stage 3 printed);
+     the captured graphs are the same 3 after the last stage as after the
+     first; the evaluate CLI's sweep mode on the README's three rows (N=5,
+     N=20, N=20 with 4 obstacles; M=512, seed 1234, deterministic): the
+     best member and the baseline beat zero in every row, every member
+     printed beside the CPU record's ranking.
+   - ``hetero_ctde``: ``policy=ctde`` over a 2-stage curriculum, M=64,
+     ``preset=tpu``: finite losses, padded agents' values exactly 0.
+   - captured against eager across a stage boundary (M=64, N_max=20): the
+     MLP and CTDE single runs bitwise; a K=2 population with
+     ``fused_chunk=2`` against the host loop bitwise; a population resumed
+     from a mid-stage anchor against the uninterrupted run bitwise.
+8. Print the kernels' JSON line (launches and timings at the training
+   paths' shapes, those of the eval paths under ``eval``, the population
+   paths' under ``population`` and ``ctde_knn``'s launches under
+   ``ctde_knn``), the card line, and the last line ``{"ok": true,
+   "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero with no result when no GPU is found.
 """
@@ -166,8 +192,11 @@ def device_us(event) -> float:
 
 def kernel_device_ms(fn, reps: int, key: str) -> float:
     """Device time a launch of the kernel whose name holds ``key``, over
-    ``reps`` calls of ``fn`` under ``torch.profiler``: the kernel's own
-    time. CUDA events around back-to-back calls measure the host's launch
+    the last ``reps`` of ``reps + 1`` calls of ``fn`` under
+    ``torch.profiler``: the kernel's own time. The first call inside the
+    trace is not counted, since the trace may drop the first activity it
+    sees (one run recorded 199 of 200); at least ``reps`` launches must be
+    traced. CUDA events around back-to-back calls measure the host's launch
     path instead (allocation, checks, ctypes) when it is slower than the
     kernel, as it is for ``knn_fused`` on a slow host."""
     import torch
@@ -176,17 +205,19 @@ def kernel_device_ms(fn, reps: int, key: str) -> float:
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    events = [
-        e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key
-    ]
-    count = sum(e.count for e in events)
-    if count != reps:
-        raise AssertionError(f"{key}: {count} profiled launches, want {reps}")
-    return sum(device_us(e) for e in events) / count / 1e3
+    launches = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA and key in e.name
+    )
+    if len(launches) < reps:
+        raise AssertionError(f"{key}: {len(launches)} profiled launches, "
+                             f"want at least {reps}")
+    return sum(b - a for a, b in launches[-reps:]) / reps / 1e3
 
 
 def compare(name: str, got, want) -> float:
@@ -337,12 +368,29 @@ def profile_breakdown(model, params, m, steps=4):
                    steps + 2, "step")
 
 
+def busy_union_us(intervals) -> float:
+    """The length of the union of ``(start, end)`` intervals: the time the
+    device had at least one kernel (or copy) running, each instant counted
+    once however many ran in it."""
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(intervals):
+        if b <= end:
+            continue
+        busy += b - max(a, end)
+        end = b
+    return busy
+
+
 def profile_window(run, label, per, unit, top=8):
     """Device time by kernel over one call of ``run`` (warmed up by the
     caller) under ``torch.profiler``, and the device's busy share of the
-    window's wall time (profiling slows the host, so the share may read
-    low). Prints the ``top`` kernels and every k-NN kernel, in ms per
-    ``unit`` (``per`` of them in the window)."""
+    window's wall time: the union of the device events' intervals in the
+    trace (kernels that overlap count once), which must not exceed the
+    wall time; the sum of the kernels' times is printed beside it, as a
+    sum. Profiling slows the host, so the share may read low. Prints the
+    ``top`` kernels and every k-NN kernel, in ms per ``unit`` (``per`` of
+    them in the window); returns the busy share in percent (None when the
+    trace holds no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -353,21 +401,33 @@ def profile_window(run, label, per, unit, top=8):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
+    cuda = torch.autograd.DeviceType.CUDA
+    union = busy_union_us(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == cuda and e.time_range.end > e.time_range.start
+    )
     # Only the kernels themselves: an operator's row also carries the
     # device time of the kernels it launched, which would count them twice.
     events = [
         e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
+        if e.device_type == cuda and device_us(e) > 0
     ]
     total = sum(device_us(e) for e in events)
-    if total == 0:
+    if total == 0 or union == 0:
         print(f"[profile] {label}: no device time in the trace (not measured)")
-        return
+        return None
+    share = 100 * union / wall_us
+    if union > wall_us:
+        raise AssertionError(f"{label}: device busy {union:.1f} us, the "
+                             f"union of its intervals, exceeds the window's "
+                             f"{wall_us:.1f} us")
     launches = sum(e.count for e in events)
-    print(f"[profile] {label}: device busy {total / 1e3:.3f} ms of "
-          f"{wall_us / 1e3:.3f} ms wall ({100 * total / wall_us:.1f}%), "
-          f"{total / per / 1e3:.4f} ms/{unit}, {launches / per:.0f} kernel "
-          f"launches/{unit}")
+    print(f"[profile] {label}: device busy {union / 1e3:.3f} ms of "
+          f"{wall_us / 1e3:.3f} ms wall ({share:.1f}%, the union of the "
+          f"device intervals); sum of kernel times {total / 1e3:.3f} ms "
+          f"({100 * total / wall_us:.1f}% of wall, a sum, not a share); "
+          f"{union / per / 1e3:.4f} ms busy/{unit}, {launches / per:.0f} "
+          f"kernel launches/{unit}")
     # The k-NN kernels always, on the run's own positions, even when they
     # fall outside the top.
     ranked = sorted(events, key=device_us, reverse=True)
@@ -376,6 +436,7 @@ def profile_window(run, label, per, unit, top=8):
         print(f"[profile]   {device_us(e) / total * 100:5.1f}%  "
               f"{device_us(e) / per / 1e3:8.4f} ms/{unit}  x{e.count // per:<5d} "
               f"{e.key[:90]}")
+    return share
 
 
 # The published 100-agent training command (docs/acceptance/gnn100) and the
@@ -412,16 +473,19 @@ def record_phases(trainer):
     return phases
 
 
-def train_run(name, overrides, label, capture=True):
+def train_run(name, overrides, label, capture=True, before_train=None):
     """One run of the port's ``train`` CLI on the card (``build_trainer``
     then ``Trainer.train``, as its ``main`` runs them), the launch counts
     set to 0 just before it and read just after; ``capture=False`` runs the
-    iteration eagerly. Prints the time an iteration (the warm-up and
-    capture iterations left out of the steady split), throughput, peak
-    memory and the graphs' sizes; returns ``(trainer, rewards an
-    iteration, launches, steady s/iteration)``."""
+    iteration eagerly; ``before_train(trainer)`` is called between the two.
+    Prints the time an iteration (the warm-up and capture iterations left
+    out of the steady split), throughput (for a curriculum also its active
+    agent-transitions, averaged over the run's stages), peak memory and the
+    graphs' sizes; returns ``(trainer, rewards an iteration, launches,
+    steady s/iteration)``."""
     import shutil
 
+    import numpy as np
     import torch
 
     from marl_distributedformation_tpu_torch.ops import knn_cuda
@@ -430,11 +494,14 @@ def train_run(name, overrides, label, capture=True):
     shutil.rmtree(ROOT / "logs" / name, ignore_errors=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # earlier phases' live tensors
     knn_cuda.reset_launches()
     t0 = time.perf_counter()
     trainer = cli.build_trainer([f"name={name}", "device=cuda", *overrides],
                                 capture=capture)
     events = record_phases(trainer)
+    if before_train is not None:
+        before_train(trainer)
     member_rows = []
     if hasattr(trainer, "num_seeds"):
         # A population's records hold member means: keep each dispatch's
@@ -485,6 +552,13 @@ def train_run(name, overrides, label, capture=True):
     per_member = (f" (population of {k}; per member {rate / k:.1f} "
                   f"formation-steps/s, {rate * n / k:.1f} "
                   "agent-transitions/s)") if k > 1 else ""
+    if hasattr(trainer, "curriculum"):
+        # Active agent-transitions of the whole run, over its steady time.
+        active = float(np.sum(getattr(trainer, "num_timesteps_members",
+                                      trainer.num_timesteps)))
+        per_s = active / iters / s_iter
+        per_member += (f"; active agent-transitions/s {per_s:.1f} (padded "
+                       f"to N_max={n}; per member {per_s / k:.1f})")
     print(f"[train] {label} ({'captured' if capture else 'eager'}): {iters} "
           f"iterations in {wall:.2f} s ({wall / iters:.3f} s each with "
           f"start-up, capture and saves); steady {s_iter:.4f} s/iteration = "
@@ -494,7 +568,9 @@ def train_run(name, overrides, label, capture=True):
           f"formation-steps/s, {rate * n:.1f} agent-transitions/s"
           f"{per_member} (metrics.jsonl: "
           f"{records[-1]['env_steps_per_sec']:.1f}); peak "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} GiB "
+          f"above the {held / 2**30:.2f} GiB held before the run; launches "
           f"{launches}; graphs: {graphs}")
     return trainer, [r["reward"] for r in records], launches, s_iter
 
@@ -781,8 +857,20 @@ def train_phase():
     trainer, *_, captured_s = train_run(
         "smoke_mlp", MLP_DEFAULT, "ring/MLP default M=1000 N=5")
     elapsed("gnn1024 captured, ring/MLP captured")
-    profile_window(trainer.run_iteration, "train ring/MLP default, one "
-                   "captured iteration", 1, "iteration")
+    # Depth cut: its rollout and first epoch (781 of 7,810 replays of one
+    # minibatch graph), not the whole iteration, whose 1.39 M traced
+    # kernels took the profiler 116-177 s; the epochs replay one graph.
+    rollout, minibatch, _ = trainer._phases
+    steps = trainer._iteration.num_minibatch_steps // trainer.ppo.n_epochs
+
+    def first_epoch():
+        rollout()
+        for _ in range(steps):
+            minibatch()
+
+    profile_window(first_epoch, f"train ring/MLP default, the rollout and "
+                   f"the first epoch ({steps} minibatch replays) of a "
+                   "captured iteration", 1, "window")
     elapsed("ring/MLP profile")
     *_, eager_s = train_run(
         "smoke_mlp_eager", ("total_timesteps=50000",),
@@ -984,6 +1072,322 @@ def population_phase(gnn100):
     return launches
 
 
+# The published CTDE command (docs/acceptance/ctde20: 25 iterations at the
+# default budget) with its record, a TPU v5e's curve and a CPU eval of the
+# TPU-trained checkpoint (M=64).
+CTDE20 = ("policy=ctde", "num_agents_per_formation=20",
+          "num_formation=2048", "preset=tpu")
+TPU_CTDE20_CURVE = {1: -37.58, 5: -25.90, 10: -11.05, 15: 3.93, 20: 6.70,
+                    25: 7.63}
+CTDE20_EVAL_RECORD = {"policy": 2375, "baseline": -1058, "zero": -30630}
+# The CTDE actor on k-NN observations (root train.py allows it), 3
+# iterations through knn_fused.
+CTDE_KNN = ("policy=ctde", "obs_mode=knn", "num_agents_per_formation=100",
+            "num_formation=1024", "preset=tpu", "total_timesteps=3072000")
+# docs/acceptance/hetero5/README.md's K=4 command, letter for letter, and
+# its CPU record's files.
+HETERO5 = (
+    "num_seeds=4", "num_formation=64", "num_agents_per_formation=20",
+    "preset=tpu", "total_timesteps=2560000", "ent_coef_final=0.0",
+    "log_std_final=-2.5", "log_std_decay_start=0.5",
+    "curriculum=[{rollouts: 30, agent_counts: [5]},\n"
+    "             {rollouts: 40, agent_counts: [5, 5, 20]},\n"
+    "             {rollouts: 30, agent_counts: [5, 5, 20], num_obstacles: 4},\n"
+    "             {rollouts: 100, agent_counts: [5, 5, 20], num_obstacles: 4}]",
+)
+HETERO5_DOCS = ROOT / "docs/acceptance/hetero5"
+HETERO5_EVAL_ROWS = {
+    "n5": ("num_agents_per_formation=5",),
+    "n20": ("num_agents_per_formation=20",),
+    "n20_obs": ("num_agents_per_formation=20", "num_obstacles=4"),
+}
+STAGE_MARGIN = 10.0  # each of stages 0-2: last 5 iterations over first 5
+HETERO_CTDE = (
+    "policy=ctde", "num_formation=64", "num_agents_per_formation=20",
+    "preset=tpu",
+    "curriculum=[{rollouts: 3, agent_counts: [20]},"
+    " {rollouts: 3, agent_counts: [5, 20], num_obstacles: 2}]",
+)
+
+
+def stage_windows(rewards, ends, width=5):
+    """``{stage: (mean of its first width iterations, of its last)}``."""
+    out, start = {}, 0
+    for i, end in enumerate(ends):
+        seg = rewards[start:end]
+        out[i] = (mean(seg[:width]), mean(seg[-width:]))
+        start = end
+    return out
+
+
+def ctde_phase():
+    """Phase 7a, CTDE: ``ctde20`` at full depth, its evaluation, and
+    ``ctde_knn`` through ``knn_fused``; returns ``ctde_knn``'s launches."""
+    from marl_distributedformation_tpu_torch import evaluate as evaluate_cli
+    from marl_distributedformation_tpu_torch.utils.checkpoint import (
+        latest_checkpoint,
+    )
+
+    trainer, rewards, got, _ = train_run("smoke_ctde20", CTDE20,
+                                         "ctde20 M=2048 N=20")
+    if len(rewards) != 25 or got != {"knn_fused": 0, "knn_tiled": 0}:
+        raise AssertionError(f"ctde20: {len(rewards)} iterations, launches "
+                             f"{got}; want 25 on ring observations")
+    print("[learn] ctde20 reward by iteration, port (a TPU v5e's record, "
+          "docs/acceptance/ctde20): " + ", ".join(
+              f"{i}: {rewards[i - 1]:.2f} ({tpu})"
+              for i, tpu in TPU_CTDE20_CURVE.items()))
+    _, last3 = learning_check(rewards, "ctde20", LEARN_MARGIN)
+    if not last3 > 0:
+        raise AssertionError(f"ctde20: last-3 mean {last3:.3f} is not > 0")
+    res = evaluate_cli.main([
+        f"checkpoint={latest_checkpoint(trainer.log_dir)}", "policy=ctde",
+        "num_agents_per_formation=20", "eval_formations=64", "device=cuda",
+    ])
+    ret = {r: res[f"{r}_episode_return_per_agent"]
+           for r in ("policy", "baseline", "zero")}
+    if not ret["policy"] > ret["baseline"] > ret["zero"]:
+        raise AssertionError(f"ctde20 ranking learned > baseline > zero "
+                             f"fails: {ret}")
+    print(f"[ctde20] learned {ret['policy']:.2f} > baseline "
+          f"{ret['baseline']:.2f} > zero {ret['zero']:.2f} (M=64, full "
+          "episodes); the record, a CPU eval of the TPU-trained checkpoint: "
+          + " / ".join(str(v) for v in CTDE20_EVAL_RECORD.values()))
+    profile_window(lambda: trainer._dispatch(1), "train ctde20 M=2048 N=20, "
+                   "one captured iteration", 1, "iteration")
+    elapsed("ctde20")
+
+    trainer, rewards, got, _ = train_run("smoke_ctde_knn", CTDE_KNN,
+                                         "ctde_knn M=1024 N=100")
+    want = 1 + len(rewards) * trainer.ppo.n_steps
+    if len(rewards) != 3 or got != {"knn_fused": want, "knn_tiled": 0}:
+        raise AssertionError(f"ctde_knn launches {got} over {len(rewards)} "
+                             f"iterations, want fused {want} over 3")
+    profile_window(lambda: trainer._dispatch(1), "train ctde_knn M=1024 "
+                   "N=100, one captured iteration", 1, "iteration")
+    elapsed("ctde_knn")
+    return got["knn_fused"]
+
+
+def hetero5_run():
+    """``hetero5`` at full depth: each of stages 0-2 learns, the captured
+    graphs are the same after the last stage as after the first, then the
+    sweep-mode evaluation of its three rows."""
+    graphs_at_stage = []
+
+    def track(trainer):
+        start = trainer.start_stage
+
+        def tracked(stage):
+            graphs_at_stage.append(trainer.graph_count())
+            start(stage)
+
+        trainer.start_stage = tracked
+
+    trainer, rewards, got, _ = train_run(
+        "smoke_hetero5", HETERO5, "hetero5 K=4 M=64 N_max=20",
+        before_train=track)
+    del trainer.start_stage
+    ends = trainer.curriculum.stage_ends()
+    if len(rewards) != ends[-1] or got != {"knn_fused": 0, "knn_tiled": 0}:
+        raise AssertionError(f"hetero5: {len(rewards)} iterations, launches "
+                             f"{got}; want {ends[-1]} on ring observations")
+    final = trainer.graph_count()
+    print(f"[graphs] hetero5: captured graphs at each stage's start "
+          f"{graphs_at_stage}, after the last stage {final}")
+    if not graphs_at_stage[1] == final == 3:
+        raise AssertionError("hetero5: the graph count changed across "
+                             f"stages: {graphs_at_stage} then {final}")
+    record = [json.loads(line) for line in (
+        HETERO5_DOCS / "metrics_fix_cpu.jsonl").read_text().splitlines()]
+    cpu = stage_windows([r["reward"] for r in record], ends)
+    port = stage_windows(rewards, ends)
+    for stage, (first, last) in port.items():
+        a, b = cpu[stage]
+        print(f"[learn] hetero5 stage {stage} population mean reward, first "
+              f"5 -> last 5 iterations: {first:.3f} -> {last:.3f} (the CPU "
+              f"record's, metrics_fix_cpu.jsonl: {a:.3f} -> {b:.3f})"
+              + ("" if stage < 3 else "; not gated"))
+        if stage < 3 and not last >= first + STAGE_MARGIN:
+            raise AssertionError(f"hetero5 stage {stage}: last-5 mean "
+                                 f"{last:.3f} does not beat first-5 "
+                                 f"{first:.3f} by {STAGE_MARGIN}")
+    print(f"[hetero5] members' final rewards "
+          f"{[round(float(x), 3) for x in trainer.smoke_member_rewards[-1]]}")
+    profile_window(trainer.run_iteration, "train hetero5 K=4 M=64 N_max=20, "
+                   "one iteration (host loop, captured phases)", 1,
+                   "iteration")
+    elapsed("hetero5 training")
+
+    from marl_distributedformation_tpu_torch import evaluate as evaluate_cli
+
+    passes = None
+    for row, env in HETERO5_EVAL_ROWS.items():
+        res = evaluate_cli.main(["name=smoke_hetero5", *env,
+                                 "eval_formations=512", "eval_seed=1234",
+                                 "eval_deterministic=true", "device=cuda"])
+        ref = json.loads((HETERO5_DOCS / f"eval_member_ranking_{row}.json")
+                         .read_text())
+        beat = {m for m, r in res["member_returns"].items()
+                if r > res["baseline_return"]}
+        passes = beat if passes is None else passes & beat
+        print(f"[hetero5] eval {row} (M=512, seed 1234, deterministic): "
+              + ", ".join(f"{m} {r:.1f}" for m, r in
+                          res["member_returns"].items())
+              + f"; baseline {res['baseline_return']:.1f}, zero "
+              f"{res['zero_return']:.1f}; {len(beat)} of 4 beat the "
+              "baseline. The CPU record's (eval_member_ranking_"
+              f"{row}.json): " + ", ".join(
+                  f"{m} {r:.1f}" for m, r in ref["member_returns"].items())
+              + f"; baseline {ref['baseline_return']:.1f}")
+        if not (res["best_return"] > res["zero_return"]
+                and res["baseline_return"] > res["zero_return"]):
+            raise AssertionError(f"hetero5 eval {row}: best member "
+                                 f"{res['best_return']} and baseline "
+                                 f"{res['baseline_return']} must beat zero "
+                                 f"{res['zero_return']}")
+    print(f"[hetero5] members beating the baseline in all three rows: "
+          f"{sorted(passes)} ({len(passes)} of 4; the README expects about "
+          "1 in 3 to 1 in 5 candidates to)")
+    elapsed("hetero5 evaluation")
+
+
+def _hetero_carry(trainer):
+    carry = _carry(trainer)
+    carry["n_agents"] = trainer.layout.n_agents.clone()
+    return carry
+
+
+def curriculum_captured_equals_eager():
+    """Captured against eager across a stage boundary, at M=64, N_max=20:
+    the single curriculum run of 3 iterations (the boundary after the
+    second) for the MLP and the CTDE model, bitwise; the curriculum
+    population (K=2, MLP) with ``fused_chunk=2`` against the host loop,
+    bitwise; and a population resumed from an anchor two rollouts into
+    a three-rollout stage against the uninterrupted run, bitwise."""
+    import shutil
+
+    import torch
+
+    from marl_distributedformation_tpu_torch.algo import PPOConfig
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.models import (
+        CTDEActorCritic,
+        MLPActorCritic,
+    )
+    from marl_distributedformation_tpu_torch.train import TrainConfig
+    from marl_distributedformation_tpu_torch.train.curriculum import (
+        Curriculum,
+        CurriculumStage,
+        HeteroTrainer,
+    )
+    from marl_distributedformation_tpu_torch.train.hetero_sweep import (
+        HeteroSweepTrainer,
+    )
+
+    params = EnvParams(num_agents=20)
+    base = ROOT / "logs" / "smoke_curriculum"
+    shutil.rmtree(base, ignore_errors=True)
+
+    def model(kind, seed):
+        cls = CTDEActorCritic if kind == "ctde" else MLPActorCritic
+        return cls(params.obs_dim, generator=torch.Generator().manual_seed(
+            seed))
+
+    def config(name, **kw):
+        kw = {"num_formations": 64, "seed": 3, "checkpoint": False,
+              "log_dir": str(base / name), **kw}
+        return TrainConfig(**kw)
+
+    def compare(a, b, what, skip=()):
+        torch.cuda.synchronize()
+        x, y = _hetero_carry(a), _hetero_carry(b)
+        for key in x:
+            if key not in skip and not torch.equal(x[key], y[key]):
+                raise AssertionError(f"{what}: {key} differs")
+
+    # 3 minibatches an epoch for both policies (CTDE's of 204 formations).
+    ppo = PPOConfig(batch_size=4096)
+    cur = Curriculum((CurriculumStage(2, (5, 20)),
+                      CurriculumStage(1, (5, 20), num_obstacles=4)))
+    for kind in ("mlp", "ctde"):
+        runs = []
+        for capture in (True, False):
+            t = HeteroTrainer(cur, params, ppo,
+                              config(f"{kind}{capture}"),
+                              model=model(kind, 3), device="cuda",
+                              capture=capture)
+            t.train()
+            runs.append(t)
+        compare(*runs, f"curriculum {kind} captured vs eager")
+        print(f"[capture] curriculum {kind} M=64 N_max=20, 3 iterations "
+              f"across a stage boundary: captured == eager bitwise "
+              f"(params, Adam state, step, env carry, counts, metrics, "
+              f"generator; {runs[0].step} optimizer steps, "
+              f"{runs[0].graph_count()} graphs)")
+
+    cur = Curriculum((CurriculumStage(3, (5,)),
+                      CurriculumStage(2, (5, 20), num_obstacles=4)))
+
+    def sweep(name, **kw):
+        return HeteroSweepTrainer(cur, params, ppo, config(name, **kw),
+                                  2, models=[model("mlp", 3), model("mlp", 4)],
+                                  device="cuda")
+
+    host, fused = sweep("host"), sweep("fused", fused_chunk=2)
+    host.train()
+    fused.train()
+    compare(host, fused, "curriculum population fused vs host loop",
+            skip=("metrics",))
+    records = [[{k: v for k, v in json.loads(line).items()
+                 if k not in ("time", "env_steps_per_sec")}
+                for line in (Path(t.log_dir) / "metrics.jsonl").read_text()
+                .splitlines()] for t in (host, fused)]
+    if records[0] != records[1]:
+        raise AssertionError("curriculum population: fused records differ")
+    kw = dict(checkpoint=True, save_freq=10**9)
+    full = sweep("full", **kw)
+    full.train()
+    per_iter = 10 * 64 * 5  # one member's active transitions in stage 0
+    sweep("part", total_timesteps=2 * per_iter, **kw).train()
+    resumed = sweep("part", resume=True, **kw)
+    if resumed.completed_rollouts != 2:
+        raise AssertionError(f"resumed at rollout "
+                             f"{resumed.completed_rollouts}, want 2")
+    resumed.train()
+    compare(full, resumed, "curriculum population resumed mid-stage")
+    print("[capture] curriculum population K=2 M=64 N_max=20 (MLP): "
+          "fused_chunk=2 (chunks 2, 1 | 2) == the host loop bitwise, records "
+          "equal; resumed from the anchor at rollout 2 of stage 0's 3 == the "
+          "uninterrupted run bitwise")
+
+
+def curriculum_phase():
+    """Phase 7b, the curriculum: ``hetero5``, ``hetero_ctde`` and the
+    captured-against-eager checks across stage boundaries."""
+    import torch
+
+    from marl_distributedformation_tpu_torch.algo.rollout import (
+        policy_forward,
+    )
+
+    hetero5_run()
+    trainer, *_ = train_run("smoke_hetero_ctde", HETERO_CTDE,
+                            "hetero_ctde K=1 M=64 N_max=20")
+    layout = trainer.layout
+    with torch.no_grad():
+        _, _, value = policy_forward(trainer.model, trainer.obs, layout.fmask)
+    padded = ~layout.mask
+    if not bool(padded.any()) or not bool((value[padded] == 0).all()):
+        raise AssertionError("hetero_ctde: padded agents' values are not 0")
+    print(f"[hetero_ctde] losses finite over 6 iterations; the "
+          f"{int(padded.sum())} padded agents' values are exactly 0")
+    profile_window(trainer.run_iteration, "train hetero_ctde M=64 N_max=20, "
+                   "one captured iteration", 1, "iteration")
+    curriculum_captured_equals_eager()
+    elapsed("curriculum captured == eager")
+
+
 def main() -> int:
     import torch
 
@@ -1073,9 +1477,14 @@ def main() -> int:
     launches, gnn100 = train_phase()
     elapsed("phase 5, training")
 
-    # Phase 6: populations through the kernels, this slice's main paths.
+    # Phase 6: populations through the kernels.
     pop_launches = population_phase(gnn100)
     elapsed("phase 6, populations")
+
+    # Phase 7: CTDE and the curriculum, this slice's main paths.
+    ctde_knn_launches = ctde_phase()
+    curriculum_phase()
+    elapsed("phase 7, CTDE and the curriculum")
 
     replaces = {
         "knn_fused": "marl_distributedformation_tpu/ops/knn_pallas.py:117",
@@ -1097,6 +1506,11 @@ def main() -> int:
                         **stats[name]["population"]}}
         for name in ("knn_fused", "knn_tiled")
     ]
+    # The CTDE actor on k-NN observations launches knn_fused at the train
+    # shape, (1024,100,4), timed above.
+    kernels[0]["ctde_knn"] = {"path": "train ctde_knn",
+                              "launches": ctde_knn_launches,
+                              "shape": stats["knn_fused"]["train"]["shape"]}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -80,8 +80,10 @@ class PPOConfig:
 @dataclasses.dataclass
 class MinibatchData:
     """Flat rollout rows: ``(b, obs_dim)`` for agent-factored models,
-    ``(b, N, obs_dim)`` for per-formation ones. ``weights`` and ``mask``
-    (padded formations) stay None until the hetero slice."""
+    ``(b, N, obs_dim)`` for per-formation ones. For padded formations
+    (``env/hetero.py``), ``weights`` (shaped like ``advantages``) weigh the
+    loss's reductions, 0 on padded agents, and ``mask`` ``(b, N)`` goes to
+    a per-formation model's forward; both None for homogeneous batches."""
 
     obs: Tensor
     actions: Tensor
@@ -99,6 +101,14 @@ class MinibatchData:
         })
 
 
+def _wmean(x: Tensor, weights: Optional[Tensor]) -> Tensor:
+    """Mean of ``x`` weighted by ``weights``; the plain mean without."""
+    if weights is None:
+        return x.mean()
+    w = weights.reshape(x.shape)
+    return (x * w).sum() / torch.clamp_min(w.sum(), 1e-8)
+
+
 def ppo_loss(
     model: torch.nn.Module,
     mb: MinibatchData,
@@ -107,12 +117,10 @@ def ppo_loss(
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Clipped-surrogate PPO loss on one minibatch (SB3 semantics) and its
     metrics (detached). ``ent_coef`` (a float or a 0-d tensor) overrides
-    ``config.ent_coef`` when the entropy coefficient is scheduled."""
-    if mb.weights is not None:
-        raise NotImplementedError(
-            "weighted PPO loss (padded formations) is not ported yet "
-            "(ROADMAP A9)"
-        )
+    ``config.ent_coef`` when the entropy coefficient is scheduled. With
+    ``mb.weights``, the policy and value losses, ``approx_kl`` and
+    ``clip_fraction`` are weighted means and the advantages are normalised
+    over the weighted rows (at least 2, variance over ``n - 1``)."""
     if mb.mask is not None:
         mean, log_std, values = model(mb.obs, mb.mask)
     else:
@@ -120,18 +128,30 @@ def ppo_loss(
     log_probs = distributions.log_prob(mb.actions, mean, log_std)
     ent = distributions.entropy(log_std)
 
+    w = mb.weights
     advantages = mb.advantages
     if config.normalize_advantage:
-        advantages = (advantages - advantages.mean()) / (
-            advantages.std(correction=1) + 1e-8
-        )
+        if w is None:
+            advantages = (advantages - advantages.mean()) / (
+                advantages.std(correction=1) + 1e-8
+            )
+        else:
+            wa = w.reshape(advantages.shape)
+            n_active = torch.clamp_min(wa.sum(), 2.0)
+            adv_mean = (advantages * wa).sum() / n_active
+            adv_var = (((advantages - adv_mean) ** 2) * wa).sum() / (
+                n_active - 1.0
+            )
+            advantages = (advantages - adv_mean) / (
+                torch.sqrt(adv_var) + 1e-8
+            )
 
     ratio = torch.exp(log_probs - mb.old_log_probs)
     unclipped = advantages * ratio
     clipped = advantages * torch.clamp(
         ratio, 1.0 - config.clip_range, 1.0 + config.clip_range
     )
-    policy_loss = -torch.minimum(unclipped, clipped).mean()
+    policy_loss = -_wmean(torch.minimum(unclipped, clipped), w)
 
     if config.clip_range_vf is not None:
         # SB3's value clipping around the rollout-time values, recovered
@@ -140,7 +160,7 @@ def ppo_loss(
         values = old_values + torch.clamp(
             values - old_values, -config.clip_range_vf, config.clip_range_vf
         )
-    value_loss = ((mb.returns - values) ** 2).mean()
+    value_loss = _wmean((mb.returns - values) ** 2, w)
     entropy_loss = -ent
 
     coef = config.ent_coef if ent_coef is None else ent_coef
@@ -151,10 +171,11 @@ def ppo_loss(
             "policy_loss": policy_loss.detach(),
             "value_loss": value_loss.detach(),
             "entropy": ent.detach(),
-            "approx_kl": (mb.old_log_probs - log_probs).mean(),
-            "clip_fraction": (
-                (ratio - 1.0).abs() > config.clip_range
-            ).to(torch.float32).mean(),
+            "approx_kl": _wmean(mb.old_log_probs - log_probs, w),
+            "clip_fraction": _wmean(
+                ((ratio - 1.0).abs() > config.clip_range).to(torch.float32),
+                w,
+            ),
         }
     return loss, metrics
 

@@ -44,13 +44,16 @@ class RolloutBatch:
 
 
 def policy_forward(
-    model: torch.nn.Module, obs: Tensor
+    model: torch.nn.Module, obs: Tensor, mask: Optional[Tensor] = None
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """``(mean (M, N, act_dim), log_std, value (M, N))`` for ``obs (M, N,
-    obs_dim)``: whole formations for a per-formation model, the flattened
-    agent rows for an agent-factored one."""
+    obs_dim)``: whole formations for a per-formation model (with the agent
+    mask ``(M, N)`` of padded formations when given), the flattened agent
+    rows for an agent-factored one."""
     if model.per_formation:
-        return model(obs)
+        return model(obs) if mask is None else model(obs, mask)
+    if mask is not None:
+        raise ValueError("an agent-factored model takes no agent mask")
     lead = obs.shape[:-1]
     mean, log_std, value = model(obs.reshape(-1, obs.shape[-1]))
     return mean.reshape(*lead, -1), log_std, value.reshape(lead)
@@ -67,17 +70,23 @@ def collect_rollout(
     env_step_fn: Optional[EnvStepFn] = None,
     noise: Optional[Tensor] = None,
     forward: Optional[Callable[..., Tuple[Tensor, Tensor, Tensor]]] = None,
+    mask: Optional[Tensor] = None,
 ) -> Tuple[FormationState, Tensor, RolloutBatch, Tensor]:
     """Roll ``n_steps`` steps of M formations under the current policy.
 
     ``env_step_fn(state, velocity)`` defaults to ``step_batch`` with resets
-    drawn from ``generator``; ``noise (T, M, N, act_dim)`` replaces the
-    generator's action draws. ``forward(model, obs)`` defaults to
-    ``policy_forward``; a population (``models/population.py``) passes its
-    own, over its members' formations in turn, with their generators.
+    drawn from ``generator`` (padded formations pass
+    ``env.hetero.hetero_step_batch``); ``noise (T, M, N, act_dim)``
+    replaces the generator's action draws. ``forward(model, obs[, mask])``
+    defaults to ``policy_forward``; a population (``models/population.py``)
+    passes its own, over its members' formations in turn, with their
+    generators. ``mask (M, N)``, the agent mask of padded formations, goes
+    to a per-formation model's every forward; it holds for the whole
+    rollout, since an auto-reset keeps each formation's agent count.
     Returns ``(env_state, last_obs, batch, last_value)``.
     """
     forward = forward or policy_forward
+    masked = () if mask is None else (mask,)
     if env_step_fn is None:
         def env_step_fn(state, velocity):
             return step_batch(state, velocity, env_params, generator)
@@ -86,7 +95,7 @@ def collect_rollout(
                             "rewards", "dones")}
     metrics: Dict[str, list] = {}
     for t in range(n_steps):
-        mean, log_std, value = forward(model, obs)
+        mean, log_std, value = forward(model, obs, *masked)
         if noise is None:
             action = distributions.sample(generator, mean, log_std)
         else:
@@ -102,7 +111,7 @@ def collect_rollout(
         for k, v in tr.metrics.items():
             metrics.setdefault(k, []).append(v)
         obs = tr.obs
-    _, _, last_value = forward(model, obs)
+    _, _, last_value = forward(model, obs, *masked)
     batch = RolloutBatch(
         **{k: torch.stack(v) for k, v in rows.items()},
         metrics={k: torch.stack(v) for k, v in metrics.items()},

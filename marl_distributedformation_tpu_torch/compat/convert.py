@@ -32,6 +32,7 @@ import torch
 # The flax layer names of each architecture, as the checkpoint records it.
 LAYERS = {
     "MLPActorCritic": ("pi_", "vf_", "pi_head", "vf_head", "log_std"),
+    "CTDEActorCritic": ("actor", "vf_embed", "critic", "log_std"),
     "GNNActorCritic": ("embed", "msg_", "upd_", "actor", "critic", "log_std"),
 }
 

@@ -2,7 +2,9 @@
 visualize_policy.py:35,16).
 
 Counterpart of the JAX package's ``compat/policy.py``. The registry holds the
-MLP and the GNN; the CTDE model comes with a later slice.
+MLP, the CTDE model and the GNN. A per-formation model (CTDE, GNN) acts on
+whole formations of any N; ``predict`` reshapes flat SB3-style rows by
+``num_agents``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from marl_distributedformation_tpu_torch.compat.convert import params_from_jax
 from marl_distributedformation_tpu_torch.device import DeviceLike, resolve_device
 from marl_distributedformation_tpu_torch.models import (
+    CTDEActorCritic,
     GNNActorCritic,
     MLPActorCritic,
     distributions,
@@ -27,6 +30,7 @@ from marl_distributedformation_tpu_torch.utils.checkpoint import (
 # Checkpoints record the architecture by its class name.
 POLICY_REGISTRY = {
     "MLPActorCritic": MLPActorCritic,
+    "CTDEActorCritic": CTDEActorCritic,
     "GNNActorCritic": GNNActorCritic,
 }
 
@@ -46,9 +50,11 @@ def model_kwargs_for(policy: str, env_params=None) -> dict:
 
 def infer_hidden(params: dict, policy: str) -> Optional[tuple]:
     """Policy-tower widths from checkpoint parameters: the ``pi_{i}`` layers
-    at the top level (MLP) or under ``actor`` (GNN). None when there is no
-    tower."""
-    p = params.get("actor", {}) if policy == "GNNActorCritic" else params
+    at the top level (MLP) or under ``actor`` (CTDE, GNN). None when there
+    is no tower."""
+    p = params
+    if policy in ("CTDEActorCritic", "GNNActorCritic"):
+        p = params.get("actor", {})
     widths = []
     i = 0
     while f"pi_{i}" in p:
@@ -76,6 +82,9 @@ def build_model(
         kwargs["hidden"] = hidden
     if policy == "MLPActorCritic":
         kwargs["obs_dim"] = int(np.shape(params["pi_0"]["kernel"])[0])
+    elif policy == "CTDEActorCritic":
+        embed = np.shape(params["vf_embed"]["kernel"])
+        kwargs["obs_dim"], kwargs["embed_dim"] = int(embed[0]), int(embed[1])
     model = POLICY_REGISTRY[policy](act_dim=act_dim, **kwargs)
     model.load_state_dict(params_from_jax(params, policy))
     return model.eval()

@@ -61,6 +61,10 @@ def ring_neighbors(x: Tensor, dim: int) -> Tuple[Tensor, Tensor]:
     return torch.roll(x, 1, dims=dim), torch.roll(x, -1, dims=dim)
 
 
+# ``(x, dim) -> (prev, next)`` along the agent axis ``dim``.
+NeighborsFn = Callable[[Tensor, int], Tuple[Tensor, Tensor]]
+
+
 def integrate(
     agents: Tensor, velocity: Tensor, params: EnvParams
 ) -> Tuple[Tensor, Tensor]:
@@ -140,16 +144,28 @@ def reset_batch(
     )
 
 
-def compute_obs(agents: Tensor, goal: Tensor, params: EnvParams) -> Tensor:
+def compute_obs(
+    agents: Tensor,
+    goal: Tensor,
+    params: EnvParams,
+    pos_neighbors: Optional[Tuple[Tensor, Tensor]] = None,
+) -> Tensor:
     """Per-agent observation ``(M, N, obs_dim)``.
 
     ``ring`` (reference simulate.py:150-174): ``[own/WH, prev/WH - own/WH,
-    next/WH - own/WH, (goal - own)/WH]``. ``knn``: see ``compute_obs_knn``.
+    next/WH - own/WH, (goal - own)/WH]``, the ring neighbors' positions
+    ``pos_neighbors`` (``(prev, next)``, each ``(M, N, 2)``) when given
+    (the padded formations' dynamic ring, ``env/hetero.py``), else the
+    fixed ring's. ``knn``: see ``compute_obs_knn``.
     """
     if params.obs_mode == "knn":
+        if pos_neighbors is not None:
+            raise ValueError("knn observations take no ring neighbors")
         return compute_obs_knn(agents, goal, params)
     wh = _const([params.width, params.height], agents)
-    prev_pos, next_pos = ring_neighbors(agents, -2)
+    if pos_neighbors is None:
+        pos_neighbors = ring_neighbors(agents, -2)
+    prev_pos, next_pos = pos_neighbors
     normalized = agents / wh
     parts = [normalized, prev_pos / wh - normalized, next_pos / wh - normalized]
     if params.goal_in_obs:
@@ -209,18 +225,31 @@ def compute_reward(
     out_of_bounds: Tensor,
     in_obstacle: Tensor,
     params: EnvParams,
+    neighbors_fn: NeighborsFn = ring_neighbors,
+    pos_neighbors: Optional[Tuple[Tensor, Tensor]] = None,
+    neighbor_dist_target: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Neighbor-mixed per-agent rewards ``(M, N)`` and the per-agent reward
-    terms (reference simulate.py:176-229)."""
+    terms (reference simulate.py:176-229).
+
+    ``neighbors_fn(x, dim)`` gives ``(prev, next)`` along the agent axis
+    ``dim`` (the fixed ring by default); ``pos_neighbors`` the neighbors'
+    positions when already gathered; ``neighbor_dist_target`` replaces the
+    static chord target, broadcast against ``(M, N)`` (the padded
+    formations' per-formation ``2*R*sin(pi/n)``, ``env/hetero.py``).
+    """
     dist_to_goal = _norm(agents - goal[:, None, :])
     close_to_goal = dist_to_goal < params.close_goal_dist
     close_to_goal_reward = params.close_goal_bonus * close_to_goal
     reward_dist = -params.reward_dist_scale * dist_to_goal
 
-    prev_pos, next_pos = ring_neighbors(agents, -2)
+    if pos_neighbors is None:
+        pos_neighbors = neighbors_fn(agents, -2)
+    prev_pos, next_pos = pos_neighbors
     dist_right = _norm(agents - next_pos)
     dist_left = _norm(agents - prev_pos)
-    target = params.desired_neighbor_dist
+    target = (params.desired_neighbor_dist if neighbor_dist_target is None
+              else neighbor_dist_target)
     right_diff = dist_right - target
     left_diff = dist_left - target
     reward_right = -params.neighbor_penalty_scale * torch.where(
@@ -241,7 +270,7 @@ def compute_reward(
 
     # (1-2p) r_i + p (r_{i-1} + r_{i+1}) (simulate.py:222-229).
     rho = params.share_reward_ratio
-    prev_r, next_r = ring_neighbors(individual, -1)
+    prev_r, next_r = neighbors_fn(individual, -1)
     mixed = (1.0 - 2.0 * rho) * individual + rho * (prev_r + next_r)
     terms = {
         "close_to_goal_reward": close_to_goal_reward,

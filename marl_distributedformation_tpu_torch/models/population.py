@@ -177,11 +177,12 @@ class PopulationModel:
         return vmap(self.member_call)(self.params, obs, *args)
 
     def rollout_forward(
-        self, obs: Tensor
+        self, obs: Tensor, mask: Optional[Tensor] = None
     ) -> Tuple[Tensor, Tensor, Tensor]:
         """``collect_rollout``'s ``forward`` (``PopulationModel.
         rollout_forward``) over the members' formations in turn, ``obs
-        (K*M, N, obs_dim)``: ``(mean (K*M, N, act_dim),
+        (K*M, N, obs_dim)`` (and a per-formation model's agent ``mask
+        (K*M, N)`` of padded formations): ``(mean (K*M, N, act_dim),
         log_std (K*M, 1, act_dim), value (K*M, N))``, each member's as
         ``algo.rollout.policy_forward`` computes it (whole formations for
         a per-formation model, agent rows otherwise)."""
@@ -189,9 +190,15 @@ class PopulationModel:
         km, n, d = obs.shape
         m = km // k
         x = obs.reshape(k, m, n, d)
+        args = ()
+        if mask is not None:
+            if not self.per_formation:
+                raise ValueError("an agent-factored model takes no agent "
+                                 "mask")
+            args = (mask.reshape(k, m, n),)
         if not self.per_formation:
             x = x.reshape(k, m * n, d)
-        mean, log_std, value = self(x)
+        mean, log_std, value = self(x, *args)
         a = mean.shape[-1]
         log_std = log_std[:, None, None, :].expand(k, m, 1, a)
         return (mean.reshape(km, n, a), log_std.reshape(km, 1, a),

@@ -1,4 +1,6 @@
-"""The single-run PPO trainer (see ``trainer.py``)."""
+"""The PPO trainers: the single run (``trainer.py``), populations
+(``sweep.py``), the curriculum (``curriculum.py``) and its populations
+(``hetero_sweep.py``)."""
 
 from marl_distributedformation_tpu_torch.train.trainer import (  # noqa: F401
     TrainConfig,

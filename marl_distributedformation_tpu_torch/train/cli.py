@@ -11,6 +11,17 @@ name=x`` workflow on PyTorch.
     python -m marl_distributedformation_tpu_torch.train name=pop4 \\
         policy=gnn obs_mode=knn num_agents_per_formation=100 \\
         num_formation=1024 preset=tpu num_seeds=4 fused_chunk=10
+    python -m marl_distributedformation_tpu_torch.train name=ctde20 \\
+        policy=ctde num_agents_per_formation=20 num_formation=2048 \\
+        preset=tpu
+    python -m marl_distributedformation_tpu_torch.train name=hetero5 \\
+        num_seeds=4 num_formation=64 num_agents_per_formation=20 \\
+        preset=tpu total_timesteps=2560000 ent_coef_final=0.0 \\
+        log_std_final=-2.5 log_std_decay_start=0.5 \\
+        "curriculum=[{rollouts: 30, agent_counts: [5]},
+                     {rollouts: 40, agent_counts: [5, 5, 20]},
+                     {rollouts: 30, agent_counts: [5, 5, 20], num_obstacles: 4},
+                     {rollouts: 100, agent_counts: [5, 5, 20], num_obstacles: 4}]"
 
 Reads ``cfg/config.yaml`` with ``key=value`` overrides, as the root
 ``train.py`` does, and never writes it. ``device`` defaults to ``cuda``; the
@@ -20,14 +31,18 @@ resolved config, with the device that ran it, to ``logs/{name}/config.json``
 (``config_resume.json`` on a resume). On the card the iteration runs as
 captured CUDA graphs (``train/capture.py``); ``fused_chunk``,
 ``iters_per_dispatch``, ``health``, ``recovery*`` and ``keep_last_n`` mean
-what they mean to the JAX trainer. ``num_seeds > 1`` trains a population
-(``train/sweep.py``) with member checkpoints under ``logs/{name}/seed{i}/``,
-``learning_rates`` (one a member) its rates.
+what they mean to the JAX trainer. ``policy`` is ``mlp``, ``ctde`` or
+``gnn``. ``num_seeds > 1`` trains a population (``train/sweep.py``) with
+member checkpoints under ``logs/{name}/seed{i}/``, ``learning_rates`` (one
+a member) its rates. ``curriculum`` trains over padded heterogeneous
+formations (``train/curriculum.py``; with ``num_seeds > 1`` a population
+of candidates, ``train/hetero_sweep.py``), dispatched and refused as the
+root ``train.py`` dispatches and refuses it.
 
 A mistyped key exits with a did-you-mean. A knob of a feature the port does
 not have yet exits naming its ROADMAP item when set to anything but its
-YAML default, as do ``policy=ctde`` and any ``env`` but ``formation``:
-nothing is silently ignored.
+YAML default, as does any ``env`` but ``formation``: nothing is silently
+ignored.
 """
 
 from __future__ import annotations
@@ -42,8 +57,17 @@ import torch
 from marl_distributedformation_tpu_torch.algo import PPOConfig
 from marl_distributedformation_tpu_torch.device import resolve_device
 from marl_distributedformation_tpu_torch.models import (
+    CTDEActorCritic,
     GNNActorCritic,
     MLPActorCritic,
+)
+from marl_distributedformation_tpu_torch.train.curriculum import (
+    HeteroTrainer,
+    curriculum_from_cfg,
+    padded_env_params,
+)
+from marl_distributedformation_tpu_torch.train.hetero_sweep import (
+    HeteroSweepTrainer,
 )
 from marl_distributedformation_tpu_torch.train.sweep import SweepTrainer
 from marl_distributedformation_tpu_torch.train.trainer import (
@@ -69,7 +93,6 @@ _UNLISTED_DEFAULTS = {
 
 # Knobs of features not ported yet, and the ROADMAP item that ports each.
 UNPORTED = {
-    "curriculum": "A9 (hetero and curriculum)",
     "scenarios": "A6 (scenarios)",
     "scenario_severity": "A6 (scenarios)",
     "mesh": "A12 (parallelism)",
@@ -109,8 +132,6 @@ def refuse_unported(cfg) -> None:
                 f"{key}={cfg[key]!r} selects the JAX backend; the port "
                 "runs on PyTorch and picks its device with device=cuda|cpu"
             )
-    if cfg.get("policy", "mlp") == "ctde":
-        raise SystemExit("policy=ctde is not ported yet (ROADMAP A8)")
     if cfg.get("env", "formation") != "formation":
         raise SystemExit(
             f"env={cfg['env']!r} is not ported yet (ROADMAP A10); the port "
@@ -193,13 +214,19 @@ def build_model(
             goal_in_obs=env_params.goal_in_obs,
             log_std_init=cfg.log_std_init, generator=gen, **extra,
         )
+    if policy == "ctde":
+        return CTDEActorCritic(
+            env_params.obs_dim, env_params.act_dim,
+            log_std_init=cfg.log_std_init, generator=gen, **extra,
+        )
     if policy == "mlp":
         return MLPActorCritic(
             env_params.obs_dim, env_params.act_dim,
             log_std_init=cfg.log_std_init, generator=gen, **extra,
         )
     raise SystemExit(
-        f"policy={policy!r} is not implemented; the port has mlp and gnn"
+        f"policy={policy!r} is not implemented; the port has mlp, ctde and "
+        "gnn"
     )
 
 
@@ -219,14 +246,49 @@ def snapshot_config(cfg, log_dir: str, device: torch.device) -> Path:
     return out
 
 
+def build_hetero_trainer(
+    cfg, env_params, num_seeds: int, common: dict
+) -> Union[HeteroTrainer, HeteroSweepTrainer]:
+    """The curriculum's trainer, as the root ``train.py``'s
+    ``build_hetero_trainer``: formation env, ring observations, the MLP or
+    CTDE policy; ``num_seeds > 1`` candidates in one population."""
+    policy = cfg.get("policy", "mlp")
+    if policy not in ("mlp", "ctde"):
+        raise SystemExit(
+            f"curriculum training supports policy=mlp (shared per-agent "
+            f"MLP) and policy=ctde (masked centralized critic); "
+            f"policy={policy!r} is not supported — the GNN needs knn obs, "
+            "and heterogeneous formations are ring-observed"
+        )
+    if env_params.obs_mode != "ring":
+        raise SystemExit(
+            "curriculum training uses the ring observation model (padded "
+            f"formations mask the ring per transition); obs_mode="
+            f"{env_params.obs_mode!r} is not supported — set obs_mode=ring"
+        )
+    curriculum = curriculum_from_cfg(cfg.curriculum)
+    padded = padded_env_params(curriculum, env_params)
+    if num_seeds > 1:
+        return HeteroSweepTrainer(
+            curriculum, env_params, num_seeds=num_seeds,
+            models=[build_model(cfg, padded, policy, int(cfg.seed) + i)
+                    for i in range(num_seeds)],
+            **common,
+        )
+    return HeteroTrainer(curriculum, env_params,
+                         model=build_model(cfg, padded, policy), **common)
+
+
 def build_trainer(
     argv=None, capture: bool = True
 ) -> Union[Trainer, SweepTrainer]:
     """The run ``argv`` (or the command line) asks for, set up but not
-    started: a ``SweepTrainer`` of ``num_seeds`` members when it is above
-    1, as the root ``train.py`` dispatches, else a ``Trainer``; writes the
-    config snapshot. ``capture=False`` runs the iteration eagerly on the
-    card (comparisons only; not a config key)."""
+    started, dispatched as the root ``train.py`` dispatches: with
+    ``curriculum``, a ``HeteroTrainer`` (a ``HeteroSweepTrainer`` of
+    ``num_seeds`` candidates when it is above 1); else a ``SweepTrainer``
+    of ``num_seeds`` members when it is above 1, or a ``Trainer``. Writes
+    the config snapshot. ``capture=False`` runs the iteration eagerly on
+    the card (comparisons only; not a config key)."""
     overrides = sys.argv[1:] if argv is None else list(argv)
     validate_override_keys(overrides, extra_keys=TRAIN_KEYS)
     cfg = load_config(overrides)
@@ -244,7 +306,18 @@ def build_trainer(
     common = dict(ppo=ppo_from_config(cfg),
                   config=train_config_from_config(cfg), device=device,
                   capture=capture)
-    if num_seeds > 1:
+    if cfg.get("curriculum"):
+        if num_seeds > 1 and learning_rates:
+            raise SystemExit(
+                "learning_rates does not compose with curriculum "
+                "populations (candidate-seed selection trains at one "
+                "rate); drop one of the two"
+            )
+        trainer = build_hetero_trainer(cfg, env_params, num_seeds, common)
+        what = (f"{num_seeds} candidates x " if num_seeds > 1 else "") + (
+            f"{trainer.curriculum.total_rollouts}-rollout curriculum of "
+            f"{len(trainer.curriculum.stages)} stages, ")
+    elif num_seeds > 1:
         trainer = SweepTrainer(
             env_params, num_seeds=num_seeds,
             models=[build_model(cfg, env_params, policy, int(cfg.seed) + i)
@@ -261,7 +334,7 @@ def build_trainer(
     snapshot_config(cfg, trainer.log_dir, device)
     print(
         f"[train] {cfg.name}: {what}M={cfg.num_formation} formations x "
-        f"N={cfg.num_agents_per_formation} agents, "
+        f"N={trainer.env_params.num_agents} agents, "
         f"{trainer.total_timesteps} agent-transitions on {device}, "
         f"logs -> {trainer.log_dir}"
     )

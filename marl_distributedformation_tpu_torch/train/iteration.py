@@ -13,6 +13,14 @@ Counterpart of the body of the JAX package's ``make_ppo_iteration``
   the health flags), the health select or the plain write-back of the env
   carry, and the row into the metrics ring.
 
+Padded heterogeneous formations (``env/hetero.py``, the curriculum's) add a
+``HeteroLayout`` to the carry: the counts' mask, ring indices and targets,
+which the env step, a per-formation model's forward (the mask), the loss
+(the mask as weights, broadcast over the rollout's steps) and the reward
+metric (weighted by the mask) read. A stage reset (``reset_env``) rewrites
+the layout, the env carry and the observation in place, between
+iterations, so the same captured graphs serve every stage.
+
 Every tensor one phase hands to another, and all the carry (parameters,
 Adam state, optimizer step, learning rate, env state, observation,
 metrics), keeps its storage from iteration to iteration and is only
@@ -43,6 +51,11 @@ from marl_distributedformation_tpu_torch.algo import (
 from marl_distributedformation_tpu_torch.algo.ppo import (
     PopulationUpdate,
     PPOUpdate,
+)
+from marl_distributedformation_tpu_torch.env.hetero import (
+    HeteroLayout,
+    HeteroState,
+    hetero_step_batch,
 )
 from marl_distributedformation_tpu_torch.env.types import (
     EnvParams,
@@ -86,15 +99,15 @@ class MetricsRing:
 
     def take(self, count: int) -> Tensor:
         """``(count, [K,] len(names))``: the rows of the last ``count``
-        iterations, which a dispatch of ``count`` iterations starting at a
-        multiple of ``count`` keeps contiguous."""
+        iterations, in order: a view, or a copy when they wrap the ring's
+        end (a curriculum's chunks clipped at stage boundaries)."""
+        if count > self.rows:
+            raise ValueError(f"{count} rows from a ring of {self.rows}")
         start = (self.host_pos - count) % self.rows
-        if start + count > self.rows:
-            raise ValueError(
-                f"{count} rows from slot {start} wrap the ring of "
-                f"{self.rows}; dispatch a divisor of the ring's size"
-            )
-        return self.buf[start:start + count]
+        if start + count <= self.rows:
+            return self.buf[start:start + count]
+        return torch.cat([self.buf[start:],
+                          self.buf[:start + count - self.rows]])
 
 
 class PhasedIteration:
@@ -107,7 +120,9 @@ class PhasedIteration:
     are updated in place. Per-formation models (the GNN) are minibatched by
     whole formations, ``batch_size // N`` of them; ``batch_size`` stays in
     agent-transitions. ``env_step_fn`` replaces the env step (tests inject
-    the JAX package's resets).
+    the JAX package's resets). ``layout`` makes the formations padded ones
+    (see the module docstring); ``env_state`` is then a ``HeteroState`` of
+    its counts.
     """
 
     members: Optional[int] = None  # K for a population (see below)
@@ -127,12 +142,16 @@ class PhasedIteration:
         lr: Optional[float] = None,
         ring_rows: int = 2,
         env_step_fn: Any = None,
+        layout: Optional[HeteroLayout] = None,
     ) -> None:
         self.env_params = env_params
         self.ppo = ppo
         self.model = model
         self.opt_state = opt_state
         self.generator = generator
+        self.layout = layout
+        if env_step_fn is None and layout is not None:
+            env_step_fn = self._hetero_step
         self.env_step_fn = env_step_fn
         self.per_formation = bool(model.per_formation)
         device = obs.device
@@ -150,9 +169,14 @@ class PhasedIteration:
         m = obs.shape[0] // k
         self.lead: Tuple[int, ...] = () if self.members is None else (k,)
         rows = ppo.n_steps * m * (1 if self.per_formation else n)
-        self.env = FormationState(**{
-            f: getattr(env_state, f).detach().clone() for f in ENV_FIELDS
-        })
+        carry = {f: getattr(env_state, f).detach().clone()
+                 for f in ENV_FIELDS}
+        if layout is None:
+            self.env = FormationState(**carry)
+        else:
+            layout.set(env_state.n_agents, env_state.n_obstacles)
+            self.env = HeteroState(**carry, n_agents=layout.n_agents,
+                                   n_obstacles=layout.n_obstacles)
         self.obs = obs.detach().clone()
         self._pending_env = FormationState(**{
             f: torch.empty_like(getattr(self.env, f)) for f in ENV_FIELDS
@@ -196,6 +220,20 @@ class PhasedIteration:
         ]
         return pairs + [(self.obs, self._pending_obs)]
 
+    def reset_env(self, env_state: HeteroState, obs: Tensor) -> None:
+        """A stage reset of padded formations, between iterations and
+        outside the graphs: the layout of ``env_state``'s counts, the env
+        carry and the observation, each written in place."""
+        with torch.no_grad():
+            self.layout.set(env_state.n_agents, env_state.n_obstacles)
+            for f in ENV_FIELDS:
+                getattr(self.env, f).copy_(getattr(env_state, f))
+            self.obs.copy_(obs)
+
+    def _hetero_step(self, state: HeteroState, velocity: Tensor):
+        return hetero_step_batch(state, velocity, self.env_params,
+                                 self.generator, layout=self.layout)
+
     # ------------------------------------------------------------------
     # The phases
     # ------------------------------------------------------------------
@@ -210,10 +248,12 @@ class PhasedIteration:
         if self.health is not None:
             self.health.save()
         p = self.env_params
+        mask = None if self.layout is None else self.layout.fmask
         env, last_obs, batch, last_value = collect_rollout(
             self.model, self.env, self.obs, self.generator, p,
             self.ppo.n_steps, env_step_fn=self.env_step_fn, noise=noise,
             forward=self.forward,
+            mask=mask if self.per_formation else None,
         )
         advantages, returns = compute_gae(
             batch.rewards, batch.values, batch.dones, last_value,
@@ -226,6 +266,13 @@ class PhasedIteration:
             advantages=self._flat(advantages),
             returns=self._flat(returns),
         )
+        weights = None
+        if mask is not None:
+            # Padded agents weigh 0 in the loss; the mask holds for every
+            # step of the rollout.
+            weights = mask.expand(self.ppo.n_steps, *mask.shape)
+            flat.weights = self._flat(weights)
+            flat.mask = flat.weights if self.per_formation else None
         self.update.load(flat, self.generator, permutations)
         with torch.no_grad():
             for f in ENV_FIELDS:
@@ -243,9 +290,14 @@ class PhasedIteration:
                 self._reduce(batch.metrics[k], "mean")
                 for k in self._rollout_names[:-len(ROLLOUT_TOTALS)]
             ]
-            # Formation-level episode count: dones are broadcast to agents.
-            values += [self._reduce(batch.rewards, "mean"),
-                       self._reduce(batch.dones[..., 0], "sum")]
+            if weights is None:
+                reward = self._reduce(batch.rewards, "mean")
+            else:
+                reward = self._reduce(batch.rewards * weights, "sum") / (
+                    torch.clamp_min(self._reduce(weights, "sum"), 1.0))
+            # Formation-level episode count: dones are broadcast to agents
+            # (agent row 0 is active in every formation).
+            values += [reward, self._reduce(batch.dones[..., 0], "sum")]
             self._rollout_row.copy_(torch.stack(values, dim=-1))
 
     # One run's rollout rows and reductions; a population overrides them.

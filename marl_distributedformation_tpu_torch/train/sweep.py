@@ -173,16 +173,14 @@ class SweepTrainer:
             )
             for i in range(num_seeds)
         ]
-        env_state = reset_batch(
-            env_params, num_seeds * m, self.generators, self.device
-        )
-        obs = compute_obs(env_state.agents, env_state.goal, env_params)
+        env_state, obs = self._initial_env()
         self.opt_state = population_adam_init(self.model.params)
         self._iteration = wrap_health(PopulationIteration(
             env_params, ppo, self.model, self.opt_state, self.generators,
             env_state, obs,
             lr=None if self._lrs_host is None else self._lrs_host.tolist(),
             ring_rows=2 * max(self._fused_chunk, 1),
+            **self._iteration_options(),
         ), config)
         self.capture = capture and self.device.type == "cuda"
         it = self._iteration
@@ -212,6 +210,19 @@ class SweepTrainer:
     # ------------------------------------------------------------------
     # The carry
     # ------------------------------------------------------------------
+
+    def _initial_env(self) -> Tuple[Any, Tensor]:
+        """The env carry the population starts from: every member's reset
+        drawn from its own generator, and the observation."""
+        state = reset_batch(
+            self.env_params, self.num_seeds * self.config.num_formations,
+            self.generators, self.device,
+        )
+        return state, compute_obs(state.agents, state.goal, self.env_params)
+
+    def _iteration_options(self) -> Dict[str, Any]:
+        """Further arguments of the population's ``PopulationIteration``."""
+        return {}
 
     @property
     def total_timesteps(self) -> int:
@@ -251,8 +262,7 @@ class SweepTrainer:
         device; returns their metric rows ``(rollouts, K, names)``."""
         for _ in range(rollouts):
             self._iteration.run(mark=self.phase_hook, phases=self._phases)
-        self.num_timesteps += rollouts * self.ppo.n_steps * self.num_envs
-        self._vec_steps_since_save += rollouts * self.ppo.n_steps
+        self._advance(rollouts)
         ready = None
         if self.device.type == "cuda":
             ready = torch.cuda.Event()
@@ -260,6 +270,15 @@ class SweepTrainer:
         return ChunkMetrics(
             self.metric_names, self._iteration.ring.take(rollouts), ready
         )
+
+    def _advance(self, rollouts: int) -> None:
+        """The host's counters after ``rollouts`` iterations."""
+        self.num_timesteps += rollouts * self.ppo.n_steps * self.num_envs
+        self._vec_steps_since_save += rollouts * self.ppo.n_steps
+
+    def graph_count(self) -> int:
+        """CUDA graphs captured so far (0 eagerly): one a phase."""
+        return sum(phase.graph is not None for phase in self._phases)
 
     def run_iteration(self) -> Dict[str, Tensor]:
         """One population iteration; every metric a ``(K,)`` device
@@ -466,8 +485,8 @@ class SweepTrainer:
                                  else steps),
             "learning_rate": float(lr),
             "torch_generator": np.array(host["generators"][i]),
-            "torch_env_state": {f: self._members_rows(host["env"][f], i)
-                                for f in ENV_FIELDS},
+            "torch_env_state": {f: self._members_rows(v, i)
+                                for f, v in host["env"].items()},
             "torch_obs": self._members_rows(host["obs"], i),
             "torch_step": int(host["step"][i]),
         }

@@ -25,7 +25,8 @@ Randomness: the model is initialised from a CPU generator seeded with
 ``seed``; resets, action noise and minibatch permutations draw, in that
 order, from one generator on the training device seeded with ``seed +
 2**32``. Its state is checkpointed, so a resume continues the stream.
-Populations are ``train/sweep.py``'s. Mesh, scenarios, the metrics
+Populations are ``train/sweep.py``'s, the curriculum over padded
+formations ``train/curriculum.py``'s. Mesh, scenarios, the metrics
 registry and chaos fault points are not ported (ROADMAP Queue A).
 """
 
@@ -241,6 +242,8 @@ class Trainer:
     is no config key for it).
     """
 
+    resume_keys = RESUME_KEYS  # what a resume reads from a checkpoint
+
     def __init__(
         self,
         env_params: EnvParams,
@@ -280,15 +283,13 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(
             config.seed + RUN_SEED_OFFSET
         )
-        env_state = reset_batch(
-            env_params, config.num_formations, self.generator, self.device
-        )
-        obs = compute_obs(env_state.agents, env_state.goal, env_params)
+        env_state, obs = self._initial_env()
         self.opt_state = adam_init(dict(self.model.named_parameters()))
         self._iteration = wrap_health(PhasedIteration(
             env_params, ppo, self.model, self.opt_state, self.generator,
             env_state, obs,
             ring_rows=2 * max(self._fused_chunk, self._iters_per_dispatch),
+            **self._iteration_options(),
         ), config)
         self.capture = capture and self.device.type == "cuda"
         it = self._iteration
@@ -334,6 +335,17 @@ class Trainer:
     # The carry
     # ------------------------------------------------------------------
 
+    def _initial_env(self) -> Tuple[FormationState, Tensor]:
+        """The env carry the run starts from: a reset drawn from the run's
+        generator, and its observation."""
+        state = reset_batch(self.env_params, self.config.num_formations,
+                            self.generator, self.device)
+        return state, compute_obs(state.agents, state.goal, self.env_params)
+
+    def _iteration_options(self) -> Dict[str, Any]:
+        """Further arguments of the run's ``PhasedIteration``."""
+        return {}
+
     @property
     def total_timesteps(self) -> int:
         return default_total_timesteps(self.config)
@@ -369,8 +381,7 @@ class Trainer:
         the host counters advanced; returns their metric rows."""
         for _ in range(rollouts):
             self._iteration.run(mark=self.phase_hook, phases=self._phases)
-        self.num_timesteps += rollouts * self.ppo.n_steps * self.num_envs
-        self._vec_steps_since_save += rollouts * self.ppo.n_steps
+        self._advance(rollouts)
         ready = None
         if self.device.type == "cuda":
             ready = torch.cuda.Event()
@@ -378,6 +389,15 @@ class Trainer:
         return ChunkMetrics(
             self.metric_names, self._iteration.ring.take(rollouts), ready
         )
+
+    def _advance(self, rollouts: int) -> None:
+        """The host's counters after ``rollouts`` iterations."""
+        self.num_timesteps += rollouts * self.ppo.n_steps * self.num_envs
+        self._vec_steps_since_save += rollouts * self.ppo.n_steps
+
+    def graph_count(self) -> int:
+        """CUDA graphs captured so far (0 eagerly): one a phase."""
+        return sum(phase.graph is not None for phase in self._phases)
 
     def run_iteration(self) -> Dict[str, Tensor]:
         """One host-loop dispatch, ``iters_per_dispatch`` iterations (1 by
@@ -605,7 +625,8 @@ class Trainer:
         found = None
         if self.config.checkpoint:
             for _ in range(8):
-                found = restore_latest_partial(self.log_dir, RESUME_KEYS)
+                found = restore_latest_partial(self.log_dir,
+                                               self.resume_keys)
                 if (
                     found is not None and ladder is not None
                     and ladder.last_rollback_path == str(found[0])
@@ -809,7 +830,7 @@ class Trainer:
     def _try_resume(self) -> None:
         """Restore the newest valid checkpoint in ``log_dir``
         (``_load_tree``)."""
-        found = restore_latest_partial(self.log_dir, RESUME_KEYS)
+        found = restore_latest_partial(self.log_dir, self.resume_keys)
         if found is None:
             return
         path, raw = found

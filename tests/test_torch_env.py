@@ -222,3 +222,63 @@ def test_reset_draws_from_generator():
     assert not a.steps.any()
     # Uniform over the band: the mean sits near the middle.
     assert abs(float(x.mean()) - params.width / 2) < 10.0
+
+
+def test_neighbor_arguments_keep_the_fixed_ring_bitwise():
+    """``compute_reward``'s ``neighbors_fn``/``pos_neighbors``/
+    ``neighbor_dist_target`` and ``compute_obs``'s ``pos_neighbors`` (the
+    padded env's dynamic ring) leave existing callers as they were: passed
+    the fixed ring explicitly they give the default's values bitwise; a
+    gathered ring with a per-formation target matches the JAX package's
+    ``compute_reward`` given the same."""
+    from marl_distributedformation_tpu.env.formation import (
+        compute_reward as jax_compute_reward,
+    )
+    from marl_distributedformation_tpu_torch.env.formation import (
+        compute_reward,
+        ring_neighbors,
+    )
+
+    params = CONFIGS["ring_obstacles_parity"]
+    state, _ = _scene(params, 4, seed=2)
+    agents = torch.from_numpy(np.array(state.agents))
+    goal = torch.from_numpy(np.array(state.goal))
+    oob = agents[..., 0] > 350.0
+    inside = agents[..., 1] < 50.0
+    plain = compute_reward(agents, goal, oob, inside, params)
+    same_ring = compute_reward(
+        agents, goal, oob, inside, params, neighbors_fn=ring_neighbors,
+        pos_neighbors=ring_neighbors(agents, -2),
+        neighbor_dist_target=torch.full((4, 1),
+                                        params.desired_neighbor_dist),
+    )
+    assert torch.equal(plain[0], same_ring[0])
+    for k in plain[1]:
+        assert torch.equal(plain[1][k], same_ring[1][k]), k
+    assert torch.equal(
+        compute_obs(agents, goal, params),
+        compute_obs(agents, goal, params,
+                    pos_neighbors=ring_neighbors(agents, -2)),
+    )
+    # Reversed ring order and a per-formation target, both packages.
+    def flipped(x, dim):
+        prev, nxt = ring_neighbors(x, dim)
+        return nxt, prev
+
+    target = np.float32([[11.0], [23.0], [37.0], [5.0]])
+    got = compute_reward(agents, goal, oob, inside, params,
+                         neighbors_fn=flipped,
+                         neighbor_dist_target=torch.from_numpy(target))
+
+    def jax_flipped(x, axis):
+        return jnp.roll(x, -1, axis=axis), jnp.roll(x, 1, axis=axis)
+
+    ref = jax.vmap(
+        lambda a, g, o, i, tg: jax_compute_reward(
+            a, g, o, i, jax_params(params), neighbors_fn=jax_flipped,
+            neighbor_dist_target=tg[0]),
+    )(state.agents, state.goal, jnp.asarray(oob.numpy()),
+      jnp.asarray(inside.numpy()), jnp.asarray(target))
+    close(got[0], ref[0], "reward")
+    for k in ref[1]:
+        close(got[1][k], ref[1][k], k)

@@ -569,3 +569,127 @@ def test_population_rollout_graph_follows_every_generator(cuda):
     for a, g in zip(after, gens):
         assert torch.equal(a, g.get_state())
     assert float(out[2].dones.sum()) > 0  # resets inside the rollout
+
+
+# ---------------------------------------------------------------------------
+# The curriculum over padded formations, captured
+# ---------------------------------------------------------------------------
+
+
+def _hetero_runs(tmp_path, kind, population=False, **cfg):
+    """A captured and an eager curriculum run from one seed: ring
+    formations padded to N_max=8 over two stages (2 rollouts of 3- and
+    5-agent formations, then 1 of 5 and 8 with 2 obstacles), M=8; a
+    population of two candidates with ``population``."""
+    from marl_distributedformation_tpu_torch.algo import PPOConfig
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.models import (
+        CTDEActorCritic,
+        MLPActorCritic,
+    )
+    from marl_distributedformation_tpu_torch.train import TrainConfig
+    from marl_distributedformation_tpu_torch.train.curriculum import (
+        Curriculum,
+        CurriculumStage,
+        HeteroTrainer,
+    )
+    from marl_distributedformation_tpu_torch.train.hetero_sweep import (
+        HeteroSweepTrainer,
+    )
+
+    cur = Curriculum((CurriculumStage(2, (3, 5)),
+                      CurriculumStage(1, (5, 8), num_obstacles=2)))
+    cls = CTDEActorCritic if kind == "ctde" else MLPActorCritic
+
+    def model(seed):
+        return cls(8, generator=torch.Generator().manual_seed(seed))
+
+    out = {}
+    for capture in (True, False):
+        config = TrainConfig(num_formations=8, checkpoint=False,
+                             log_dir=str(tmp_path / str(capture)), **cfg)
+        ppo = PPOConfig(n_epochs=2, batch_size=160)
+        if population:
+            out[capture] = HeteroSweepTrainer(
+                cur, EnvParams(), ppo, config, 2,
+                models=[model(0), model(1)], device="cuda", capture=capture)
+        else:
+            out[capture] = HeteroTrainer(cur, EnvParams(), ppo, config,
+                                         model=model(0), device="cuda",
+                                         capture=capture)
+    return out[True], out[False]
+
+
+def _learner(trainer):
+    named = (trainer.model.params.items() if hasattr(trainer.model, "params")
+             else trainer.model.named_parameters())
+    it = trainer._iteration
+    gens = getattr(trainer, "generators", None) or [trainer.generator]
+    return {**{k: v.detach() for k, v in named},
+            **{f"mu {k}": v for k, v in trainer.opt_state.mu.items()},
+            "agents": it.env.agents, "obs": it.obs,
+            "n_agents": it.layout.n_agents, "ring": it.ring.buf,
+            "gens": torch.stack([g.get_state() for g in gens])}
+
+
+@pytest.mark.parametrize("kind", ["mlp", "ctde"])
+def test_curriculum_captured_equals_eager_across_a_stage(cuda, tmp_path,
+                                                         kind):
+    """Three iterations with the stage boundary after the second, captured
+    against eager: bitwise, the MLP and the CTDE model alike (neither
+    reduces with atomics); the same three graphs serve both stages."""
+    captured, eager = _hetero_runs(tmp_path, kind)
+    captured.train()
+    eager.train()
+    torch.cuda.synchronize()
+    got, want = _learner(captured), _learner(eager)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    assert captured.graph_count() == 3 and eager.graph_count() == 0
+    assert [g["calls"] for g in captured.graph_stats()] == [
+        3, 3 * captured._iteration.num_minibatch_steps, 3]
+
+
+def test_curriculum_graph_count_holds_across_stages(cuda, tmp_path):
+    """The stage reset writes counts, state and observation into the
+    static carry outside the graphs: after the first stage the run holds
+    three graphs, and after the last the same three, not recaptured, and
+    the padded agents' values are exactly 0."""
+    from marl_distributedformation_tpu_torch.algo.rollout import (
+        policy_forward,
+    )
+
+    captured, _ = _hetero_runs(tmp_path, "ctde")
+    captured.start_stage(captured.curriculum.stages[0])
+    for _ in range(2):
+        captured.run_iteration()
+    first = [id(p.graph) for p in captured._phases]
+    count = captured.graph_count()
+    captured.start_stage(captured.curriculum.stages[1])
+    captured.run_iteration()
+    torch.cuda.synchronize()
+    assert count == captured.graph_count() == 3
+    assert [id(p.graph) for p in captured._phases] == first
+    layout = captured.layout
+    with torch.no_grad():
+        _, _, value = policy_forward(captured.model, captured.obs,
+                                     layout.fmask)
+    assert bool((value[~layout.mask] == 0).all())
+    assert set(layout.n_agents.tolist()) <= {5, 8}
+
+
+def test_curriculum_population_fused_equals_host_loop(cuda, tmp_path):
+    """Two candidates, captured: ``fused_chunk=2`` (chunks 2 | 1, clipped
+    at the stage boundary) against the host loop, bitwise."""
+    host, _ = _hetero_runs(tmp_path / "host", "mlp", population=True)
+    fused, _ = _hetero_runs(tmp_path / "fused", "mlp", population=True,
+                            fused_chunk=2)
+    host.train()
+    fused.train()
+    torch.cuda.synchronize()
+    got, want = _learner(fused), _learner(host)
+    for key in want:
+        if key != "ring":  # the ring's rows sit at other slots
+            assert torch.equal(got[key], want[key]), key
+    assert fused.num_timesteps_members.tolist() == \
+        host.num_timesteps_members.tolist()

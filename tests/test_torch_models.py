@@ -211,7 +211,7 @@ def test_infer_hidden_and_registry():
     )["params"]
     assert infer_hidden(gnn, "GNNActorCritic") == (16, 8)
     with pytest.raises(ValueError, match="unknown policy"):
-        build_model("CTDEActorCritic", raw)
+        build_model("TransformerActorCritic", raw)
     with pytest.raises(ValueError, match="no layer"):
         params_from_jax({"params": gnn}, "MLPActorCritic")
 

@@ -310,23 +310,41 @@ def test_train_cli_accepts_ported_knobs(key, tmp_path, monkeypatch):
                                       np.float32([3e-4, 1e-3]))
 
 
+CURRICULUM = "curriculum=[{rollouts: 2, agent_counts: [3]}]"
+
+
 @pytest.mark.parametrize("override,match", [
-    ("policy=ctde", "ROADMAP A8"),
     ("env=pursuit_evasion", "ROADMAP A10"),
     ("platform=cpu", "device=cuda"),
     ("backend=torch", "device=cuda"),
     ("num_formations=4", "did you mean 'num_formation'"),
     ("policy=transformer", "not implemented"),
-    # As the root train.py: a population knob alone, and populations of
-    # the curriculum trainer (not ported).
+    # As the root train.py: a population knob alone.
     ("learning_rates=[1e-3,3e-3]", "learning_rates is a population knob"),
-    ("num_seeds=2 curriculum=[{rollouts: 2, agent_counts: [3]}]",
-     "ROADMAP A9"),
+    # The curriculum's refusals, in the JAX package's words
+    # (train.py::build_hetero_trainer, HeteroTrainer, HeteroSweepTrainer).
+    (f"policy=gnn obs_mode=knn {CURRICULUM}",
+     "curriculum training supports policy=mlp"),
+    (f"obs_mode=knn {CURRICULUM}",
+     "curriculum training uses the ring observation model"),
+    (f"num_seeds=2 learning_rates=[1e-3,3e-3] {CURRICULUM}",
+     "learning_rates does not compose with curriculum populations"),
+    (f"fused_chunk=2 {CURRICULUM}",
+     "iters_per_dispatch > 1 / fused_chunk do not compose with curriculum"),
+    (f"iters_per_dispatch=2 {CURRICULUM}",
+     "iters_per_dispatch > 1 / fused_chunk do not compose with curriculum"),
+    (f"num_seeds=2 iters_per_dispatch=2 {CURRICULUM}",
+     "iters_per_dispatch is retired for population sweeps .*chunks clip "
+     "at curriculum stage boundaries"),
 ])
 def test_train_cli_refuses(override, match):
+    words = override.split(" ")
+    # The curriculum's YAML is one override with spaces in it.
+    at = next((i for i, w in enumerate(words) if w.startswith("curriculum=")),
+              len(words))
+    argv = words[:at] + ([" ".join(words[at:])] if at < len(words) else [])
     with pytest.raises(SystemExit, match=match):
-        train_cli.main([*override.split(" ", 1), "device=cpu",
-                        "total_timesteps=0"])
+        train_cli.main([*argv, "device=cpu", "total_timesteps=0"])
 
 
 def test_metrics_logger_as_jax(tmp_path, capsys):
