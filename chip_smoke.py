@@ -101,11 +101,35 @@ Phases (any failure exits non-zero):
      MLP and CTDE single runs bitwise; a K=2 population with
      ``fused_chunk=2`` against the host loop bitwise; a population resumed
      from a mid-stage anchor against the uninterrupted run bitwise.
-8. Print the kernels' JSON line (launches and timings at the training
+8. Scenarios (``scenarios/``: disturbance layers around the env step):
+   - severity 0 is the clean env on the card: phase 5's ``gnn100`` policy
+     at N=100, M=1024, 50 steps through a reset and ``knn_fused``; every
+     registered scenario at severity 0 equals the clean run bitwise
+     (states, observations, rewards), the obstacle scenarios also with 4
+     obstacles; at severity 1 every scenario but ``clean`` differs (the
+     obstacle ones with obstacles, and are bitwise clean without).
+   - ``scen100``: ``gnn100``'s command (30 iterations, ``fused_chunk=10``)
+     under a 3-stage schedule (12 clean, 12 of wind / sensor noise /
+     actuator faults at 0.5, 6 of storm ramping 0.5 to 1.0), the stage
+     changes at iterations 12 and 24 inside chunks: the records'
+     ``scenario_severity`` is the schedule's every iteration; the 3
+     captured graphs hold across both changes; iteration 1's reward equals
+     ``gnn100``'s to the last digit (same seed, clean stage); iterations
+     10-12 beat the first 3 by 20; ``knn_fused`` 1 + 30 x 10 launches by
+     replay; s/iteration per stage beside ``gnn100``'s.
+   - evaluation under ``wind`` and ``storm`` at 0.5 (M=4096, N=100, full
+     episodes) through the evaluate CLI on ``scen100``'s checkpoint:
+     learned > zero; ``gnn100``'s checkpoint's policy row beside it (not
+     gated); eval formation-steps/s under ``storm`` against clean.
+   - captured == eager across a stage boundary and a severity ramp
+     (ring/MLP, M=64) bitwise; ``fused_chunk=2`` == the host loop with the
+     stage change inside a chunk, records included; resumed mid-stage ==
+     uninterrupted, bitwise.
+9. Print the kernels' JSON line (launches and timings at the training
    paths' shapes, those of the eval paths under ``eval``, the population
-   paths' under ``population`` and ``ctde_knn``'s launches under
-   ``ctde_knn``), the card line, and the last line ``{"ok": true,
-   "device": {...}}``.
+   paths' under ``population``, ``ctde_knn``'s launches under
+   ``ctde_knn`` and ``scen100``'s under ``scenario``), the card line, and
+   the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero with no result when no GPU is found.
 """
@@ -527,6 +551,7 @@ def train_run(name, overrides, label, capture=True, before_train=None):
             ..., trainer.metric_names.index("reward")].numpy()
     lines = (Path(trainer.log_dir) / "metrics.jsonl").read_text().splitlines()
     records = [json.loads(line) for line in lines]
+    trainer.smoke_records = records
     for r in records:
         if not all(math.isfinite(v) for v in r.values()):
             raise AssertionError(f"{label}: non-finite metrics {r}")
@@ -536,6 +561,7 @@ def train_run(name, overrides, label, capture=True, before_train=None):
                              "iterations")
     phase_ms = [(e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2]))
                 for e in events]
+    trainer.smoke_phase_ms = phase_ms
     phases = phase_ms[WARM_ITERATIONS[capture]:] or phase_ms
     roll, upd = mean(p[0] for p in phases), mean(p[1] for p in phases)
     s_iter = (roll + upd) / 1e3
@@ -806,7 +832,9 @@ def train_phase():
     trainer, rewards, got, captured_s = train_run(
         "smoke_gnn100", GNN100 + ("fused_chunk=10",),
         "gnn100 M=1024 N=100 fused_chunk=10")
-    gnn100 = {"rewards": rewards, "s_iter": captured_s}
+    gnn100 = {"rewards": rewards, "s_iter": captured_s,
+              "model": trainer.model,
+              "ckpt": latest_checkpoint(trainer.log_dir)}
     want = 1 + len(rewards) * trainer.ppo.n_steps
     if got != {"knn_fused": want, "knn_tiled": 0}:
         raise AssertionError(f"gnn100 launches {got}, want fused {want}")
@@ -1388,6 +1416,364 @@ def curriculum_phase():
     elapsed("curriculum captured == eager")
 
 
+# gnn100's command under a 3-stage scenario schedule; the changes at
+# iterations 12 and 24 fall inside the 10-iteration chunks.
+SCEN100_SCHEDULE = (
+    "scenarios=[{rollouts: 12, scenarios: [clean]}, {rollouts: 12, "
+    "scenarios: [wind, sensor_noise, actuator_fault], severity: 0.5}, "
+    "{rollouts: 6, scenarios: [storm], severity: 1.0}]")
+SCEN100 = GNN100 + ("fused_chunk=10", SCEN100_SCHEDULE)
+SCEN100_STAGES = ((0, 12), (12, 24), (24, 30))
+SCENARIO_EVALS = ("wind", "storm")
+IDENTITY_STEPS = 50
+
+
+def scenario_identity(model):
+    """Severity 0 on the card: phase 5's policy acting on M=1024 formations
+    of N=100 through the knn step (``knn_fused``) for 50 steps, through a
+    reset (max_steps 40); every registered scenario at severity 0 equals
+    the clean run bitwise, and at severity 1 every one but ``clean``
+    differs; the obstacle scenarios with 4 obstacles, and bitwise clean
+    without."""
+    import torch
+
+    from marl_distributedformation_tpu_torch.env import (
+        EnvParams,
+        compute_obs,
+        reset_batch,
+        step_batch,
+    )
+    from marl_distributedformation_tpu_torch.eval import policy_act_fn
+    from marl_distributedformation_tpu_torch.ops import knn_cuda
+    from marl_distributedformation_tpu_torch.scenarios import (
+        ScenarioStreams,
+        broadcast_params,
+        init_scenario_state,
+        registered_scenarios,
+        scenario_params_for,
+        scenario_step_batch,
+    )
+
+    dev = torch.device("cuda")
+    m = 1024
+
+    def roll(params, sp):
+        """Each step's (agents, goal, obstacles, steps, obs, reward,
+        done); the knn launches of the run."""
+        act = policy_act_fn(model, params)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        streams = ScenarioStreams(torch.Generator(device=dev).manual_seed(12))
+        knn_cuda.reset_launches()
+        state = reset_batch(params, m, gen, dev)
+        obs = compute_obs(state.agents, state.goal, params)
+        if sp is not None:
+            state = init_scenario_state(state, params, streams)
+            sp = broadcast_params(sp.to(dev), m)
+        out = []
+        with torch.no_grad():
+            for _ in range(IDENTITY_STEPS):
+                vel = act(state.agents, state.goal, state.obstacles, obs, None)
+                if sp is None:
+                    state, tr = step_batch(state, vel, params, gen)
+                else:
+                    state, tr = scenario_step_batch(state, vel, sp, params,
+                                                    gen, streams)
+                obs = tr.obs
+                out.append((state.agents, state.goal, state.obstacles,
+                            state.steps, tr.obs, tr.reward, tr.done))
+        torch.cuda.synchronize()
+        launches = dict(knn_cuda.LAUNCHES)
+        if launches != {"knn_fused": IDENTITY_STEPS + 1, "knn_tiled": 0}:
+            raise AssertionError(f"identity run launches {launches}")
+        return out
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for sa, sb in zip(a, b)
+                   for x, y in zip(sa, sb))
+
+    t0 = time.perf_counter()
+    names = [n for n in registered_scenarios() if not n.startswith("adv:")]
+    checked = []
+    for obstacles in (0, 4):
+        params = EnvParams(num_agents=100, obs_mode="knn", knn_k=4,
+                           max_steps=40, num_obstacles=obstacles)
+        clean = roll(params, None)
+        if int(sum(int(s[6].sum()) for s in clean)) != m:
+            raise AssertionError("identity run: every formation must reset")
+        for name in names:
+            if obstacles and name not in ("clean", "obstacle_field",
+                                          "moving_obstacles"):
+                continue
+            if not equal(clean, roll(params, scenario_params_for(name, 0.0))):
+                raise AssertionError(f"{name} at severity 0 differs from the "
+                                     f"clean run ({obstacles} obstacles)")
+            if name == "clean":
+                continue
+            obstacle_layer = name in ("obstacle_field", "moving_obstacles")
+            same = equal(clean, roll(params, scenario_params_for(name, 1.0)))
+            if same != (obstacle_layer and not obstacles):
+                raise AssertionError(f"{name} at severity 1 with {obstacles} "
+                                     f"obstacles: equal to clean is {same}")
+            checked.append(f"{name}{'+obs' if obstacles else ''}")
+        del clean
+    print(f"[scenario] severity 0 == clean bitwise (states, obs, rewards) "
+          f"for {len(names)} scenarios at N=100 M={m}, {IDENTITY_STEPS} "
+          f"steps through a reset, knn_fused {IDENTITY_STEPS + 1} launches a "
+          f"run; the obstacle scenarios also with 4 obstacles; severity 1 "
+          f"differs for {', '.join(checked)}; the obstacle scenarios "
+          f"without obstacles equal clean at severity 1 "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+def scen100_run(gnn100):
+    """``scen100``: the schedule's severities every iteration, 3 graphs
+    across both stage changes, iteration 1 equal to ``gnn100``'s, the
+    learning gate over the clean stage, launches by replay and s/iteration
+    per stage; returns the trainer and its launches."""
+    import numpy as np
+
+    from marl_distributedformation_tpu_torch.scenarios import (
+        schedule_from_cfg,
+    )
+
+    graphs = []
+
+    def track(trainer):
+        run = trainer._iteration.run
+
+        def counted(*args, **kwargs):
+            graphs.append((trainer.graph_count(),
+                           [id(p.graph) for p in trainer._phases]))
+            run(*args, **kwargs)
+
+        trainer._iteration.run = counted
+
+    trainer, rewards, got, s_iter = train_run(
+        "smoke_scen100", SCEN100, "scen100 M=1024 N=100 fused_chunk=10",
+        before_train=track)
+    del trainer._iteration.run
+    want = 1 + len(rewards) * trainer.ppo.n_steps
+    if len(rewards) != 30 or got != {"knn_fused": want, "knn_tiled": 0}:
+        raise AssertionError(f"scen100: {len(rewards)} iterations, launches "
+                             f"{got}, want 30 and fused {want}")
+    schedule = schedule_from_cfg(SCEN100_SCHEDULE.split("=", 1)[1],
+                                 default_severity=0.5)
+    severities = [r["scenario_severity"] for r in trainer.smoke_records]
+    expect = [float(np.float32(schedule.severity_at(i))) for i in range(30)]
+    if severities != expect:
+        raise AssertionError(f"scen100 severities {severities} != the "
+                             f"schedule's {expect}")
+    final = (trainer.graph_count(), [id(p.graph) for p in trainer._phases])
+    at = {i: graphs[i][0] for i in (11, 12, 23, 24)}
+    if not (set(at.values()) == {3} and final[0] == 3
+            and graphs[2][1] == final[1]):
+        raise AssertionError(f"scen100 graphs before/after iterations 12 "
+                             f"and 24: {at}, at the end {final[0]}; the same "
+                             f"graph objects: {graphs[2][1] == final[1]}")
+    print(f"[graphs] scen100: captured graphs before and after the stage "
+          f"changes (iterations 12, 13, 24, 25): {list(at.values())}; at the "
+          f"end {final[0]}, the same graph objects as at iteration 3")
+    if rewards[0] != gnn100["rewards"][0]:
+        raise AssertionError(f"scen100 iteration 1 {rewards[0]!r} != "
+                             f"gnn100's {gnn100['rewards'][0]!r}")
+    first3, late = mean(rewards[:3]), mean(rewards[9:12])
+    print(f"[learn] scen100 reward by iteration: " + ", ".join(
+        f"{i + 1}: {r:.3f}" for i, r in enumerate(rewards))
+        + f"; iteration 1 {rewards[0]!r} == gnn100's; first 3 {first3:.3f},"
+        f" iterations 10-12 {late:.3f}")
+    if not late >= first3 + LEARN_MARGIN:
+        raise AssertionError(f"scen100: iterations 10-12 mean {late:.3f} do "
+                             f"not beat the first 3 {first3:.3f} by "
+                             f"{LEARN_MARGIN}")
+    steady = trainer.smoke_phase_ms
+    per_stage = []
+    for a, b in SCEN100_STAGES:
+        rows = [sum(p) / 1e3 for p in steady[max(a, 2):b]]
+        per_stage.append(mean(rows))
+    print(f"[scen100] s/iteration by stage (clean; wind/sensor/fault 0.5; "
+          f"storm 0.5-1.0), warm-up and capture iterations left out: "
+          + ", ".join(f"{x:.4f}" for x in per_stage)
+          + f"; whole run {s_iter:.4f}; gnn100's {gnn100['s_iter']:.4f} "
+          f"(ratio {s_iter / gnn100['s_iter']:.3f})")
+    profile_window(lambda: trainer._dispatch(1), "train scen100 M=1024 "
+                   "N=100 under storm, one captured iteration", 1,
+                   "iteration")
+    return trainer, got["knn_fused"]
+
+
+def scenario_evals(scen100, gnn100):
+    """The evaluate CLI on ``scen100``'s checkpoint under wind and storm at
+    0.5 (M=4096, full episodes): learned > zero; ``gnn100``'s policy row
+    beside it; eval formation-steps/s under storm against clean."""
+    import torch
+
+    from marl_distributedformation_tpu_torch import evaluate as evaluate_cli
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.eval import (
+        episode_length,
+        evaluate,
+        evaluate_checkpoint,
+        policy_act_fn,
+    )
+    from marl_distributedformation_tpu_torch.scenarios import (
+        scenario_params_for,
+    )
+    from marl_distributedformation_tpu_torch.utils.checkpoint import (
+        latest_checkpoint,
+    )
+
+    ckpt = latest_checkpoint(scen100.log_dir)
+    params = EnvParams(num_agents=100, obs_mode="knn", knn_k=4)
+    for name in SCENARIO_EVALS:
+        res = evaluate_cli.main([
+            f"checkpoint={ckpt}", "obs_mode=knn", "policy=gnn",
+            "num_agents_per_formation=100", "eval_formations=4096",
+            f"scenario={name}", "scenario_severity=0.5", "device=cuda",
+        ])
+        ret = {r: res[f"{r}_episode_return_per_agent"]
+               for r in ("policy", "baseline", "zero")}
+        if not ret["policy"] > ret["zero"]:
+            raise AssertionError(f"scen100 under {name}: learned "
+                                 f"{ret['policy']} does not beat zero "
+                                 f"{ret['zero']}")
+        plain = evaluate_checkpoint(
+            str(gnn100["ckpt"]), params, 4096, 1234, True, "cuda",
+            scenario_params=scenario_params_for(name, 0.5),
+        )["episode_return_per_agent"]
+        print(f"[scenario-eval] {name} 0.5 (M=4096 N=100, full episodes): "
+              f"scen100 learned {ret['policy']:.2f}, baseline "
+              f"{ret['baseline']:.2f}, zero {ret['zero']:.2f}; gnn100's "
+              f"checkpoint (clean-trained) {plain:.2f} (not gated)")
+    # Eval throughput under storm against clean: the learned policy, 302
+    # steps each, alternating clean, storm, storm, clean.
+    short = params.replace(max_steps=300)
+    act = policy_act_fn(scen100.model, short)
+    storm = scenario_params_for("storm", 0.5)
+    rates = {"clean": [], "storm": []}
+    for which in ("clean", "storm", "storm", "clean"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluate(act, short, 4096, seed=1234, device="cuda",
+                 scenario_params=storm if which == "storm" else None)
+        torch.cuda.synchronize()
+        rates[which].append(4096 * episode_length(short)
+                            / (time.perf_counter() - t0))
+    clean_r, storm_r = mean(rates["clean"]), mean(rates["storm"])
+    print(f"[scenario-eval] eval formation-steps/s at M=4096 N=100 "
+          f"(302 steps, two runs each): clean {clean_r:.1f} "
+          f"{[round(x, 1) for x in rates['clean']]}, storm {storm_r:.1f} "
+          f"{[round(x, 1) for x in rates['storm']]}; scenario overhead "
+          f"{100 * (clean_r / storm_r - 1):.1f}% (time under storm over "
+          f"clean, less one)")
+
+
+def scenario_captured_equals_eager():
+    """Ring/MLP, M=64, bitwise: captured == eager over 4 iterations across
+    a stage boundary and a severity ramp; ``fused_chunk=2`` == the host
+    loop with the stage change inside the second chunk, records included;
+    and a run resumed mid-stage == the uninterrupted one."""
+    import shutil
+
+    import torch
+
+    from marl_distributedformation_tpu_torch.algo import PPOConfig
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.models import MLPActorCritic
+    from marl_distributedformation_tpu_torch.scenarios import (
+        schedule_from_cfg,
+    )
+    from marl_distributedformation_tpu_torch.train import (
+        TrainConfig,
+        Trainer,
+    )
+
+    params = EnvParams()
+    base = ROOT / "logs" / "smoke_scenario_compare"
+    shutil.rmtree(base, ignore_errors=True)
+    ppo = PPOConfig(batch_size=800)  # 4 minibatches an epoch
+    per_iter = 10 * 64 * 5
+
+    def make(name, schedule, capture=True, **kw):
+        cfg = dict(num_formations=64, seed=3, checkpoint=False,
+                   total_timesteps=4 * per_iter, log_dir=str(base / name))
+        cfg.update(kw)
+        return Trainer(params, ppo, TrainConfig(**cfg),
+                       model=MLPActorCritic(
+                           params.obs_dim,
+                           generator=torch.Generator().manual_seed(3)),
+                       device="cuda", capture=capture,
+                       scenario_schedule=schedule_from_cfg(schedule))
+
+    def carry(trainer):
+        out = _carry(trainer)
+        it = trainer._iteration
+        out.update({f: getattr(it.env, f).clone() for f in it.env_fields})
+        out["scenario generator"] = trainer.scenario_generator.get_state()
+        out["scenario wind"] = trainer.scenario_params.wind.clone()
+        return out
+
+    def compare(a, b, what, skip=()):
+        torch.cuda.synchronize()
+        x, y = carry(a), carry(b)
+        for key in x:
+            if key not in skip and not torch.equal(x[key], y[key]):
+                raise AssertionError(f"{what}: {key} differs")
+
+    def records(trainer):
+        return [{k: v for k, v in json.loads(line).items()
+                 if k not in ("time", "env_steps_per_sec")}
+                for line in (Path(trainer.log_dir) / "metrics.jsonl")
+                .read_text().splitlines()]
+
+    ramp = ("[{rollouts: 2, scenarios: [clean]}, {rollouts: 2, scenarios: "
+            "[wind, sensor_noise, actuator_fault, comm_dropout], severity: "
+            "1.0, severity_start: 0.3}]")
+    runs = [make(f"ramp{c}", ramp, capture=c) for c in (True, False)]
+    for t in runs:
+        t.train()
+    compare(*runs, "scenario captured vs eager")
+    if runs[0].graph_count() != 3:
+        raise AssertionError(f"{runs[0].graph_count()} graphs, want 3")
+
+    inside = ("[{rollouts: 3, scenarios: [storm, comm_dropout, "
+              "moving_goal], severity: 1.0, severity_start: 0.2}, "
+              "{rollouts: 2, scenarios: [actuator_fault, sensor_noise, "
+              "wind], severity: 0.7}]")
+    host, fused = make("host", inside), make("fused", inside, fused_chunk=2)
+    host.train()
+    fused.train()
+    compare(host, fused, "scenario fused vs host loop", skip=("metrics",))
+    if records(host) != records(fused):
+        raise AssertionError("scenario fused vs host loop: records differ")
+
+    kw = dict(checkpoint=True, save_freq=10)
+    full = make("full", inside, **kw)
+    full.train()
+    make("part", inside, total_timesteps=2 * per_iter, **kw).train()
+    resumed = make("part", inside, resume=True, **kw)
+    resumed.train()
+    compare(full, resumed, "scenario resumed mid-stage", skip=("metrics",))
+    print("[capture] scenarios ring/MLP M=64, bitwise: captured == eager "
+          "over 4 iterations across a stage boundary and a severity ramp "
+          "(params, Adam state, step, env carry with the episode draws, "
+          "metrics, both generators, the scenario buffers; 3 graphs); "
+          "fused_chunk=2 == the host loop with the stage change inside the "
+          "second chunk, records included; resumed at rollout 2 of the "
+          "3-rollout stage == uninterrupted")
+
+
+def scenario_phase(gnn100):
+    """Phase 8; returns ``scen100``'s ``knn_fused`` launches."""
+    scenario_identity(gnn100["model"])
+    elapsed("scenario identity")
+    trainer, launches = scen100_run(gnn100)
+    elapsed("scen100")
+    scenario_evals(trainer, gnn100)
+    elapsed("scenario evals")
+    scenario_captured_equals_eager()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1486,6 +1872,10 @@ def main() -> int:
     curriculum_phase()
     elapsed("phase 7, CTDE and the curriculum")
 
+    # Phase 8: scenarios, this slice's main path.
+    scen_launches = scenario_phase(gnn100)
+    elapsed("phase 8, scenarios")
+
     replaces = {
         "knn_fused": "marl_distributedformation_tpu/ops/knn_pallas.py:117",
         "knn_tiled": "marl_distributedformation_tpu/ops/knn_pallas.py:155",
@@ -1510,6 +1900,10 @@ def main() -> int:
     # shape, (1024,100,4), timed above.
     kernels[0]["ctde_knn"] = {"path": "train ctde_knn",
                               "launches": ctde_knn_launches,
+                              "shape": stats["knn_fused"]["train"]["shape"]}
+    # scen100 launches knn_fused at gnn100's shape, (1024,100,4).
+    kernels[0]["scenario"] = {"path": "train scen100",
+                              "launches": scen_launches,
                               "shape": stats["knn_fused"]["train"]["shape"]}
     print(json.dumps({"kernels": kernels}))
     print(card)

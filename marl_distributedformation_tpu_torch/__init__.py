@@ -7,10 +7,16 @@ JAX, flax or anything of the JAX package; where it needs a piece of that
 package (``EnvParams``, the checkpoint codec, the config parser) it keeps its
 own copy.
 
-The slices ported so far are policy evaluation on the k-NN swarm and
-single-run PPO training:
+The slices ported so far: policy evaluation on the k-NN swarm, PPO
+training (single runs, populations, CTDE and the curriculum over padded
+formations, captured as CUDA graphs), and the env-spec layer with the
+disturbance scenarios:
 
 - ``env``     — the formation environment, batched over ``(M, N, 2)``
+- ``envs``    — the env contract (``EnvSpec``, declared obs layouts) and
+                its fail-fast registry
+- ``scenarios`` — disturbance layers around the env step, their registry,
+                engine and training schedules
 - ``ops``     — k-nearest-neighbor search: a plain PyTorch version and two
                 CUDA C++ kernels for Hopper (``csrc/knn.cu``)
 - ``models``  — MLP and GNN actor-critics as ``nn.Module``s

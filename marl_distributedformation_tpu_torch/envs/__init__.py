@@ -1,0 +1,31 @@
+"""Environments behind one contract (``EnvSpec``) with declared observation
+layouts, named in a fail-fast registry; counterpart of the JAX package's
+``envs/``. The port registers ``formation``; ``pursuit_evasion`` is not
+ported yet (ROADMAP A10).
+
+    from marl_distributedformation_tpu_torch import envs
+
+    spec = envs.get("formation")
+    spec = envs.spec_for_params(params)
+    state, obs = spec.reset_env(params, 8, generator, "cpu")
+"""
+
+from marl_distributedformation_tpu_torch.envs.spec import (  # noqa: F401
+    EnvSpec,
+    ObsLayout,
+)
+from marl_distributedformation_tpu_torch.envs.registry import (  # noqa: F401
+    get_env,
+    register_env,
+    registered_envs,
+    spec_for_params,
+)
+from marl_distributedformation_tpu_torch.envs.formation import (  # noqa: F401
+    FORMATION_SPEC,
+    formation_obs_layout,
+)
+
+# ``envs.get("formation")``, the registry's short spelling.
+get = get_env
+
+register_env(FORMATION_SPEC)

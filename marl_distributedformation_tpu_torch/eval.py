@@ -5,7 +5,10 @@ episode inside one compiled program; here it is a Python loop over the
 ``T`` steps whose per-step scalars stay on the device until the end, so the
 loop never waits for the device. A learned policy is compared with the
 scripted baseline (``env/baseline.py``) and with zero actions on the same
-initial states.
+initial states. The env is resolved from the params type
+(``envs.spec_for_params``); ``scenario_params`` evaluates under a
+disturbance scenario (``scenarios/``), with the layers' draws from their own
+stream.
 """
 
 from __future__ import annotations
@@ -17,12 +20,8 @@ import torch
 from marl_distributedformation_tpu_torch.algo.rollout import policy_forward
 from marl_distributedformation_tpu_torch.device import DeviceLike, resolve_device
 from marl_distributedformation_tpu_torch.env.baseline import control
-from marl_distributedformation_tpu_torch.env.formation import (
-    compute_obs,
-    reset_batch,
-    step_batch,
-)
 from marl_distributedformation_tpu_torch.env.types import EnvParams, FormationState
+from marl_distributedformation_tpu_torch.envs import spec_for_params
 from marl_distributedformation_tpu_torch.models import distributions
 
 Tensor = torch.Tensor
@@ -35,6 +34,8 @@ ActFn = Callable[[Tensor, Tensor, Tensor, Tensor, torch.Generator], Tensor]
 # The action-noise stream is seeded apart from the reset stream, so that
 # the seed -> initial-state mapping does not depend on the controller.
 _ACT_SEED_OFFSET = 1 << 32
+# The scenario layers' stream is seeded apart from both.
+_SCENARIO_SEED_OFFSET = 2 << 32
 
 
 def episode_length(params: EnvParams) -> int:
@@ -51,11 +52,17 @@ def run_episode_metrics(
     seed: int = 1234,
     device: DeviceLike = None,
     initial_state: Optional[FormationState] = None,
+    scenario_params=None,
+    scenario_streams=None,
 ) -> Dict[str, Tensor]:
     """Roll ``episode_length(params)`` steps and reduce them to 0-d tensors.
 
     ``initial_state`` replaces the reset drawn from ``seed`` (tests start
     both packages from the same states); the run is then on its device.
+    ``scenario_params`` (``scenarios.ScenarioParams``, one formation's or a
+    batch's) routes the step through the disturbance stack, the layers
+    drawing from ``scenario_streams`` (default: a stream seeded from
+    ``seed``); None is the clean env.
     The step where done fires resets before its metrics are taken, so the
     last in-episode metrics row is ``T - 2``; rewards are taken on the
     pre-reset state, so every row counts toward the return.
@@ -66,10 +73,35 @@ def run_episode_metrics(
         dev = resolve_device(device)
     reset_gen = torch.Generator(device=dev).manual_seed(seed)
     act_gen = torch.Generator(device=dev).manual_seed(seed + _ACT_SEED_OFFSET)
+    env = spec_for_params(params)
     state = initial_state
     if state is None:
-        state = reset_batch(params, num_formations, reset_gen, dev)
-    obs = compute_obs(state.agents, state.goal, params)
+        state = env.reset_batch(params, num_formations, reset_gen, dev)
+    obs = env.obs(state, params)
+    if scenario_params is None:
+        def env_step(state, vel):
+            return env.step_batch(state, vel, params, reset_gen)
+    else:
+        from marl_distributedformation_tpu_torch.scenarios import (
+            ScenarioStreams,
+            broadcast_params,
+            init_scenario_state,
+            scenario_step_batch,
+        )
+
+        streams = scenario_streams or ScenarioStreams(
+            torch.Generator(device=dev).manual_seed(
+                seed + _SCENARIO_SEED_OFFSET)
+        )
+        m = state.agents.shape[0]
+        sp = scenario_params.to(dev)
+        if not sp.batched:
+            sp = broadcast_params(sp, m)
+        state = init_scenario_state(state, params, streams)
+
+        def env_step(state, vel):
+            return scenario_step_batch(state, vel, sp, params, reset_gen,
+                                       streams)
     T = episode_length(params)
     rows = {
         name: torch.zeros(T, dtype=torch.float32, device=dev)
@@ -77,7 +109,7 @@ def run_episode_metrics(
     }
     for t in range(T):
         vel = act_fn(state.agents, state.goal, state.obstacles, obs, act_gen)
-        state, tr = step_batch(state, vel, params, reset_gen)
+        state, tr = env_step(state, vel)
         rows["reward"][t] = tr.reward.mean()
         rows["avg_dist_to_goal"][t] = tr.metrics["avg_dist_to_goal"].mean()
         rows["ave_dist_to_neighbor"][t] = tr.metrics["ave_dist_to_neighbor"].mean()
@@ -103,12 +135,37 @@ def evaluate(
     seed: int = 1234,
     device: DeviceLike = None,
     initial_state: Optional[FormationState] = None,
+    scenario_params=None,
 ) -> Dict[str, float]:
-    """One full episode on M formations; host-side floats."""
+    """One full episode on M formations; host-side floats.
+    ``scenario_params`` evaluates under a disturbance scenario
+    (``scenarios.scenario_params_for(name, severity)``)."""
     out = run_episode_metrics(
-        act_fn, params, num_formations, seed, device, initial_state
+        act_fn, params, num_formations, seed, device, initial_state,
+        scenario_params,
     )
     return {k: float(v) for k, v in out.items()}
+
+
+def evaluate_scenario(
+    act_fn: ActFn,
+    params: EnvParams,
+    scenario: str,
+    severity: float,
+    num_formations: int = 1024,
+    seed: int = 1234,
+    device: DeviceLike = None,
+) -> Dict[str, float]:
+    """``evaluate`` under a registered scenario by name; an unknown name
+    raises with the registry's listing."""
+    from marl_distributedformation_tpu_torch.scenarios import (
+        scenario_params_for,
+    )
+
+    return evaluate(
+        act_fn, params, num_formations, seed, device,
+        scenario_params=scenario_params_for(scenario, severity),
+    )
 
 
 def baseline_act_fn(params: EnvParams) -> ActFn:
@@ -154,8 +211,10 @@ def evaluate_checkpoint(
     deterministic: bool = True,
     device: DeviceLike = None,
     initial_state: Optional[FormationState] = None,
+    scenario_params=None,
 ) -> Dict[str, float]:
-    """Restore a trainer checkpoint and evaluate its policy."""
+    """Restore a trainer checkpoint and evaluate its policy;
+    ``scenario_params`` evaluates under a disturbance scenario."""
     from marl_distributedformation_tpu_torch.compat.policy import LoadedPolicy
 
     if initial_state is not None:
@@ -166,5 +225,6 @@ def evaluate_checkpoint(
     )
     act = policy_act_fn(pol.model, params, deterministic)
     return evaluate(
-        act, params, num_formations, seed, pol.device, initial_state
+        act, params, num_formations, seed, pol.device, initial_state,
+        scenario_params,
     )

@@ -30,14 +30,33 @@ def parse_knn_obs(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Split a ``compute_obs_knn`` observation ``(..., N, 2+3k[+2]+k)`` into
     node features ``(..., N, 2[+2])``, edge features ``(..., N, k, 3)``
-    (offset, dist) and int64 neighbor indices ``(..., N, k)``."""
+    (offset, dist) and int64 neighbor indices ``(..., N, k)`` in ``[0,
+    N-1]``.
+
+    The index columns are read as the JAX package reads them (sensor noise
+    can push them out of range): truncated toward zero as ``astype(int32)``
+    converts them, NaN to 0, and an index in ``[-N, -1]`` counts from the
+    end, as ``jnp.take_along_axis`` reads it. For an index outside ``[-N,
+    N-1]`` JAX gathers a NaN row (``take_along_axis``'s fill), so that
+    neighbor's message is NaN; here its distance is NaN instead, which
+    makes the same message NaN (a NaN anywhere in a dense layer's input
+    row makes every output NaN), and its index is clamped into range, so
+    that ``torch.gather`` neither raises on the CPU nor asserts on the
+    card, without copying the node embeddings every round."""
     own = obs[..., :2]
     offsets = obs[..., 2 : 2 + 2 * k]
     dists = obs[..., 2 + 2 * k : 2 + 3 * k]
     node_parts = [own]
     if goal_in_obs:
         node_parts.append(obs[..., 2 + 3 * k : 4 + 3 * k])
-    idx = obs[..., -k:].to(torch.int64)
+    n = obs.shape[-2]
+    # Clamped one past either end: out of range stays out of range.
+    idx = torch.nan_to_num(obs[..., -k:], nan=0.0).clamp(-(n + 1), n)
+    idx = idx.to(torch.int64)
+    idx = torch.where(idx < 0, idx + n, idx)
+    valid = (idx >= 0) & (idx < n)
+    idx = idx.clamp(0, n - 1)
+    dists = torch.where(valid, dists, float("nan"))
     edge = torch.cat(
         [offsets.reshape(*offsets.shape[:-1], k, 2), dists[..., None]], dim=-1
     )

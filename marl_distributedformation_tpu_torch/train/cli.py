@@ -37,7 +37,17 @@ member checkpoints under ``logs/{name}/seed{i}/``, ``learning_rates`` (one
 a member) its rates. ``curriculum`` trains over padded heterogeneous
 formations (``train/curriculum.py``; with ``num_seeds > 1`` a population
 of candidates, ``train/hetero_sweep.py``), dispatched and refused as the
-root ``train.py`` dispatches and refuses it.
+root ``train.py`` dispatches and refuses it. ``scenarios`` (with
+``scenario_severity``) trains a single run under disturbance scenarios
+(``scenarios/schedule.py``); the schedule is built at config time, so an
+unknown name exits naming the registry, and scenarios with a curriculum or
+with ``num_seeds > 1`` exit with the root ``train.py``'s messages:
+
+    python -m marl_distributedformation_tpu_torch.train name=scen100 \
+        policy=gnn obs_mode=knn num_agents_per_formation=100 \
+        num_formation=1024 preset=tpu fused_chunk=10 \
+        "scenarios=[{rollouts: 12, scenarios: [clean]},
+                    {rollouts: 12, scenarios: [wind, sensor_noise], severity: 0.5}]"
 
 A mistyped key exits with a did-you-mean. A knob of a feature the port does
 not have yet exits naming its ROADMAP item when set to anything but its
@@ -80,6 +90,7 @@ from marl_distributedformation_tpu_torch.utils.config import (
     load_config,
     read_yaml,
     repo_root,
+    scenario_schedule_from_config,
     validate_override_keys,
 )
 
@@ -93,8 +104,6 @@ _UNLISTED_DEFAULTS = {
 
 # Knobs of features not ported yet, and the ROADMAP item that ports each.
 UNPORTED = {
-    "scenarios": "A6 (scenarios)",
-    "scenario_severity": "A6 (scenarios)",
     "mesh": "A12 (parallelism)",
     "architecture": "A12 (Sebulba)",
     "actor_devices": "A12 (Sebulba)",
@@ -132,11 +141,6 @@ def refuse_unported(cfg) -> None:
                 f"{key}={cfg[key]!r} selects the JAX backend; the port "
                 "runs on PyTorch and picks its device with device=cuda|cpu"
             )
-    if cfg.get("env", "formation") != "formation":
-        raise SystemExit(
-            f"env={cfg['env']!r} is not ported yet (ROADMAP A10); the port "
-            "has env=formation"
-        )
 
 
 def ppo_from_config(cfg) -> PPOConfig:
@@ -300,6 +304,8 @@ def build_trainer(
             "number of rates (one member per rate)"
         )
     refuse_unported(cfg)
+    # At config time: an unknown scenario name exits naming the registry.
+    scenario_schedule = scenario_schedule_from_config(cfg)
     device = resolve_device(cfg.get("device"))
     env_params = env_params_from_config(cfg)
     policy = cfg.get("policy", "mlp")
@@ -313,11 +319,23 @@ def build_trainer(
                 "populations (candidate-seed selection trains at one "
                 "rate); drop one of the two"
             )
+        if scenario_schedule is not None:
+            raise SystemExit(
+                "scenarios do not compose with curriculum training yet "
+                "(the hetero step is not scenario-wrapped); drop one of "
+                "the two"
+            )
         trainer = build_hetero_trainer(cfg, env_params, num_seeds, common)
         what = (f"{num_seeds} candidates x " if num_seeds > 1 else "") + (
             f"{trainer.curriculum.total_rollouts}-rollout curriculum of "
             f"{len(trainer.curriculum.stages)} stages, ")
     elif num_seeds > 1:
+        if scenario_schedule is not None:
+            raise SystemExit(
+                "scenarios do not compose with num_seeds>1 population "
+                "sweeps yet (the vmapped sweep iteration is not "
+                "scenario-wrapped); drop one of the two"
+            )
         trainer = SweepTrainer(
             env_params, num_seeds=num_seeds,
             models=[build_model(cfg, env_params, policy, int(cfg.seed) + i)
@@ -328,9 +346,13 @@ def build_trainer(
     else:
         trainer = Trainer(
             env_params, model=build_model(cfg, env_params, policy),
-            **common,
+            scenario_schedule=scenario_schedule, **common,
         )
         what = ""
+        if scenario_schedule is not None:
+            what = (f"{scenario_schedule.total_rollouts}-rollout scenario "
+                    f"schedule of {len(scenario_schedule.stages)} stages "
+                    f"over {', '.join(scenario_schedule.names)}, ")
     snapshot_config(cfg, trainer.log_dir, device)
     print(
         f"[train] {cfg.name}: {what}M={cfg.num_formation} formations x "

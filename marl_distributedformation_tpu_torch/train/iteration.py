@@ -21,6 +21,14 @@ metric (weighted by the mask) read. A stage reset (``reset_env``) rewrites
 the layout, the env carry and the observation in place, between
 iterations, so the same captured graphs serve every stage.
 
+Scenario training (``scenarios/``) adds the batch's ``ScenarioParams`` to
+the carry as static ``(M,)`` buffers, which the env step
+(``scenarios.scenario_step_batch``) reads and the trainer writes in place
+between iterations (a new mix a dispatch, a stage change, a severity ramp),
+and the episode draws of the layers to the env carry (``ScenarioState``);
+the layers draw from their own generator. The same captured graphs serve
+every scenario, stage and severity.
+
 Every tensor one phase hands to another, and all the carry (parameters,
 Adam state, optimizer step, learning rate, env state, observation,
 metrics), keeps its storage from iteration to iteration and is only
@@ -64,11 +72,20 @@ from marl_distributedformation_tpu_torch.env.types import (
 from marl_distributedformation_tpu_torch.models.population import (
     PopulationModel,
 )
+from marl_distributedformation_tpu_torch.scenarios.engine import (  # noqa: F401
+    ENV_FIELDS,
+    SCENARIO_FIELDS,
+    ScenarioState,
+    ScenarioStreams,
+    make_scenario_step,
+)
+from marl_distributedformation_tpu_torch.scenarios.params import (
+    ScenarioParams,
+)
 from marl_distributedformation_tpu_torch.train.recovery import HEALTH_METRICS
 
 Tensor = torch.Tensor
 
-ENV_FIELDS = ("agents", "goal", "obstacles", "steps")
 ROLLOUT_TOTALS = ("reward", "episode_dones")
 
 
@@ -122,7 +139,9 @@ class PhasedIteration:
     agent-transitions. ``env_step_fn`` replaces the env step (tests inject
     the JAX package's resets). ``layout`` makes the formations padded ones
     (see the module docstring); ``env_state`` is then a ``HeteroState`` of
-    its counts.
+    its counts. ``scenario_params`` (``(M,)``-leading buffers, read in
+    place) steps the env through the disturbance stack, the layers drawing
+    from ``scenario_streams``; ``env_state`` is then a ``ScenarioState``.
     """
 
     members: Optional[int] = None  # K for a population (see below)
@@ -143,6 +162,8 @@ class PhasedIteration:
         ring_rows: int = 2,
         env_step_fn: Any = None,
         layout: Optional[HeteroLayout] = None,
+        scenario_params: Optional[ScenarioParams] = None,
+        scenario_streams: Optional[ScenarioStreams] = None,
     ) -> None:
         self.env_params = env_params
         self.ppo = ppo
@@ -150,9 +171,20 @@ class PhasedIteration:
         self.opt_state = opt_state
         self.generator = generator
         self.layout = layout
+        self.scenario_params = scenario_params
         if env_step_fn is None and layout is not None:
             env_step_fn = self._hetero_step
+        if env_step_fn is None and scenario_params is not None:
+            scenario_step = make_scenario_step(env_params, scenario_streams,
+                                               generator)
+
+            def env_step_fn(state, velocity):
+                # The buffers are read at every step: written in place
+                # between replays, never rebound.
+                return scenario_step(state, velocity, self.scenario_params)
         self.env_step_fn = env_step_fn
+        self.env_fields = (ENV_FIELDS if scenario_params is None
+                           else SCENARIO_FIELDS)
         self.per_formation = bool(model.per_formation)
         device = obs.device
         self.device = device
@@ -170,16 +202,19 @@ class PhasedIteration:
         self.lead: Tuple[int, ...] = () if self.members is None else (k,)
         rows = ppo.n_steps * m * (1 if self.per_formation else n)
         carry = {f: getattr(env_state, f).detach().clone()
-                 for f in ENV_FIELDS}
+                 for f in self.env_fields}
+        state_cls = (FormationState if scenario_params is None
+                     else ScenarioState)
         if layout is None:
-            self.env = FormationState(**carry)
+            self.env = state_cls(**carry)
         else:
             layout.set(env_state.n_agents, env_state.n_obstacles)
             self.env = HeteroState(**carry, n_agents=layout.n_agents,
                                    n_obstacles=layout.n_obstacles)
         self.obs = obs.detach().clone()
-        self._pending_env = FormationState(**{
-            f: torch.empty_like(getattr(self.env, f)) for f in ENV_FIELDS
+        self._pending_env = state_cls(**{
+            f: torch.empty_like(getattr(self.env, f))
+            for f in self.env_fields
         })
         self._pending_obs = torch.empty_like(self.obs)
         self.step = torch.full(self.lead, int(step), dtype=torch.int64,
@@ -216,7 +251,7 @@ class PhasedIteration:
         """``(carry, pending)`` of the env state and the observation."""
         pairs = [
             (getattr(self.env, f), getattr(self._pending_env, f))
-            for f in ENV_FIELDS
+            for f in self.env_fields
         ]
         return pairs + [(self.obs, self._pending_obs)]
 
@@ -275,7 +310,7 @@ class PhasedIteration:
             flat.mask = flat.weights if self.per_formation else None
         self.update.load(flat, self.generator, permutations)
         with torch.no_grad():
-            for f in ENV_FIELDS:
+            for f in self.env_fields:
                 getattr(self._pending_env, f).copy_(getattr(env, f))
             self._pending_obs.copy_(last_obs)
             if self._rollout_names is None:

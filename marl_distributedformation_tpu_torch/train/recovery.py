@@ -21,9 +21,12 @@ Counterpart of the JAX package's ``train/recovery.py``:
    and asks for a rollback to the last good checkpoint while the budget
    lasts, then for a halt. Every transition is one line of
    ``logs/{name}/recovery.jsonl`` (``RECOVERY_EVENTS``).
-3. **Retry streams** (``fold_recovery_generator``) and the learning-rate
-   backoff: retry N from checkpoint C draws from a stream that is a pure
-   function of (C, N), different for every N.
+3. **Retry streams** (``fold_recovery_generator``), and the learning-rate
+   and scenario-severity backoffs: retry N from checkpoint C draws from a
+   stream that is a pure function of (C, N), different for every N; the
+   trainer scales the learning rate and the sampled severities by their
+   factors at every rollback, and its scenario mixes come from draws it
+   has not made before.
 
 The JAX package's metrics registry, flight records and chaos fault points
 are not ported (ROADMAP A13); ``Trainer._poison_carry`` stands in for the
@@ -91,8 +94,8 @@ class RecoveryConfig:
     breach_iters: int = 3  # consecutive skipped iterations = a breach
     max_rollbacks: int = 3  # retries before a breach halts the run
     lr_backoff: float = 1.0  # learning-rate factor at every rollback
-    severity_backoff: float = 1.0  # scenario severity factor (no scenarios
-    #   are ported, so it has nothing to scale yet)
+    severity_backoff: float = 1.0  # scenario severity factor at every
+    #   rollback
 
 
 def health_flags(

@@ -26,14 +26,30 @@ Randomness: the model is initialised from a CPU generator seeded with
 order, from one generator on the training device seeded with ``seed +
 2**32``. Its state is checkpointed, so a resume continues the stream.
 Populations are ``train/sweep.py``'s, the curriculum over padded
-formations ``train/curriculum.py``'s. Mesh, scenarios, the metrics
-registry and chaos fault points are not ported (ROADMAP Queue A).
+formations ``train/curriculum.py``'s.
+
+Scenario training (``scenario_schedule``, ``scenarios/schedule.py``) follows
+the JAX trainer: every dispatch draws a fresh scenario per formation from
+the schedule's current stage at its severity (one draw an iteration, so a
+``fused_chunk`` chunk trains each iteration at its own schedule point and
+a stage change lands inside the chunk where the host loop puts it), and
+writes it into the iteration's ``(M,)`` scenario buffers between graph
+replays. The draw ``d`` comes from a CPU generator seeded from a hash of
+(``seed``, ``d``), so the mixes are a pure function of the draw counter,
+which never rewinds (a resume re-enters at ``num_timesteps // (n_steps *
+M * N)``; a rollback or a schedule swap draws fresh mixes). The layers
+draw from their own device generator (``seed + 2**33``), registered with
+the graphs and checkpointed beside the run's. Mesh, the metrics registry
+and chaos fault points are not ported (ROADMAP Queue A).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import struct
 import sys
+import threading
 import time
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -57,6 +73,17 @@ from marl_distributedformation_tpu_torch.env.formation import (
 from marl_distributedformation_tpu_torch.env.types import (
     EnvParams,
     FormationState,
+)
+from marl_distributedformation_tpu_torch.scenarios import (
+    ScenarioParams,
+    ScenarioStreams,
+    broadcast_params,
+    get_scenario,
+    init_scenario_state,
+    sample_scenario_batch,
+)
+from marl_distributedformation_tpu_torch.scenarios.params import (
+    stack_params,
 )
 from marl_distributedformation_tpu_torch.train.capture import PhaseGraph
 from marl_distributedformation_tpu_torch.train.iteration import (
@@ -89,12 +116,31 @@ from marl_distributedformation_tpu_torch.utils.logging import (
 
 Tensor = torch.Tensor
 
-# The run generator is seeded apart from the init generator.
+# The run generator is seeded apart from the init generator, the scenario
+# layers' generator apart from both.
 RUN_SEED_OFFSET = 1 << 32
+SCENARIO_SEED_OFFSET = 2 << 32
+# Tag of the scenario mixes' stream (the JAX trainer folds its sampling
+# key with it).
+SCENARIO_SAMPLE_TAG = 0x5CE7
 RESUME_KEYS = (
     "policy", "params", "opt_state", "num_timesteps", "learning_rate",
     "torch_generator", "torch_env_state", "torch_obs", "torch_step",
+    "torch_scenario_generator",
 )
+
+
+def scenario_sample_generator(seed: int, draw: int) -> torch.Generator:
+    """The CPU generator of the scenario mix of draw ``draw``: seeded from
+    a hash of (``seed``, the tag, ``draw``), so each draw's mix is a pure
+    function of the two."""
+    digest = hashlib.blake2b(
+        struct.pack("<qqq", int(seed), SCENARIO_SAMPLE_TAG, int(draw)),
+        digest_size=8,
+    ).digest()
+    return torch.Generator().manual_seed(
+        int.from_bytes(digest, "little") >> 1
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,7 +173,7 @@ class TrainConfig:
     recovery_lr_backoff: float = 1.0  # learning-rate factor a rollback
     #   (!= 1 checkpoints optax's inject_hyperparams layout)
     recovery_severity_backoff: float = 1.0  # scenario severity factor a
-    #   rollback (no scenarios are ported: nothing to scale)
+    #   rollback
     keep_last_n: int = 0  # keep the newest N checkpoints (0 = all)
 
 
@@ -225,6 +271,8 @@ class ChunkMetrics:
     names: Tuple[str, ...]
     rows: Tensor  # (iterations, [K,] len(names))
     ready: Optional[Any]
+    severities: Optional[List[float]] = None  # scenario severity an
+    #   iteration, as trained
 
     def to_host(self) -> Dict[str, np.ndarray]:
         """``{name: (iterations,) float32}`` (``(iterations, K)`` for a
@@ -239,7 +287,8 @@ class Trainer:
 
     On CUDA the iteration's phases run as captured graphs; ``capture=False``
     runs them eagerly (tests and ``chip_smoke.py`` compare the two; there
-    is no config key for it).
+    is no config key for it). ``scenario_schedule`` trains under the
+    schedule's disturbance scenarios (see the module docstring).
     """
 
     resume_keys = RESUME_KEYS  # what a resume reads from a checkpoint
@@ -253,6 +302,7 @@ class Trainer:
         model: torch.nn.Module,
         device: DeviceLike = None,
         capture: bool = True,
+        scenario_schedule: Any = None,
     ) -> None:
         self.device = resolve_device(device)
         ppo = fill_ent_schedule(ppo, env_params, config)
@@ -283,18 +333,24 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(
             config.seed + RUN_SEED_OFFSET
         )
+        generators = [self.generator]
         env_state, obs = self._initial_env()
+        scenario = self._init_scenarios(scenario_schedule)
+        if scenario:
+            env_state = init_scenario_state(
+                env_state, env_params, scenario["scenario_streams"])
+            generators.append(self.scenario_generator)
         self.opt_state = adam_init(dict(self.model.named_parameters()))
         self._iteration = wrap_health(PhasedIteration(
             env_params, ppo, self.model, self.opt_state, self.generator,
             env_state, obs,
             ring_rows=2 * max(self._fused_chunk, self._iters_per_dispatch),
-            **self._iteration_options(),
+            **self._iteration_options(), **scenario,
         ), config)
         self.capture = capture and self.device.type == "cuda"
         it = self._iteration
         self._phases = tuple(
-            PhaseGraph(name, fn, [self.generator], self.capture)
+            PhaseGraph(name, fn, generators, self.capture)
             for name, fn in (("rollout", it.rollout),
                              ("minibatch", it.minibatch), ("end", it.end))
         )
@@ -346,6 +402,135 @@ class Trainer:
         """Further arguments of the run's ``PhasedIteration``."""
         return {}
 
+    # ------------------------------------------------------------------
+    # Scenario training
+    # ------------------------------------------------------------------
+
+    def _init_scenarios(self, schedule: Any) -> Dict[str, Any]:
+        """The scenario state of the run: the schedule, its specs, the
+        counters, the layers' generator and the iteration's scenario
+        buffers (all formations clean until the first dispatch writes
+        them); ``{}`` without a schedule."""
+        self._scenario_schedule = schedule
+        self.scenario_severity = 0.0
+        # Recovery severity backoff: the factor on every sampled severity.
+        self._severity_scale = 1.0
+        # A schedule handed over by another thread, applied at the next
+        # dispatch (request_scenario_schedule).
+        self._pending_schedule: Any = None
+        self._schedule_lock = threading.Lock()
+        # The schedule position, and the draw counter that never rewinds.
+        self._scenario_rollouts = 0
+        self._scenario_draws = 0
+        if schedule is None:
+            return {}
+        self._scenario_specs = tuple(get_scenario(n) for n in schedule.names)
+        self.scenario_severity = float(schedule.severity_at(0))
+        self.scenario_generator = torch.Generator(
+            device=self.device).manual_seed(
+                self.config.seed + SCENARIO_SEED_OFFSET)
+        sp = broadcast_params(ScenarioParams.zeros(),
+                              self.config.num_formations, self.device)
+        return {"scenario_params": sp,
+                "scenario_streams": ScenarioStreams(self.scenario_generator)}
+
+    @property
+    def scenario_params(self) -> Optional[ScenarioParams]:
+        """The iteration's scenario buffers, as the last dispatch's last
+        iteration trained (None without scenarios)."""
+        return self._iteration.scenario_params
+
+    def update_scenario_schedule(self, schedule: Any) -> None:
+        """Swap the schedule mid-run, between dispatches: the new schedule
+        starts at its own rollout 0; the draw counter runs on, so no mix of
+        the run is drawn twice. Only values change, so the captured graphs
+        stay. Other threads use ``request_scenario_schedule``."""
+        if self._scenario_schedule is None:
+            raise ValueError(
+                "this trainer was built without scenario training — its "
+                "captured iteration reads no scenario buffers, so a "
+                "schedule cannot be installed mid-run (construct the "
+                "trainer with scenarios=['clean'] to reserve them, then "
+                "update freely)"
+            )
+        self._scenario_specs = tuple(get_scenario(n) for n in schedule.names)
+        self._scenario_schedule = schedule
+        self._scenario_rollouts = 0
+        self.scenario_severity = self._severity(0)
+
+    def request_scenario_schedule(self, schedule: Any) -> None:
+        """Hand a schedule over from another thread: it is applied at the
+        next dispatch. Unknown names raise here, in the caller."""
+        if self._scenario_schedule is None:
+            raise ValueError(
+                "this trainer was built without scenario training — "
+                "construct it with scenarios=['clean'] to reserve the "
+                "scenario buffers for curriculum feedback"
+            )
+        for name in schedule.names:
+            get_scenario(name)
+        with self._schedule_lock:
+            self._pending_schedule = schedule
+
+    def _apply_pending_schedule(self) -> None:
+        if self._pending_schedule is None:
+            return
+        with self._schedule_lock:
+            pending, self._pending_schedule = self._pending_schedule, None
+        if pending is not None:
+            self.update_scenario_schedule(pending)
+
+    def _severity(self, rollout: int) -> float:
+        """The schedule's severity at ``rollout`` times the backoff."""
+        severity = self._scenario_schedule.severity_at(rollout)
+        if self._severity_scale != 1.0:
+            severity = severity * self._severity_scale
+        return severity
+
+    def _scenario_rows(
+        self, rollout: int, draw: int, k: int
+    ) -> Tuple[ScenarioParams, List[float]]:
+        """The mixes of the next ``k`` iterations, ``(k, M)``-leading on
+        the CPU, and their severities: iteration i at the schedule's
+        rollout ``rollout + i`` (its severity and stage probabilities), drawn
+        with draw ``draw + i``'s generator. A single dispatch of one
+        iteration takes ``severity_at`` (scaled in float64), a chunk
+        ``severity_chunk`` (scaled per row), as the JAX trainer's two
+        samplers do."""
+        schedule = self._scenario_schedule
+        if k == 1 and not self._fused_chunk:
+            severities = [self._severity(rollout)]
+            probs = schedule.probs_at(rollout)[None]
+        else:
+            severities = list(schedule.severity_chunk(rollout, k))
+            if self._severity_scale != 1.0:
+                severities = [s * self._severity_scale for s in severities]
+            probs = schedule.probs_chunk(rollout, k)
+        rows = [
+            sample_scenario_batch(
+                scenario_sample_generator(self.config.seed, draw + i),
+                np.float32(severities[i]), probs[i], self._scenario_specs,
+                self.config.num_formations,
+            )
+            for i in range(k)
+        ]
+        return stack_params(rows), severities
+
+    def _load_scenario_rows(self, k: int) -> Tuple[Any, List[float]]:
+        """The next ``k`` iterations' mixes on the device, and their
+        severities; the counters move on."""
+        rows, severities = self._scenario_rows(
+            self._scenario_rollouts, self._scenario_draws, k)
+        if self.device.type == "cuda":
+            # Pinned, so the copy queues behind the dispatch in flight
+            # instead of waiting for it.
+            rows = rows.map(lambda t: t.pin_memory())
+        rows = rows.map(lambda t: t.to(self.device, non_blocking=True))
+        self._scenario_rollouts += k
+        self._scenario_draws += k
+        self.scenario_severity = self._severity(self._scenario_rollouts)
+        return rows, severities
+
     @property
     def total_timesteps(self) -> int:
         return default_total_timesteps(self.config)
@@ -378,8 +563,18 @@ class Trainer:
 
     def _dispatch(self, rollouts: int) -> ChunkMetrics:
         """``rollouts`` iterations, queued without reading the device, and
-        the host counters advanced; returns their metric rows."""
-        for _ in range(rollouts):
+        the host counters advanced; returns their metric rows. With
+        scenarios, each iteration's mix is written into the scenario
+        buffers before its replay."""
+        self._apply_pending_schedule()
+        rows = severities = None
+        if self._scenario_schedule is not None:
+            rows, severities = self._load_scenario_rows(rollouts)
+            self._last_severities = severities
+        for i in range(rollouts):
+            if rows is not None:
+                self._iteration.scenario_params.copy_(
+                    rows.map(lambda t: t[i]))
             self._iteration.run(mark=self.phase_hook, phases=self._phases)
         self._advance(rollouts)
         ready = None
@@ -387,7 +582,8 @@ class Trainer:
             ready = torch.cuda.Event()
             ready.record()
         return ChunkMetrics(
-            self.metric_names, self._iteration.ring.take(rollouts), ready
+            self.metric_names, self._iteration.ring.take(rollouts), ready,
+            severities,
         )
 
     def _advance(self, rollouts: int) -> None:
@@ -450,6 +646,11 @@ class Trainer:
                     if self._observe_health(record, iteration):
                         continue  # rolled back or halted: drop the record
                     record["env_steps_per_sec"] = meter.rate()
+                    if self._scenario_schedule is not None:
+                        # The severity the dispatch's first iteration
+                        # trained at, as a fused record carries it.
+                        record["scenario_severity"] = float(
+                            np.float32(self._last_severities[0]))
                     self.last_record = record
                     logger.log(record, self.num_timesteps)
                 if (
@@ -551,6 +752,9 @@ class Trainer:
                 continue
             record = {name: float(host[name][i]) for name in sorted(host)}
             record["env_steps_per_sec"] = meter.rate()
+            if chunk.severities is not None:
+                record["scenario_severity"] = float(
+                    np.float32(chunk.severities[i]))
             logger.log(record, steps_before + (i + 1) * per_iter)
             self.last_record = record
 
@@ -645,6 +849,7 @@ class Trainer:
             path, restored = found
         else:
             path, restored = None, self._rollback_anchor
+        draws = self._scenario_draws
         self._load_tree(restored, path or "the run's starting state")
         recoveries_next = (ladder.recoveries if ladder is not None else 0) + 1
         fold_recovery_generator(self.generator, recoveries_next)
@@ -653,6 +858,18 @@ class Trainer:
             scale_injected_lr(self._iteration.lr,
                               self.config.recovery_lr_backoff)
             lr_scale = self.config.recovery_lr_backoff
+        severity_scale = None
+        if self._scenario_schedule is not None:
+            fold_recovery_generator(self.scenario_generator, recoveries_next)
+            if self.config.recovery_severity_backoff != 1.0:
+                self._severity_scale *= self.config.recovery_severity_backoff
+                severity_scale = self._severity_scale
+            self._scenario_rollouts = self.num_timesteps // (
+                self.ppo.n_steps * self.num_envs)
+            # The draw counter never rewinds: the retry trains on fresh
+            # mixes, not the ones that diverged.
+            self._scenario_draws = max(draws, self._scenario_rollouts)
+            self.scenario_severity = self._severity(self._scenario_rollouts)
         self._vec_steps_since_save = 0
         if path is not None:
             self._last_good_ckpt = Path(path)
@@ -664,6 +881,7 @@ class Trainer:
                 to_step=self.num_timesteps,
                 path=str(path) if path is not None else None,
                 mttr_s=mttr_s, iteration=iteration, lr_scale=lr_scale,
+                severity_scale=severity_scale,
             )
         else:
             ladder.note_halt(iteration, halt_reason)
@@ -697,12 +915,14 @@ class Trainer:
                     "nu": dict(self.opt_state.nu)},
             "num_timesteps": int(self.num_timesteps),
             "generator": self.generator.get_state(),
-            "env": {f: getattr(it.env, f) for f in ENV_FIELDS},
+            "env": {f: getattr(it.env, f) for f in it.env_fields},
             "obs": it.obs,
             "step": it.step,
         }
         if self.injected_lr:
             state["lr"] = it.lr
+        if self._scenario_schedule is not None:
+            state["scenario_generator"] = self.scenario_generator.get_state()
         return state
 
     def _checkpoint_tree(self, host: Dict[str, Any]) -> Dict[str, Any]:
@@ -724,6 +944,8 @@ class Trainer:
             "torch_env_state": host["env"],
             "torch_obs": host["obs"],
             "torch_step": int(host["step"]),
+            **({"torch_scenario_generator": host["scenario_generator"]}
+               if "scenario_generator" in host else {}),
         }
 
     def _host_tree(self) -> Dict[str, Any]:
@@ -822,10 +1044,23 @@ class Trainer:
                     f"{tuple(it.env.agents.shape)}"
                 )
             with torch.no_grad():
-                for f in ENV_FIELDS:
-                    getattr(it.env, f).copy_(torch.from_numpy(np.array(env[f])))
+                # A clean run's file keeps this run's episode draws.
+                for f in it.env_fields:
+                    if f in ENV_FIELDS or f in env:
+                        getattr(it.env, f).copy_(
+                            torch.from_numpy(np.array(env[f])))
                 it.obs.copy_(torch.from_numpy(np.array(raw["torch_obs"])))
         it.step.fill_(int(raw.get("torch_step", 0)))
+        if self._scenario_schedule is not None:
+            if "torch_scenario_generator" in raw:
+                self.scenario_generator.set_state(torch.from_numpy(
+                    np.array(raw["torch_scenario_generator"])))
+            # Re-enter the schedule where the run left off: every rollout
+            # adds n_steps * M * N to num_timesteps.
+            self._scenario_rollouts = self.num_timesteps // (
+                self.ppo.n_steps * self.num_envs)
+            self._scenario_draws = self._scenario_rollouts
+            self.scenario_severity = self._severity(self._scenario_rollouts)
 
     def _try_resume(self) -> None:
         """Restore the newest valid checkpoint in ``log_dir``

@@ -2,9 +2,11 @@
 
 A copy of the part of the JAX package's ``utils/config.py`` that evaluation
 and training need: ``load_config`` with ``PRESETS``, ``apply_overrides``,
-``validate_override_keys`` and ``env_params_from_config`` for
-``env=formation``. The port reads the same YAML file and never writes it.
-Other environments come with a later slice.
+``validate_override_keys`` and ``env_params_from_config``, which resolve
+``env=`` through the env registry (``envs/``) and validate overrides against
+the selected env's params class, and ``scenario_schedule_from_config``. The
+port reads the same YAML file and never writes it. ``env=pursuit_evasion``
+is not ported yet (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -17,7 +19,11 @@ from typing import Any, Dict, Iterable, List, Optional
 
 import yaml
 
-from marl_distributedformation_tpu_torch.env.types import EnvParams
+from marl_distributedformation_tpu_torch.envs import EnvSpec, get_env
+
+# Environments of the JAX package the port has not ported, and the ROADMAP
+# item that ports each.
+UNPORTED_ENVS = {"pursuit_evasion": "A10"}
 
 # Dot-less scientific notation that YAML 1.1 leaves as a string.
 _SCI_NOTATION_RE = re.compile(r"^[+-]?\d+(\.\d*)?[eE][+-]?\d+$")
@@ -117,16 +123,65 @@ def load_config(
     return cfg
 
 
+def scenario_schedule_from_config(cfg: Config):
+    """The scenario-training schedule of the ``scenarios`` and
+    ``scenario_severity`` keys, or None when scenario training is off.
+    Unknown scenario names exit here, at config time, naming the
+    registry's entries."""
+    raw = cfg.get("scenarios")
+    if not raw:
+        return None
+    from marl_distributedformation_tpu_torch.scenarios import (
+        schedule_from_cfg,
+    )
+
+    try:
+        return schedule_from_cfg(
+            raw, default_severity=float(cfg.get("scenario_severity") or 0.0)
+        )
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+
+
+def env_spec_or_exit(name: Any) -> EnvSpec:
+    """The registered env of that name; the registry's ValueError
+    (did-you-mean and listing) becomes the entry point's SystemExit, and a
+    JAX env the port lacks exits naming its ROADMAP item."""
+    name = str(name)
+    if name in UNPORTED_ENVS:
+        raise SystemExit(
+            f"env={name!r} is not ported yet (ROADMAP "
+            f"{UNPORTED_ENVS[name]}); the port has env=formation"
+        )
+    try:
+        return get_env(name)
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+
+
 def validate_override_keys(
     overrides: Iterable[str],
     extra_keys: Iterable[str] = (),
     config_path: str = "cfg/config.yaml",
 ) -> None:
     """Exit on a mistyped override key. Valid keys are the YAML's, the
-    fields of ``EnvParams`` and ``extra_keys``; a dotted key validates its
-    first segment."""
-    known = set(read_yaml(config_path))
-    known |= {f.name for f in dataclasses.fields(EnvParams)}
+    fields of the selected env's params class (``env=`` peeked from the
+    overrides, so a mistyped env name exits here with the registry's
+    did-you-mean) and ``extra_keys``; a dotted key validates its first
+    segment."""
+    overrides = list(overrides)
+    data = read_yaml(config_path)
+    known = set(data)
+    env_name = next(
+        (
+            _parse_value(o.split("=", 1)[1])
+            for o in reversed(overrides)
+            if "=" in o and o.split("=", 1)[0] == "env"
+        ),
+        data.get("env", "formation"),
+    )
+    spec = env_spec_or_exit(env_name)
+    known |= {f.name for f in dataclasses.fields(spec.params_cls)}
     known |= {"env"} | set(extra_keys)
     for item in overrides:
         if "=" not in item:
@@ -141,21 +196,17 @@ def validate_override_keys(
             )
 
 
-def env_params_from_config(cfg: Config) -> EnvParams:
-    """``EnvParams`` from the flat config, every field the config sets
-    forwarded (``share_reward_ratio`` included, SURVEY.md Q6). Only
-    ``env=formation`` is ported."""
-    env = cfg.get("env", "formation")
-    if env != "formation":
-        raise SystemExit(
-            f"env={env!r} is not ported yet; the port has env=formation"
-        )
+def env_params_from_config(cfg: Config):
+    """The selected env's params (``env``, default ``formation``) from the
+    flat config, every field the config sets forwarded
+    (``share_reward_ratio`` included, SURVEY.md Q6)."""
+    spec = env_spec_or_exit(cfg.get("env", "formation"))
     kwargs = {
         "num_agents": cfg.num_agents_per_formation,
         "share_reward_ratio": cfg.share_reward_ratio,
         "goal_in_obs": cfg.goal_in_obs,
     }
-    for f in dataclasses.fields(EnvParams):
+    for f in dataclasses.fields(spec.params_cls):
         if f.name in cfg and f.name != "num_agents":
             kwargs[f.name] = cfg[f.name]
-    return EnvParams(**kwargs)
+    return spec.params_cls(**kwargs)

@@ -202,3 +202,52 @@ def test_evaluate_cli_rejects_bad_keys():
         evaluate_cli.main(["eval_formation=4", "device=cpu"])
     with pytest.raises(SystemExit, match="not ported"):
         evaluate_cli.main(["env=pursuit_evasion", "device=cpu"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["scenario_severity=0.5"],
+    ["scenarios=[wind]"],
+    ["scenario=wnd"],
+    ["scenario=gale", "scenario_severity=0.5"],
+])
+def test_evaluate_cli_scenario_refusals_as_root_evaluate(argv):
+    """The root ``evaluate.py``'s refusals, with its messages: the plural
+    training key, a severity with no scenario, an unknown name."""
+    import evaluate as root_evaluate
+
+    with pytest.raises(SystemExit) as ours:
+        evaluate_cli.main([*argv, "device=cpu"])
+    with pytest.raises(SystemExit) as ref:
+        root_evaluate.main(list(argv))
+    assert str(ours.value) == str(ref.value)
+
+
+def test_evaluate_cli_under_a_scenario(capsys):
+    """``scenario=wind`` evaluates all three rows under wind: the scenario
+    line, the root ``evaluate.py``'s JSON keys, and the policy row equals
+    ``evaluate`` with the scenario's params."""
+    import evaluate as root_evaluate
+
+    from marl_distributedformation_tpu_torch.scenarios import (
+        scenario_params_for,
+    )
+
+    argv = [f"checkpoint={CKPT}", "eval_formations=4", "max_steps=20",
+            "scenario=wind", "scenario_severity=0.7"]
+    res = evaluate_cli.main([*argv, "device=cpu"])
+    out = capsys.readouterr().out
+    assert "[eval] scenario=wind severity=0.7" in out.splitlines()
+    assert res["scenario"] == "wind" and res["scenario_severity"] == 0.7
+    ref = root_evaluate.main(argv)
+    assert set(res) - {"resolved_device"} == set(ref) - {
+        "resolved_platform", "resolved_device"}
+    params = EnvParams(max_steps=20)
+    direct = evaluate(policy_act_fn(_mlp_pair()[2], params), params, 4,
+                      1234, "cpu",
+                      scenario_params=scenario_params_for("wind", 0.7))
+    assert res["policy_episode_return_per_agent"] == direct[
+        "episode_return_per_agent"]
+    clean = evaluate_cli.main([*argv[:3], "device=cpu"])
+    assert clean["zero_episode_return_per_agent"] != res[
+        "zero_episode_return_per_agent"]
+    assert "scenario" not in clean

@@ -693,3 +693,109 @@ def test_curriculum_population_fused_equals_host_loop(cuda, tmp_path):
             assert torch.equal(got[key], want[key]), key
     assert fused.num_timesteps_members.tolist() == \
         host.num_timesteps_members.tolist()
+
+
+def _scenario_trainer(tmp_path, schedule, capture=True, **cfg):
+    """The ring/MLP at M=16 under a scenario schedule, on the card."""
+    from marl_distributedformation_tpu_torch.algo import PPOConfig
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.models import MLPActorCritic
+    from marl_distributedformation_tpu_torch.scenarios import (
+        schedule_from_cfg,
+    )
+    from marl_distributedformation_tpu_torch.train import TrainConfig, Trainer
+
+    params = EnvParams(max_steps=12)
+    return Trainer(
+        params, PPOConfig(n_epochs=2, batch_size=200),
+        TrainConfig(num_formations=16, checkpoint=False,
+                    log_dir=str(tmp_path), **cfg),
+        model=MLPActorCritic(params.obs_dim,
+                             generator=torch.Generator().manual_seed(0)),
+        device="cuda", capture=capture,
+        scenario_schedule=None if schedule is None
+        else schedule_from_cfg(schedule),
+    )
+
+
+def test_scenario_severity_zero_is_the_clean_env_on_cuda(cuda):
+    """Every registered scenario at severity 0 through the knn step on the
+    card (N=100, M=64, ``knn_fused``), 30 steps through a reset: states,
+    observations and rewards bitwise the clean run's."""
+    from marl_distributedformation_tpu_torch.env import (
+        EnvParams,
+        reset_batch,
+        step_batch,
+    )
+    from marl_distributedformation_tpu_torch.scenarios import (
+        ScenarioStreams,
+        init_scenario_state,
+        registered_scenarios,
+        scenario_params_for,
+        scenario_step_batch,
+    )
+
+    params = EnvParams(num_agents=100, obs_mode="knn", knn_k=4,
+                       num_obstacles=4, max_steps=20)
+    m = 64
+    vel = torch.randn((30, m, 100, 2), device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(1))
+    gen = torch.Generator(device=cuda)
+
+    def run(sp):
+        gen.manual_seed(0)
+        state = reset_batch(params, m, gen, cuda)
+        streams = ScenarioStreams(torch.Generator(device=cuda).manual_seed(2))
+        if sp is not None:
+            state = init_scenario_state(state, params, streams)
+        out = []
+        for v in vel:
+            if sp is None:
+                state, tr = step_batch(state, v * 5, params, gen)
+            else:
+                state, tr = scenario_step_batch(state, v * 5, sp, params,
+                                                gen, streams)
+            out += [state.agents, state.goal, state.obstacles, tr.obs,
+                    tr.reward, tr.done]
+        return out
+
+    knn_cuda.reset_launches()
+    clean = run(None)
+    assert knn_cuda.LAUNCHES["knn_fused"] == 30
+    for name in registered_scenarios()[:11]:
+        got = run(scenario_params_for(name, 0.0))
+        for a, b in zip(clean, got):
+            assert torch.equal(a, b), name
+        if name != "clean":
+            perturbed = run(scenario_params_for(name, 1.0))
+            assert not all(torch.equal(a, b)
+                           for a, b in zip(clean, perturbed)), name
+
+
+def test_scenario_graphs_hold_across_a_stage_change(cuda, tmp_path):
+    """A stage change and a severity ramp write the scenario buffers
+    between replays: the same three graphs serve every stage, and the
+    captured run equals the eager one bitwise (MLP)."""
+    schedule = ("[{rollouts: 2, scenarios: [clean]}, {rollouts: 2, "
+                "scenarios: [wind, sensor_noise, actuator_fault], "
+                "severity: 1.0, severity_start: 0.3}]")
+    captured = _scenario_trainer(tmp_path / "c", schedule)
+    eager = _scenario_trainer(tmp_path / "e", schedule, capture=False)
+    for _ in range(2):
+        captured.run_iteration()
+        eager.run_iteration()
+    first = [id(p.graph) for p in captured._phases]
+    assert captured.graph_count() == 3
+    for _ in range(2):
+        captured.run_iteration()
+        eager.run_iteration()
+    torch.cuda.synchronize()
+    assert captured.graph_count() == 3
+    assert [id(p.graph) for p in captured._phases] == first
+    for a, b in zip(captured.model.parameters(), eager.model.parameters()):
+        assert torch.equal(a, b)
+    assert torch.equal(captured.obs, eager.obs)
+    assert torch.equal(captured.scenario_generator.get_state(),
+                       eager.scenario_generator.get_state())
+    assert torch.equal(captured.scenario_params.wind,
+                       eager.scenario_params.wind)

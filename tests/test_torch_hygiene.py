@@ -55,6 +55,11 @@ def test_sources_found():
     assert {"gae.py", "optim.py", "ppo.py", "rollout.py", "trainer.py",
             "cli.py", "__main__.py", "logging.py", "checkpoint.py",
             "convert.py"} <= names
+    rel = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
+    assert {"envs/spec.py", "envs/registry.py", "envs/formation.py",
+            "scenarios/params.py", "scenarios/registry.py",
+            "scenarios/layers.py", "scenarios/engine.py",
+            "scenarios/schedule.py"} <= rel
     assert (PORT / "csrc" / "knn.cu").exists()
 
 

@@ -82,14 +82,15 @@ PPO = PPOConfig(n_steps=4, batch_size=24, n_epochs=2)
 PER_ITER = 4 * 4 * 3  # n_steps * M * N
 
 
-def make_trainer(tmp_path, name="run", **overrides):
+def make_trainer(tmp_path, name="run", scenario_schedule=None,
+                 **overrides):
     cfg = dict(num_formations=4, checkpoint=False, seed=0, name=name,
                log_dir=str(tmp_path / name), log_interval=1)
     cfg.update(overrides)
     model = MLPActorCritic(PARAMS.obs_dim,
                            generator=torch.Generator().manual_seed(0))
     return Trainer(PARAMS, PPO, TrainConfig(**cfg), model=model,
-                   device="cpu")
+                   device="cpu", scenario_schedule=scenario_schedule)
 
 
 def _learner(trainer):
@@ -392,6 +393,55 @@ def test_lr_backoff_scales_the_rate_in_the_carry(tmp_path):
         np.float32(PPO.learning_rate * 0.5) * np.float32(0.5))
     events = read_recovery_log(tmp_path / "run" / "recovery.jsonl")
     assert events[-1]["lr_scale"] == 0.5 and events[-1]["checkpoint"] is None
+
+
+WIND_RAMP = ("[{rollouts: 4, scenarios: [wind], severity: 1.0, "
+             "severity_start: 0.2}]")
+
+
+def test_severity_backoff_at_each_rollback_as_jax(tmp_path):
+    """``recovery_severity_backoff``: each rollback multiplies the scale on
+    every sampled severity, re-enters the schedule at the restored
+    rollout and keeps the draw counter (fresh mixes); the severities, the
+    wind the next dispatch trains at and ``recovery.jsonl``'s
+    ``severity_scale`` equal the JAX trainer's after the same two
+    rollbacks (to the run's starting state)."""
+    from marl_distributedformation_tpu.scenarios import (
+        schedule_from_cfg as jax_schedule_from_cfg,
+    )
+    from marl_distributedformation_tpu_torch.scenarios import (
+        schedule_from_cfg,
+    )
+
+    knobs = dict(health=True, recovery=True, recovery_severity_backoff=0.5)
+    port = make_trainer(tmp_path, "port", schedule_from_cfg(WIND_RAMP),
+                        **knobs)
+    jt = JaxTrainer(jax_params(PARAMS), ppo=_jax_ppo(), config=JaxTrainConfig(
+        num_formations=4, seed=0, checkpoint=False,
+        log_dir=str(tmp_path / "jax"), **knobs),
+        scenario_schedule=jax_schedule_from_cfg(WIND_RAMP))
+    for rollbacks in range(3):
+        for _ in range(2):
+            assert port.scenario_severity == jt.scenario_severity
+            wind = np.asarray(jt.scenario_params.wind)
+            jt.run_iteration()
+            port.run_iteration()
+            np.testing.assert_array_equal(port.scenario_params.wind.numpy(),
+                                          wind)
+        if rollbacks == 2:
+            break
+        jt._perform_rollback(None, 2 * rollbacks + 2)
+        port._perform_rollback(None, 2 * rollbacks + 2)
+        assert port._severity_scale == jt._severity_scale == 0.5 ** (
+            rollbacks + 1)
+        assert port._scenario_rollouts == jt._scenario_rollouts == 0
+        assert port._scenario_draws == jt._scenario_draws == 2 * (
+            rollbacks + 1)
+    scales = [e["severity_scale"] for e in read_recovery_log(
+        tmp_path / "port" / "recovery.jsonl") if e["event"] == "rollback"]
+    want = [e["severity_scale"] for e in read_recovery_log(
+        tmp_path / "jax" / "recovery.jsonl") if e["event"] == "rollback"]
+    assert scales == want == [0.5, 0.25]
 
 
 # ---------------------------------------------------------------------------

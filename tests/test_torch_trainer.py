@@ -1,7 +1,9 @@
 """The port's trainer and its ``train`` CLI against the JAX package on the
 CPU: configs and their defaults, one whole iteration with the JAX package's
-noise, resets and permutations injected, the CLI's outputs, the knobs it
-refuses, and a short learning run of the port alone.
+noise, resets and permutations injected, two scenario-training iterations
+of the ``Trainer`` with the JAX trainer's sampled scenario mixes and layer
+draws injected too, the CLI's outputs, the knobs it refuses, and a short
+learning run of the port alone.
 
 Tolerances: after the injected iteration, params within
 ``tests/adam_budget.py::adam_parity_atol`` and ``mu``/``nu`` within the same
@@ -40,6 +42,7 @@ from marl_distributedformation_tpu.utils.config import (
 from marl_distributedformation_tpu_torch.algo import PPOConfig, adam_init
 from marl_distributedformation_tpu_torch.compat.convert import (
     opt_state_to_jax,
+    params_from_jax,
     params_to_jax,
 )
 from marl_distributedformation_tpu_torch.env import EnvParams
@@ -66,6 +69,11 @@ from test_torch_algo import (
 )
 from test_torch_env import jax_params, to_port
 from test_torch_models import np_tree
+from test_torch_scenarios import (
+    JaxStreams,
+    injected_scenario_step,
+    jax_episode_draws,
+)
 
 LR = 1e-3
 
@@ -182,6 +190,101 @@ def test_make_ppo_iteration_injected_matches(case):
                                    rtol=rtol, atol=1e-6, err_msg=k)
 
 
+SCENARIO_SCHEDULE = ("[{rollouts: 1, scenarios: [storm, comm_dropout, "
+                     "moving_goal], severity: 0.9}, {rollouts: 1, scenarios: "
+                     "[actuator_fault, sensor_noise, goal_switch], "
+                     "severity: 1.0}]")
+
+
+def test_scenario_trainer_two_iterations_match_jax(tmp_path):
+    """The knn GNN trainer under a 2-stage scenario schedule against the
+    JAX trainer for 2 host-loop iterations (the stage changes between
+    them), with the JAX trainer's initial state, sampled scenario mixes,
+    layer draws, resets, action noise and permutations injected: params
+    within the Adam budget, env steps bitwise, scenario severities and
+    the rollout metrics as the JAX trainer's."""
+    from marl_distributedformation_tpu.scenarios import (
+        schedule_from_cfg as jax_schedule_from_cfg,
+    )
+    from marl_distributedformation_tpu_torch.scenarios import (
+        ScenarioParams,
+        schedule_from_cfg,
+    )
+    from marl_distributedformation_tpu_torch.scenarios.params import FIELDS
+    from marl_distributedformation_tpu_torch.models import GNNActorCritic
+
+    params = EnvParams(num_agents=GNN_N, obs_mode="knn", knn_k=GNN_K,
+                       max_steps=4)
+    jp = jax_params(params)
+    m, n, batch_size = 4, GNN_N, 40
+    jcfg, cfg = _configs(n_epochs=2, batch_size=batch_size, n_steps=5)
+    jmodel, _, _, policy = _pair("gnn")
+    jt = JaxTrainer(
+        jp, ppo=jcfg, model=jmodel,
+        config=JaxTrainConfig(num_formations=m, seed=4, checkpoint=False,
+                              log_dir=str(tmp_path / "jax")),
+        scenario_schedule=jax_schedule_from_cfg(SCENARIO_SCHEDULE),
+    )
+    model = GNNActorCritic(k=GNN_K)
+    model.load_state_dict(params_from_jax(np_tree(jt.train_state.params),
+                                          policy))
+    trainer = Trainer(
+        params, cfg, TrainConfig(num_formations=m, seed=4, checkpoint=False,
+                                 log_dir=str(tmp_path / "port")),
+        model=model, device="cpu",
+        scenario_schedule=schedule_from_cfg(SCENARIO_SCHEDULE),
+    )
+    it = trainer._iteration
+    # Host copies: the JAX trainer donates its carry to each dispatch.
+    js = jax.tree_util.tree_map(np.array, jt.env_state)
+    episode = jax_episode_draws(js.key, params)
+    with torch.no_grad():
+        for f in ("agents", "goal", "obstacles", "steps"):
+            getattr(it.env, f).copy_(getattr(to_port(js), f))
+        for f in it.env_fields[4:]:
+            getattr(it.env, f).copy_(getattr(episode, f))
+        it.obs.copy_(t(jt.obs))
+    streams = JaxStreams(js.key, js.steps, params)
+    it.env_step_fn = injected_scenario_step(streams, params,
+                                            lambda: it.scenario_params)
+    rows = cfg.n_steps * m
+    mb = batch_size // n
+    used = rows // mb * mb
+    for i in range(2):
+        _, k_roll, k_update = jax.random.split(jt.key, 3)
+        jsp = jax.tree_util.tree_map(np.array, jt.scenario_params)
+        severity = jt.scenario_severity
+        assert trainer.scenario_severity == severity
+        injected = (jax_rollout_noise(k_roll, cfg.n_steps, (m, n, 2)),
+                    _jax_permutations(k_update, 2, rows, used))
+        trainer._phases[0].fn = lambda inj=injected: it.rollout(*inj)
+        trainer._scenario_rows = lambda r, d, k, jsp=jsp, s=severity: (
+            ScenarioParams(**{f: t(getattr(jsp, f))[None] for f in FIELDS}),
+            [s])
+        jmetrics = jt.run_iteration()
+        metrics = trainer.run_iteration()
+        for f in FIELDS:
+            np.testing.assert_array_equal(
+                getattr(it.scenario_params, f).numpy(),
+                np.asarray(getattr(jsp, f)), err_msg=f)
+        np.testing.assert_array_equal(it.env.steps.numpy(),
+                                      np.asarray(jt.env_state.steps))
+        assert float(metrics["episode_dones"]) == float(
+            jmetrics["episode_dones"])
+        updates = trainer.step
+        for k in ("reward", "avg_dist_to_goal", "ave_dist_to_neighbor"):
+            np.testing.assert_allclose(
+                float(metrics[k]), float(jmetrics[k]),
+                rtol=1e-4 if i == 0 else trajectory_rtol(LR, updates),
+                err_msg=k)
+    assert trainer.scenario_severity == jt.scenario_severity == 1.0
+    atol = adam_parity_atol(LR, updates)
+    got = params_to_jax(dict(model.named_parameters()), policy)
+    for a, b in zip(jax.tree_util.tree_leaves(got),
+                    jax.tree_util.tree_leaves(np_tree(jt.train_state.params))):
+        np.testing.assert_allclose(a, b, rtol=0, atol=atol)
+
+
 def test_port_learns_on_cpu(tmp_path):
     """Ring/MLP, M=8, six iterations from a fixed seed (deterministic on the
     CPU): the mean reward of the last two iterations beats the first two."""
@@ -270,8 +373,11 @@ PORTED_KNOBS = {
     "recovery_severity_backoff": 0.25, "keep_last_n": 4,
     # The population knobs build a SweepTrainer, as the root train.py does.
     "num_seeds": 3, "learning_rates": "[3e-4,1e-3]",
+    # Scenario training: a schedule built at config time.
+    "scenarios": "[wind,storm]", "scenario_severity": 0.25,
 }
 POPULATION_KNOBS = ("num_seeds", "learning_rates")
+SCENARIO_KNOBS = ("scenarios", "scenario_severity")
 
 
 @pytest.mark.parametrize("key", sorted(PORTED_KNOBS))
@@ -283,12 +389,21 @@ def test_train_cli_accepts_ported_knobs(key, tmp_path, monkeypatch):
     monkeypatch.setattr(train_cli, "repo_root", lambda: tmp_path)
     value = PORTED_KNOBS[key]
     extra = {"recovery": ["health=true"],
-             "learning_rates": ["num_seeds=2"]}.get(key, [])
+             "learning_rates": ["num_seeds=2"],
+             "scenario_severity": ["scenarios=[wind]"]}.get(key, [])
     trainer = train_cli.build_trainer([
         f"{key}={str(value).lower() if isinstance(value, bool) else value}",
         "device=cpu", "num_formation=2", *extra,
     ])
     assert key not in train_cli.UNPORTED
+    if key in SCENARIO_KNOBS:
+        schedule = trainer._scenario_schedule
+        names = ("wind", "storm") if key == "scenarios" else ("wind",)
+        severity = 0.25 if key == "scenario_severity" else 0.5
+        assert schedule.names == names
+        assert schedule.severity_at(0) == severity
+        assert trainer.scenario_params.wind.shape == (2, 2)
+        return
     if key not in POPULATION_KNOBS:
         assert getattr(trainer.config, key) == value
         return
@@ -336,6 +451,12 @@ CURRICULUM = "curriculum=[{rollouts: 2, agent_counts: [3]}]"
     (f"num_seeds=2 iters_per_dispatch=2 {CURRICULUM}",
      "iters_per_dispatch is retired for population sweeps .*chunks clip "
      "at curriculum stage boundaries"),
+    # Scenario training's refusals, in the root train.py's words.
+    (f"scenarios=[wind] {CURRICULUM}",
+     "scenarios do not compose with curriculum training yet"),
+    ("scenarios=[wind] num_seeds=2",
+     "scenarios do not compose with num_seeds>1 population sweeps yet"),
+    ("scenarios=[wnd]", "unknown scenario 'wnd' .did you mean 'wind'.."),
 ])
 def test_train_cli_refuses(override, match):
     words = override.split(" ")
