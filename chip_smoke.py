@@ -8,9 +8,10 @@ Phases (any failure exits non-zero):
 1. Print the card's name and power limit (``nvidia-smi``), build the CUDA
    kernels from ``marl_distributedformation_tpu_torch/csrc`` with ``nvcc``.
 2. Hold each k-NN kernel against its plain PyTorch version on the card, at
-   the shapes each path gives it — fused: training (M=1024, N=100, k=4)
-   and eval (M=4096); tiled: training (M=8, N=1024, k=4) and eval (M=512)
-   — and on lattice, duplicate and edge-clipped points (exact ties) and
+   the shapes each path gives it — fused: training (M=1024, N=100, k=4),
+   eval and populations (M=4096), the matrix (M=256), the falsifier
+   search (M=1600 and 3904); tiled: training (M=8, N=1024, k=4), eval
+   (M=512), populations (M=16) and the matrix (M=32) — and on lattice, duplicate and edge-clipped points (exact ties) and
    masks with fewer than k valid points: ``idx`` and offsets bitwise,
    distances within 1 ulp. Then time the kernel (its device time under
    ``torch.profiler``, and back-to-back calls with CUDA events) and the
@@ -125,11 +126,42 @@ Phases (any failure exits non-zero):
      (ring/MLP, M=64) bitwise; ``fused_chunk=2`` == the host loop with the
      stage change inside a chunk, records included; resumed mid-stage ==
      uninterrupted, bitwise.
-9. Print the kernels' JSON line (launches and timings at the training
+9. The robustness matrix, the falsifier search and pursuit-evasion
+   (``scenarios/matrix.py``, ``scenarios/adversary.py``, ``envs/pursuit.py``):
+   - ``matrix100``: the robustness-matrix CLI in-process on ``gnn100``'s
+     and ``scen100``'s checkpoints, ``clean``, ``wind``, ``storm``,
+     ``sensor_noise``, ``comm_dropout`` x severities 0, 0.5, 1.0 at M=256,
+     full episodes (30 cells): one build (the eval step captured once),
+     ``knn_fused`` 30 x 1003 launches by replay, every severity-0 cell
+     bitwise its checkpoint's clean cell, the ``wind`` 0.5 cell against
+     the eager ``eval.evaluate_scenario`` within rtol 1e-5; s a cell
+     captured beside the eager evaluation's; ``storm`` 1.0 of both.
+   - ``matrix1024``: the same on ``gnn1024``'s checkpoint (``clean``,
+     ``storm`` x 0, 1.0 at M=32) through ``knn_tiled``, 4 x 1003 launches.
+   - ``adversary100``: the falsifier-search CLI on both checkpoints (4
+     families, grid 6, 4 generations, M=64: P=25, 1600 formations), one
+     build across both; every falsifier and the highest safe probe below
+     it re-evaluated through ``AdversarySearch.evaluate_cells`` (drop
+     above the tolerance, and at most it); candidates/s. Then one
+     generation of the default population (10 families, P=61, 3904
+     formations): every severity-0 row bitwise the clean row.
+   - ``chase100``: ``gnn100``'s command on ``env=pursuit_evasion`` (20
+     captured iterations, ``fused_chunk=10``, ``knn_fused`` 201 launches
+     by replay) and a control run of it with ``learning_rate=0``: finite
+     records, the same first iteration, the last 3 iterations' mean
+     reward above the control's over the same episode steps (every
+     formation starts its episode at once, so the reward also follows the
+     pursuer closing in); at M=1024 over full episodes the learned policy
+     with its noise > the seeded policy with its noise and > zero (the
+     mean action printed, not gated); every scenario at severity 0 equals
+     clean pursuit bitwise (M=1024, 50 steps) and ``moving_goal`` at 0.5
+     differs; s/iteration beside ``gnn100``'s.
+10. Print the kernels' JSON line (launches and timings at the training
    paths' shapes, those of the eval paths under ``eval``, the population
    paths' under ``population``, ``ctde_knn``'s launches under
-   ``ctde_knn`` and ``scen100``'s under ``scenario``), the card line, and
-   the last line ``{"ok": true, "device": {...}}``.
+   ``ctde_knn``, ``scen100``'s under ``scenario``, and phase 9's under
+   ``matrix``, ``adversary``, ``population61`` and ``chase``), the card
+   line, and the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero with no result when no GPU is found.
 """
@@ -873,6 +905,9 @@ def train_phase():
 
     trainer, rewards, got, _ = train_run("smoke_gnn1024", GNN1024,
                                          "gnn1024 M=8 N=1024")
+    # Phase 9's matrix on N=1024 evaluates the run's checkpoint.
+    gnn100["ckpt1024"] = (latest_checkpoint(trainer.log_dir)
+                          or trainer.save())
     want = 1 + len(rewards) * trainer.ppo.n_steps
     if got != {"knn_fused": 0, "knn_tiled": want}:
         raise AssertionError(f"gnn1024 launches {got}, want tiled {want}")
@@ -1428,6 +1463,59 @@ SCENARIO_EVALS = ("wind", "storm")
 IDENTITY_STEPS = 50
 
 
+def scenario_roll(model, params, sp, m=1024):
+    """``model`` acting on M formations for ``IDENTITY_STEPS`` steps on the
+    card, through the clean step (``sp`` None) or the scenario step: each
+    step's (agents, goal, obstacles, steps, obs, reward, done), with the
+    k-NN launches checked (one a step and one at the reset)."""
+    import torch
+
+    from marl_distributedformation_tpu_torch.envs import spec_for_params
+    from marl_distributedformation_tpu_torch.eval import policy_act_fn
+    from marl_distributedformation_tpu_torch.ops import knn_cuda
+    from marl_distributedformation_tpu_torch.scenarios import (
+        ScenarioStreams,
+        broadcast_params,
+        init_scenario_state,
+        scenario_step_batch,
+    )
+
+    dev = torch.device("cuda")
+    env = spec_for_params(params)
+    act = policy_act_fn(model, params)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    streams = ScenarioStreams(torch.Generator(device=dev).manual_seed(12))
+    knn_cuda.reset_launches()
+    state, obs = env.reset_env(params, m, gen, dev)
+    if sp is not None:
+        state = init_scenario_state(state, params, streams)
+        sp = broadcast_params(sp.to(dev), m)
+    out = []
+    with torch.no_grad():
+        for _ in range(IDENTITY_STEPS):
+            vel = act(state.agents, state.goal, state.obstacles, obs, None)
+            if sp is None:
+                state, tr = env.step_batch(state, vel, params, gen)
+            else:
+                state, tr = scenario_step_batch(state, vel, sp, params, gen,
+                                                streams)
+            obs = tr.obs
+            out.append((state.agents, state.goal, state.obstacles,
+                        state.steps, tr.obs, tr.reward, tr.done))
+    torch.cuda.synchronize()
+    launches = dict(knn_cuda.LAUNCHES)
+    if launches != {"knn_fused": IDENTITY_STEPS + 1, "knn_tiled": 0}:
+        raise AssertionError(f"identity run launches {launches}")
+    return out
+
+
+def rolls_equal(a, b):
+    import torch
+
+    return all(torch.equal(x, y) for sa, sb in zip(a, b)
+               for x, y in zip(sa, sb))
+
+
 def scenario_identity(model):
     """Severity 0 on the card: phase 5's policy acting on M=1024 formations
     of N=100 through the knn step (``knn_fused``) for 50 steps, through a
@@ -1435,82 +1523,35 @@ def scenario_identity(model):
     the clean run bitwise, and at severity 1 every one but ``clean``
     differs; the obstacle scenarios with 4 obstacles, and bitwise clean
     without."""
-    import torch
-
-    from marl_distributedformation_tpu_torch.env import (
-        EnvParams,
-        compute_obs,
-        reset_batch,
-        step_batch,
-    )
-    from marl_distributedformation_tpu_torch.eval import policy_act_fn
-    from marl_distributedformation_tpu_torch.ops import knn_cuda
+    from marl_distributedformation_tpu_torch.env import EnvParams
     from marl_distributedformation_tpu_torch.scenarios import (
-        ScenarioStreams,
-        broadcast_params,
-        init_scenario_state,
         registered_scenarios,
         scenario_params_for,
-        scenario_step_batch,
     )
 
-    dev = torch.device("cuda")
     m = 1024
-
-    def roll(params, sp):
-        """Each step's (agents, goal, obstacles, steps, obs, reward,
-        done); the knn launches of the run."""
-        act = policy_act_fn(model, params)
-        gen = torch.Generator(device=dev).manual_seed(11)
-        streams = ScenarioStreams(torch.Generator(device=dev).manual_seed(12))
-        knn_cuda.reset_launches()
-        state = reset_batch(params, m, gen, dev)
-        obs = compute_obs(state.agents, state.goal, params)
-        if sp is not None:
-            state = init_scenario_state(state, params, streams)
-            sp = broadcast_params(sp.to(dev), m)
-        out = []
-        with torch.no_grad():
-            for _ in range(IDENTITY_STEPS):
-                vel = act(state.agents, state.goal, state.obstacles, obs, None)
-                if sp is None:
-                    state, tr = step_batch(state, vel, params, gen)
-                else:
-                    state, tr = scenario_step_batch(state, vel, sp, params,
-                                                    gen, streams)
-                obs = tr.obs
-                out.append((state.agents, state.goal, state.obstacles,
-                            state.steps, tr.obs, tr.reward, tr.done))
-        torch.cuda.synchronize()
-        launches = dict(knn_cuda.LAUNCHES)
-        if launches != {"knn_fused": IDENTITY_STEPS + 1, "knn_tiled": 0}:
-            raise AssertionError(f"identity run launches {launches}")
-        return out
-
-    def equal(a, b):
-        return all(torch.equal(x, y) for sa, sb in zip(a, b)
-                   for x, y in zip(sa, sb))
-
     t0 = time.perf_counter()
     names = [n for n in registered_scenarios() if not n.startswith("adv:")]
     checked = []
     for obstacles in (0, 4):
         params = EnvParams(num_agents=100, obs_mode="knn", knn_k=4,
                            max_steps=40, num_obstacles=obstacles)
-        clean = roll(params, None)
+        clean = scenario_roll(model, params, None, m)
         if int(sum(int(s[6].sum()) for s in clean)) != m:
             raise AssertionError("identity run: every formation must reset")
         for name in names:
             if obstacles and name not in ("clean", "obstacle_field",
                                           "moving_obstacles"):
                 continue
-            if not equal(clean, roll(params, scenario_params_for(name, 0.0))):
+            if not rolls_equal(clean, scenario_roll(
+                    model, params, scenario_params_for(name, 0.0), m)):
                 raise AssertionError(f"{name} at severity 0 differs from the "
                                      f"clean run ({obstacles} obstacles)")
             if name == "clean":
                 continue
             obstacle_layer = name in ("obstacle_field", "moving_obstacles")
-            same = equal(clean, roll(params, scenario_params_for(name, 1.0)))
+            same = rolls_equal(clean, scenario_roll(
+                model, params, scenario_params_for(name, 1.0), m))
             if same != (obstacle_layer and not obstacles):
                 raise AssertionError(f"{name} at severity 1 with {obstacles} "
                                      f"obstacles: equal to clean is {same}")
@@ -1763,7 +1804,12 @@ def scenario_captured_equals_eager():
 
 
 def scenario_phase(gnn100):
-    """Phase 8; returns ``scen100``'s ``knn_fused`` launches."""
+    """Phase 8; returns ``scen100``'s ``knn_fused`` launches and its last
+    checkpoint (phase 9 judges it)."""
+    from marl_distributedformation_tpu_torch.utils.checkpoint import (
+        latest_checkpoint,
+    )
+
     scenario_identity(gnn100["model"])
     elapsed("scenario identity")
     trainer, launches = scen100_run(gnn100)
@@ -1771,6 +1817,409 @@ def scenario_phase(gnn100):
     scenario_evals(trainer, gnn100)
     elapsed("scenario evals")
     scenario_captured_equals_eager()
+    return launches, latest_checkpoint(trainer.log_dir)
+
+
+# Phase 9: the robustness matrix, the falsifier search and pursuit-evasion.
+MATRIX_SCENARIOS = ("clean", "wind", "storm", "sensor_noise", "comm_dropout")
+MATRIX_SEVERITIES = (0.0, 0.5, 1.0)
+MATRIX1024_SCENARIOS = ("clean", "storm")
+MATRIX1024_SEVERITIES = (0.0, 1.0)
+MATRIX_RTOL = 1e-5  # a captured cell against the eager evaluate_scenario
+ADVERSARY = ("scenarios=[wind,storm,actuator_fault,sensor_noise]",
+             "search_grid=6", "search_generations=4", "eval_formations=64")
+ADVERSARY_M = 64
+# gnn100's command on pursuit-evasion, 20 iterations.
+CHASE100 = GNN100[:-1] + ("env=pursuit_evasion", "total_timesteps=20480000",
+                          "fused_chunk=10")
+
+
+def yaml_list(items):
+    return "[" + ",".join(str(x) for x in items) + "]"
+
+
+def matrix_run(label, ckpts, n, m, scenarios, severities, kernel):
+    """The robustness-matrix CLI in-process (``main(argv)``) on ``ckpts``
+    (one architecture) with the launch counts set to 0 just before it:
+    one build (``eval_compiles``), ``kernel`` launched episode_length + 1
+    times a cell and the other never, every metric finite, and every
+    severity-0 cell bitwise its checkpoint's clean cell. Returns the
+    report, the launches and the wall seconds."""
+    import torch
+
+    from marl_distributedformation_tpu_torch import robustness_matrix
+    from marl_distributedformation_tpu_torch.ops import knn_cuda
+
+    torch.cuda.synchronize()
+    knn_cuda.reset_launches()
+    t0 = time.perf_counter()
+    report = robustness_matrix.main([
+        f"name=smoke_{label}", f"checkpoint={yaml_list(ckpts)}",
+        "obs_mode=knn", f"num_agents_per_formation={n}",
+        f"scenarios={yaml_list(scenarios)}",
+        f"severities={yaml_list(severities)}", f"eval_formations={m}",
+        "device=cuda",
+    ])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(knn_cuda.LAUNCHES)
+    cells = len(ckpts) * len(scenarios) * len(severities)
+    T = 1002
+    other = "knn_tiled" if kernel == "knn_fused" else "knn_fused"
+    if launches != {kernel: cells * (T + 1), other: 0}:
+        raise AssertionError(f"{label}: launches {launches}, want {kernel} "
+                             f"{cells} x {T + 1}")
+    if report["eval_compiles"] != 1:
+        raise AssertionError(f"{label}: {report['eval_compiles']} builds")
+    for ckpt, per_scenario in report["matrix"].items():
+        clean = per_scenario["clean"]["0"]
+        for scenario, per_sev in per_scenario.items():
+            for sev, metrics in per_sev.items():
+                if not all(math.isfinite(v) for v in metrics.values()):
+                    raise AssertionError(f"{label}: non-finite {scenario} "
+                                         f"{sev}: {metrics}")
+            if per_sev["0"] != clean:
+                raise AssertionError(f"{label}: {scenario} at severity 0 "
+                                     f"!= the clean cell of {ckpt}")
+    print(f"[matrix] {label}: {len(ckpts)} checkpoints x {len(scenarios)} "
+          f"scenarios x {len(severities)} severities at M={m} N={n}, full "
+          f"episodes: {wall:.2f} s through the CLI ({wall / cells:.3f} s a "
+          f"cell with loading, warm-up and capture), eval_compiles 1, "
+          f"launches {launches} by replay; every severity-0 cell == its "
+          f"checkpoint's clean cell bitwise")
+    return report, launches, wall
+
+
+def cell_rate(program, params, name, severity, reps):
+    """Seconds a cell and formation-steps/s over ``reps`` cells of
+    ``program`` (built already), the host's clock around synchronised
+    cells."""
+    import torch
+
+    from marl_distributedformation_tpu_torch.scenarios import (
+        scenario_params_for,
+    )
+
+    sp = scenario_params_for(name, severity)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        program.run(params, sp)
+    torch.cuda.synchronize()
+    s = (time.perf_counter() - t0) / reps
+    return s, program.num_formations * 1002 / s
+
+
+def matrix100(gnn100, scen100_ckpt):
+    """``matrix100``: the CLI on ``gnn100``'s and ``scen100``'s checkpoints
+    (5 scenarios x 3 severities, M=256); then the wind 0.5 cell against the
+    eager ``eval.evaluate_scenario``, and s/cell captured beside eager."""
+    import torch
+
+    from marl_distributedformation_tpu_torch.compat.policy import (
+        LoadedPolicy,
+    )
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.eval import (
+        evaluate_scenario,
+        policy_act_fn,
+    )
+    from marl_distributedformation_tpu_torch.scenarios import MatrixProgram
+
+    ckpts = [str(gnn100["ckpt"]), str(scen100_ckpt)]
+    report, launches, _ = matrix_run("matrix100", ckpts, 100, 256,
+                                     MATRIX_SCENARIOS, MATRIX_SEVERITIES,
+                                     "knn_fused")
+    params = EnvParams(num_agents=100, obs_mode="knn", knn_k=4)
+    pol = LoadedPolicy.from_checkpoint(ckpts[0], env_params=params,
+                                       device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = evaluate_scenario(policy_act_fn(pol.model, params), params,
+                              "wind", 0.5, 256, 1234, "cuda")
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    cell = report["matrix"][ckpts[0]]["wind"]["0.5"]
+    err = max(abs(cell[k] - eager[k]) / max(abs(eager[k]), 1e-30)
+              for k in eager)
+    if err > MATRIX_RTOL:
+        raise AssertionError(f"matrix100 wind 0.5 cell {cell} != eager "
+                             f"evaluate_scenario {eager} (rel {err})")
+    print(f"[matrix] matrix100 wind 0.5, gnn100's checkpoint: captured cell "
+          f"== eager evaluate_scenario within rtol {MATRIX_RTOL} (max rel "
+          f"err {err:.3g}; bitwise: {cell == eager})")
+    storm = {Path(c).parent.name: report["matrix"][c]["storm"]["1"]
+             ["episode_return_per_agent"] for c in ckpts}
+    print(f"[matrix] storm 1.0 return/agent (M=256 N=100, full episodes): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in storm.items()))
+    prog = MatrixProgram(pol.model, params, 256, device="cuda")
+    prog.evaluate_clean(pol.params)  # the build and the capture
+    cs, cr = cell_rate(prog, pol.params, "wind", 0.5, 2)
+    er = 256 * 1002 / eager_s
+    print(f"[matrix] matrix100 cell (wind 0.5, M=256 N=100, 1002 steps): "
+          f"captured {cs:.4f} s a cell, {cr:.1f} formation-steps/s; the "
+          f"eager eval.evaluate_scenario {eager_s:.4f} s, {er:.1f} "
+          f"formation-steps/s ({eager_s / cs:.2f}x)")
+    return launches
+
+
+def matrix1024(ckpt):
+    """``matrix1024``: the CLI on ``gnn1024``'s checkpoint (clean and storm
+    at 0 and 1.0, M=32) through ``knn_tiled``."""
+    _, launches, _ = matrix_run("matrix1024", [str(ckpt)], 1024, 32,
+                                MATRIX1024_SCENARIOS, MATRIX1024_SEVERITIES,
+                                "knn_tiled")
+    return launches
+
+
+def adversary100(gnn100, scen100_ckpt):
+    """``adversary100``: the falsifier-search CLI on ``gnn100``'s and
+    ``scen100``'s checkpoints (4 families, grid 6, 4 generations, M=64:
+    P=25, 1600 formations), one build across both; each falsifier and the
+    highest safe probe below it re-evaluated through the search's
+    ``evaluate_cells``: drop above the tolerance, and at most it. Then one
+    generation at the default population (all 10 families, P=61, 3904
+    formations), every severity-0 row bitwise the clean row. Returns the
+    search's and the P=61 run's launches."""
+    import torch
+
+    from marl_distributedformation_tpu_torch import adversarial_search
+    from marl_distributedformation_tpu_torch.compat.policy import (
+        LoadedPolicy,
+    )
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.ops import knn_cuda
+    from marl_distributedformation_tpu_torch.scenarios import (
+        AdversaryConfig,
+        AdversarySearch,
+        get_scenario,
+        make_population_runner,
+    )
+    from marl_distributedformation_tpu_torch.scenarios.adversary import (
+        _relative_drop,
+        _stack_rows,
+    )
+
+    ckpts = [str(gnn100["ckpt"]), str(scen100_ckpt)]
+    torch.cuda.synchronize()
+    knn_cuda.reset_launches()
+    t0 = time.perf_counter()
+    # The CLI's work (``main`` is ``run(argv)[0]``), keeping its search for
+    # the brackets and the re-evaluation.
+    report, search = adversarial_search.run([
+        "name=smoke_adversary100", f"checkpoint={yaml_list(ckpts)}",
+        "obs_mode=knn", "num_agents_per_formation=100", *ADVERSARY,
+        "device=cuda",
+    ])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(knn_cuda.LAUNCHES)
+    generations = sum(r["generations"] for r in report["searches"].values())
+    if launches != {"knn_fused": generations * 1003, "knn_tiled": 0}:
+        raise AssertionError(f"adversary100 launches {launches}, want "
+                             f"{generations} x 1003")
+    if report["eval_compiles"] != 1:
+        raise AssertionError(f"adversary100: {report['eval_compiles']} "
+                             "builds across both checkpoints")
+    tol = report["drop_tolerance"]
+    for ckpt, rep in report["searches"].items():
+        params = LoadedPolicy.from_checkpoint(
+            ckpt, env_params=search.env_params, device="cuda").params
+        clean = rep["clean"]
+        # Each falsifier beside the highest safe probe below it (the
+        # bracket's floor; 0 when no probe below it was safe).
+        brackets = []
+        for f in rep["falsifiers"]:
+            lo, hi = search.brackets[ckpt][f["scenario"]]
+            if round(hi, 6) != f["severity"]:  # the record's rounding
+                raise AssertionError(f"adversary100 {f['scenario']}: "
+                                     f"bracket {lo, hi}, falsifier {f}")
+            brackets.append((f, hi, lo))
+        # One run of the search's program re-evaluates them all.
+        again = search.evaluate_cells(params, [("clean", 0.0)] + [
+            cell for f, hi, lo in brackets
+            for cell in ((f["scenario"], hi), (f["scenario"], lo))])
+        for i, (f, _, safe) in enumerate(brackets):
+            drops = [_relative_drop(v, again[0])
+                     for v in again[1 + 2 * i:3 + 2 * i]]
+            if not (f["drop"] > tol and drops[0] > tol and drops[1] <= tol):
+                raise AssertionError(
+                    f"adversary100 {Path(ckpt).parent.name} {f['scenario']}:"
+                    f" falsifier {f['severity']} drop {f['drop']} (again "
+                    f"{drops[0]}), safe probe {safe} drop {drops[1]}, "
+                    f"tolerance {tol}")
+            print(f"[adversary] {Path(ckpt).parent.name} {f['scenario']}: "
+                  f"falsified at {f['severity']} (drop {drops[0]:.4f} > "
+                  f"{tol}), safe at {safe:.6g} (drop {drops[1]:.4f}), "
+                  "re-evaluated through evaluate_cells")
+        print(f"[adversary] {Path(ckpt).parent.name}: clean {clean:.2f}, "
+              f"falsifiers {[(f['scenario'], f['severity']) for f in rep['falsifiers']]}"
+              f", robust {rep['robust']}, {rep['generations']} generations "
+              f"in {rep['search_seconds']:.2f} s")
+    if search.compile_count != 1:
+        raise AssertionError("adversary100: the re-evaluation rebuilt")
+    print(f"[adversary] adversary100: P={report['searches'][ckpts[0]]['population']}"
+          f" x M={ADVERSARY_M} = (1600,100,4) a generation, {generations} "
+          f"generations over 2 checkpoints, eval_compiles 1, "
+          f"{report['candidates_per_sec']:.1f} candidates/s (search time), "
+          f"{wall:.2f} s through the CLI; launches {launches} by replay")
+
+    # One generation at the default population: P = 1 + 10 x 6 = 61.
+    params = EnvParams(num_agents=100, obs_mode="knn", knn_k=4)
+    pol = LoadedPolicy.from_checkpoint(ckpts[0], env_params=params,
+                                       device="cuda")
+    families = AdversarySearch(pol.model, params, AdversaryConfig(),
+                               device="cuda").specs
+    rows = [(get_scenario("clean"), 0.0)] + [
+        (spec, 0.0) for spec in families for _ in range(6)]
+    run, guard = make_population_runner(pol.model, params, ADVERSARY_M,
+                                        device="cuda")
+    torch.cuda.synchronize()
+    knn_cuda.reset_launches()
+    t0 = time.perf_counter()
+    out = run(pol.params, _stack_rows(rows))
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    p61 = dict(knn_cuda.LAUNCHES)
+    if p61 != {"knn_fused": 1003, "knn_tiled": 0} or guard.count != 1:
+        raise AssertionError(f"P=61 launches {p61}, builds {guard.count}")
+    for key, values in out.items():
+        bad = [i for i in range(1, len(rows))
+               if not torch.equal(values[i], values[0])]
+        if bad:
+            raise AssertionError(
+                f"P=61: the {key} of severity-0 rows {bad} (of "
+                f"{[rows[i][0].name for i in bad]}) differs from the clean "
+                f"row's {values[0].item()!r}: {values[bad].tolist()}")
+    print(f"[adversary] P=61 x M={ADVERSARY_M} = ({61 * ADVERSARY_M},100,4), "
+          f"all 10 families at severity 0: every row == the clean row "
+          f"bitwise (6 metrics); knn_fused 1003 launches by replay; one "
+          f"generation with its build and capture {s:.3f} s, "
+          f"{61 / s:.1f} candidates/s, "
+          f"{61 * ADVERSARY_M * 1002 / s:.1f} formation-steps/s")
+    return launches, p61
+
+
+def pursuit_identity(model):
+    """Pursuit at N=100, M=1024, 50 steps through a reset (max_steps 40),
+    ``knn_fused``: every scenario at severity 0 equals clean pursuit
+    bitwise; ``moving_goal`` at 0.5 (the pursuer drifts) differs."""
+    from marl_distributedformation_tpu_torch.envs import PursuitParams
+    from marl_distributedformation_tpu_torch.scenarios import (
+        registered_scenarios,
+        scenario_params_for,
+    )
+
+    params = PursuitParams(num_agents=100, obs_mode="knn", knn_k=4,
+                           max_steps=40)
+    clean = scenario_roll(model, params, None)
+    names = [n for n in registered_scenarios() if not n.startswith("adv:")]
+    for name in names:
+        if not rolls_equal(clean, scenario_roll(
+                model, params, scenario_params_for(name, 0.0))):
+            raise AssertionError(f"pursuit: {name} at severity 0 differs "
+                                 "from clean")
+    if rolls_equal(clean, scenario_roll(
+            model, params, scenario_params_for("moving_goal", 0.5))):
+        raise AssertionError("pursuit: moving_goal at 0.5 equals clean")
+    print(f"[chase] pursuit severity 0 == clean bitwise for {len(names)} "
+          f"scenarios (N=100 M=1024, {IDENTITY_STEPS} steps through a "
+          "reset, knn_fused); moving_goal at 0.5 differs")
+
+
+def chase100(gnn100):
+    """``chase100``: ``gnn100``'s command on pursuit-evasion, 20 captured
+    iterations through ``knn_fused``, against a control run of the same
+    command with ``learning_rate=0`` (the seeded policy, never updated):
+    finite records; the same first iteration; the last 3 iterations' mean
+    reward above the control's over the same episode steps; at M=1024 over
+    full episodes, the learned policy with its noise above the seeded
+    policy with its noise and above zero (its mean action printed, not
+    gated); the severity-0 identity on pursuit. Returns its launches."""
+    from marl_distributedformation_tpu_torch import evaluate as evaluate_cli
+    from marl_distributedformation_tpu_torch.envs import PursuitParams
+    from marl_distributedformation_tpu_torch.eval import evaluate_checkpoint
+    from marl_distributedformation_tpu_torch.utils.checkpoint import (
+        latest_checkpoint,
+    )
+
+    seeded = {}
+
+    def keep_seeded(trainer):
+        # The seeded policy, before its first update.
+        seeded["ckpt"] = trainer.save()
+
+    trainer, rewards, got, s_iter = train_run(
+        "smoke_chase100", CHASE100,
+        "chase100 pursuit-evasion M=1024 N=100 fused_chunk=10",
+        before_train=keep_seeded)
+    want = 1 + len(rewards) * trainer.ppo.n_steps
+    if len(rewards) != 20 or got != {"knn_fused": want, "knn_tiled": 0}:
+        raise AssertionError(f"chase100: {len(rewards)} iterations, "
+                             f"launches {got}, want 20 and fused {want}")
+    print(f"[chase] chase100 {s_iter:.4f} s/iteration against gnn100's "
+          f"{gnn100['s_iter']:.4f} (ratio {s_iter / gnn100['s_iter']:.3f})")
+    # Every formation starts its episode at once and the 20 iterations
+    # cover its steps 0-199, so an iteration's reward follows the pursuer
+    # closing in as much as the policy: the control run sees the same
+    # steps from the same states and streams, without the updates.
+    _, control, _, _ = train_run(
+        "smoke_chase100_control", CHASE100 + ("learning_rate=0.0",),
+        "chase100 control, learning_rate=0")
+    for label, r in (("chase100", rewards), ("control", control)):
+        print(f"[learn] {label} reward by iteration: " + ", ".join(
+            f"{i + 1}: {v:.3f}" for i, v in enumerate(r))
+            + f"; first 3 {mean(r[:3]):.3f}, last 3 {mean(r[-3:]):.3f}")
+    if not math.isclose(rewards[0], control[0], rel_tol=1e-5):
+        raise AssertionError(f"chase100: iteration 1 {rewards[0]} and the "
+                             f"control's {control[0]} differ")
+    last3, control3 = mean(rewards[-3:]), mean(control[-3:])
+    if not last3 > control3:
+        raise AssertionError(f"chase100: last-3 mean {last3:.3f} does not "
+                             f"beat the control's {control3:.3f}")
+    print(f"[learn] chase100: last 3 iterations {last3:.3f} > the "
+          f"learning_rate=0 control's {control3:.3f} over the same steps")
+    # The policy as it trained, with its noise, over full episodes; the
+    # seeded policy under the same noise streams.
+    ckpt = latest_checkpoint(trainer.log_dir)
+    res = evaluate_cli.main([
+        f"checkpoint={ckpt}", "env=pursuit_evasion", "obs_mode=knn",
+        "policy=gnn", "num_agents_per_formation=100",
+        "eval_formations=1024", "eval_deterministic=false", "device=cuda",
+    ])
+    ret = {r: res[f"{r}_episode_return_per_agent"]
+           for r in ("policy", "baseline", "zero")}
+    params = PursuitParams(num_agents=100, obs_mode="knn", knn_k=4)
+    # The CLI's call (its eval_seed 1234) with the seeded policy.
+    ret["seeded"] = evaluate_checkpoint(
+        seeded["ckpt"], params, 1024, 1234, False,
+        "cuda")["episode_return_per_agent"]
+    if not ret["policy"] > max(ret["seeded"], ret["zero"]):
+        raise AssertionError(f"chase100: learned {ret['policy']} does not "
+                             f"beat the seeded policy {ret['seeded']} and "
+                             f"zero {ret['zero']}")
+    mean_action = evaluate_checkpoint(
+        str(ckpt), params, 1024, 1234, True,
+        "cuda")["episode_return_per_agent"]
+    print(f"[chase] chase100 eval (M=1024 N=100, full episodes, with the "
+          f"policy's noise): learned {ret['policy']:.2f} > seeded "
+          f"{ret['seeded']:.2f}, > zero {ret['zero']:.2f}; baseline (steers "
+          f"at the pursuer) {ret['baseline']:.2f}; the learned mean action "
+          f"{mean_action:.2f} (not gated)")
+    pursuit_identity(trainer.model)
+    return got["knn_fused"]
+
+
+def robustness_phase(gnn100, scen100_ckpt):
+    """Phase 9; returns each path's launches."""
+    launches = {"matrix100": matrix100(gnn100, scen100_ckpt)}
+    elapsed("matrix100")
+    launches["matrix1024"] = matrix1024(gnn100["ckpt1024"])
+    elapsed("matrix1024")
+    launches["adversary100"], launches["population61"] = adversary100(
+        gnn100, scen100_ckpt)
+    elapsed("adversary100")
+    launches["chase100"] = chase100(gnn100)
     return launches
 
 
@@ -1808,10 +2257,14 @@ def main() -> int:
     shapes = {
         "knn_fused": (knn_cuda.knn_fused, 200,
                       {"train": (1024, 100, 4), "eval": (4096, 100, 4),
-                       "population": (4096, 100, 4)}),
+                       "population": (4096, 100, 4),
+                       "matrix": (256, 100, 4),
+                       "adversary": (25 * ADVERSARY_M, 100, 4),
+                       "population61": (61 * ADVERSARY_M, 100, 4)}),
         "knn_tiled": (knn_cuda.knn_tiled, 50,
                       {"train": (8, 1024, 4), "eval": (512, 1024, 4),
-                       "population": (16, 1024, 4)}),
+                       "population": (16, 1024, 4),
+                       "matrix": (32, 1024, 4)}),
     }
     stats = {}
     for name, (fn, reps, by_path) in shapes.items():
@@ -1872,9 +2325,14 @@ def main() -> int:
     curriculum_phase()
     elapsed("phase 7, CTDE and the curriculum")
 
-    # Phase 8: scenarios, this slice's main path.
-    scen_launches = scenario_phase(gnn100)
+    # Phase 8: scenarios.
+    scen_launches, scen100_ckpt = scenario_phase(gnn100)
     elapsed("phase 8, scenarios")
+
+    # Phase 9: the robustness matrix, the falsifier search and
+    # pursuit-evasion, this slice's main paths.
+    robust = robustness_phase(gnn100, scen100_ckpt)
+    elapsed("phase 9, robustness matrix, falsifier search, pursuit")
 
     replaces = {
         "knn_fused": "marl_distributedformation_tpu/ops/knn_pallas.py:117",
@@ -1905,6 +2363,23 @@ def main() -> int:
     kernels[0]["scenario"] = {"path": "train scen100",
                               "launches": scen_launches,
                               "shape": stats["knn_fused"]["train"]["shape"]}
+    # Phase 9's paths, each at its own shape (timed in phase 2).
+    for i, name in enumerate(("knn_fused", "knn_tiled")):
+        kernels[i]["matrix"] = {
+            "path": "matrix100" if i == 0 else "matrix1024",
+            "launches": robust["matrix100" if i == 0
+                               else "matrix1024"][name],
+            **stats[name]["matrix"]}
+    kernels[0]["adversary"] = {"path": "adversary100",
+                               "launches": robust["adversary100"]["knn_fused"],
+                               **stats["knn_fused"]["adversary"]}
+    kernels[0]["population61"] = {
+        "path": "adversary100 P=61",
+        "launches": robust["population61"]["knn_fused"],
+        **stats["knn_fused"]["population61"]}
+    kernels[0]["chase"] = {"path": "train chase100",
+                           "launches": robust["chase100"],
+                           "shape": stats["knn_fused"]["train"]["shape"]}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -18,12 +18,12 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from marl_distributedformation_tpu_torch.device import Streams
-from marl_distributedformation_tpu_torch.env.formation import step_batch
 from marl_distributedformation_tpu_torch.env.types import (
     EnvParams,
     FormationState,
     Transition,
 )
+from marl_distributedformation_tpu_torch.envs import spec_for_params
 from marl_distributedformation_tpu_torch.models import distributions
 
 Tensor = torch.Tensor
@@ -74,8 +74,9 @@ def collect_rollout(
 ) -> Tuple[FormationState, Tensor, RolloutBatch, Tensor]:
     """Roll ``n_steps`` steps of M formations under the current policy.
 
-    ``env_step_fn(state, velocity)`` defaults to ``step_batch`` with resets
-    drawn from ``generator`` (padded formations pass
+    ``env_step_fn(state, velocity)`` defaults to the ``step_batch`` of the
+    params' env (``envs.spec_for_params``) with resets drawn from
+    ``generator`` (padded formations pass
     ``env.hetero.hetero_step_batch``); ``noise (T, M, N, act_dim)``
     replaces the generator's action draws. ``forward(model, obs[, mask])``
     defaults to ``policy_forward``; a population (``models/population.py``)
@@ -88,6 +89,8 @@ def collect_rollout(
     forward = forward or policy_forward
     masked = () if mask is None else (mask,)
     if env_step_fn is None:
+        step_batch = spec_for_params(env_params).step_batch
+
         def env_step_fn(state, velocity):
             return step_batch(state, velocity, env_params, generator)
 

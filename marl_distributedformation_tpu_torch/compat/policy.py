@@ -24,7 +24,9 @@ from marl_distributedformation_tpu_torch.models import (
     distributions,
 )
 from marl_distributedformation_tpu_torch.utils.checkpoint import (
+    CorruptCheckpointError,
     msgpack_restore_file,
+    quarantine_checkpoint,
 )
 
 # Checkpoints record the architecture by its class name.
@@ -90,6 +92,19 @@ def build_model(
     return model.eval()
 
 
+def load_checkpoint_raw(path: str | Path) -> dict:
+    """A checkpoint file as nested dicts of numpy arrays, without a
+    template. The footer is validated: a corrupt or truncated file is
+    quarantined (``utils.checkpoint.quarantine_checkpoint``) and raises
+    ``CorruptCheckpointError``, so damaged parameters never reach an
+    evaluation."""
+    try:
+        return msgpack_restore_file(path)
+    except CorruptCheckpointError as e:
+        quarantine_checkpoint(path, str(e))
+        raise
+
+
 class LoadedPolicy:
     """``predict(obs, deterministic)`` over a restored model."""
 
@@ -115,7 +130,7 @@ class LoadedPolicy:
         device: DeviceLike = None,
     ) -> "LoadedPolicy":
         dev = resolve_device(device)
-        raw = msgpack_restore_file(path)
+        raw = load_checkpoint_raw(path)
         if "params" not in raw:
             raise ValueError(
                 f"{path} does not look like a trainer checkpoint "
@@ -128,6 +143,12 @@ class LoadedPolicy:
             policy, raw["params"]["params"], act_dim, env_params
         ).to(dev)
         return cls(model, num_agents=num_agents)
+
+    @property
+    def params(self) -> dict:
+        """The model's parameters by name (``state_dict``), the form the
+        robustness matrix and the falsifier search take a candidate in."""
+        return self.model.state_dict()
 
     @torch.no_grad()
     def predict(

@@ -1,7 +1,7 @@
 """Environments behind one contract (``EnvSpec``) with declared observation
 layouts, named in a fail-fast registry; counterpart of the JAX package's
-``envs/``. The port registers ``formation``; ``pursuit_evasion`` is not
-ported yet (ROADMAP A10).
+``envs/``. The port registers ``formation`` and ``pursuit_evasion``, in the
+JAX package's order.
 
     from marl_distributedformation_tpu_torch import envs
 
@@ -24,8 +24,13 @@ from marl_distributedformation_tpu_torch.envs.formation import (  # noqa: F401
     FORMATION_SPEC,
     formation_obs_layout,
 )
+from marl_distributedformation_tpu_torch.envs.pursuit import (  # noqa: F401
+    PURSUIT_SPEC,
+    PursuitParams,
+)
 
 # ``envs.get("formation")``, the registry's short spelling.
 get = get_env
 
 register_env(FORMATION_SPEC)
+register_env(PURSUIT_SPEC)

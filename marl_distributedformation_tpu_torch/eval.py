@@ -62,10 +62,8 @@ def run_episode_metrics(
     ``scenario_params`` (``scenarios.ScenarioParams``, one formation's or a
     batch's) routes the step through the disturbance stack, the layers
     drawing from ``scenario_streams`` (default: a stream seeded from
-    ``seed``); None is the clean env.
-    The step where done fires resets before its metrics are taken, so the
-    last in-episode metrics row is ``T - 2``; rewards are taken on the
-    pre-reset state, so every row counts toward the return.
+    ``seed``); None is the clean env. The rows reduce as
+    ``episode_summary`` says.
     """
     if initial_state is not None:
         dev = initial_state.agents.device
@@ -103,28 +101,57 @@ def run_episode_metrics(
             return scenario_step_batch(state, vel, sp, params, reset_gen,
                                        streams)
     T = episode_length(params)
-    rows = {
-        name: torch.zeros(T, dtype=torch.float32, device=dev)
-        for name in ("reward", "avg_dist_to_goal", "ave_dist_to_neighbor", "done")
-    }
+    rows = {name: torch.zeros(T, dtype=torch.float32, device=dev)
+            for name in ROW_NAMES}
     for t in range(T):
         vel = act_fn(state.agents, state.goal, state.obstacles, obs, act_gen)
         state, tr = env_step(state, vel)
-        rows["reward"][t] = tr.reward.mean()
-        rows["avg_dist_to_goal"][t] = tr.metrics["avg_dist_to_goal"].mean()
-        rows["ave_dist_to_neighbor"][t] = tr.metrics["ave_dist_to_neighbor"].mean()
-        rows["done"][t] = tr.done.sum()
+        for name, value in step_row(tr).items():
+            rows[name][t] = value
         obs = tr.obs
+    return episode_summary(rows, T)
+
+
+# The per-step row of an episode's metrics, reduced by ``episode_summary``.
+ROW_NAMES = ("reward", "avg_dist_to_goal", "ave_dist_to_neighbor", "done")
+
+
+def step_row(tr, copies: int = 1) -> Dict[str, Tensor]:
+    """One step's row: the mean reward over formations and agents, the
+    mean distances over formations and the formations done, 0-d; with
+    ``copies`` > 1 the batch is that many equal parts (a population of
+    candidates, ``scenarios/adversary.py``) and each value is ``(copies,)``,
+    one a part."""
+
+    def reduce(x: Tensor, op: str) -> Tensor:
+        if copies == 1:
+            return getattr(x, op)()
+        return getattr(x.reshape(copies, -1), op)(-1)
+
+    return {
+        "reward": reduce(tr.reward, "mean"),
+        "avg_dist_to_goal": reduce(tr.metrics["avg_dist_to_goal"], "mean"),
+        "ave_dist_to_neighbor": reduce(tr.metrics["ave_dist_to_neighbor"],
+                                       "mean"),
+        "done": reduce(tr.done, "sum"),
+    }
+
+
+def episode_summary(rows: Dict[str, Tensor], T: int) -> Dict[str, Tensor]:
+    """The episode's metrics from its rows (the last axis is the step).
+    The step where done fires resets before its metrics are taken, so the
+    last in-episode metrics row is ``T - 2``; rewards are taken on the
+    pre-reset state, so every row counts toward the return."""
     last = T - 2
     return {
-        "episode_return_per_agent": rows["reward"].sum(),
-        "mean_step_reward": rows["reward"].mean(),
-        "final_avg_dist_to_goal": rows["avg_dist_to_goal"][last],
+        "episode_return_per_agent": rows["reward"].sum(-1),
+        "mean_step_reward": rows["reward"].mean(-1),
+        "final_avg_dist_to_goal": rows["avg_dist_to_goal"][..., last],
         "last100_avg_dist_to_goal": rows["avg_dist_to_goal"][
-            last - 99 : last + 1
-        ].mean(),
-        "final_ave_dist_to_neighbor": rows["ave_dist_to_neighbor"][last],
-        "episodes": rows["done"].sum(),
+            ..., last - 99 : last + 1
+        ].mean(-1),
+        "final_ave_dist_to_neighbor": rows["ave_dist_to_neighbor"][..., last],
+        "episodes": rows["done"].sum(-1),
     }
 
 

@@ -2,10 +2,11 @@
 composable perturbation layers around the env step (``layers.py``), their
 magnitudes as data (``params.py``), named severity-scaled recipes
 (``registry.py``), the engine with the layers' own random streams
-(``engine.py``) and training schedules (``schedule.py``). One step, and one
-captured iteration, serve every registered scenario at every severity, and a
-batch can mix scenarios per formation (``sample_scenario_batch``). The
-robustness matrix and the adversary are not ported yet (ROADMAP A6).
+(``engine.py``), training schedules (``schedule.py``), the robustness
+matrix (``matrix.py``) and the falsifier search (``adversary.py``). One
+step, and one captured iteration, serve every registered scenario at every
+severity, and a batch can mix scenarios per formation
+(``sample_scenario_batch``).
 """
 
 from marl_distributedformation_tpu_torch.scenarios.params import (  # noqa: F401
@@ -23,6 +24,7 @@ from marl_distributedformation_tpu_torch.scenarios.layers import (  # noqa: F401
 from marl_distributedformation_tpu_torch.scenarios.engine import (  # noqa: F401
     ScenarioState,
     ScenarioStreams,
+    TiledStreams,
     init_scenario_state,
     make_scenario_step,
     scenario_step_batch,
@@ -41,4 +43,17 @@ from marl_distributedformation_tpu_torch.scenarios.schedule import (  # noqa: F4
     ScenarioStage,
     from_falsifiers,
     schedule_from_cfg,
+)
+from marl_distributedformation_tpu_torch.scenarios.matrix import (  # noqa: F401
+    MatrixProgram,
+    make_matrix_runner,
+    params_signature,
+    run_matrix,
+)
+from marl_distributedformation_tpu_torch.scenarios.adversary import (  # noqa: F401
+    AdversaryConfig,
+    AdversarySearch,
+    ContinuousAdversary,
+    Falsifier,
+    make_population_runner,
 )

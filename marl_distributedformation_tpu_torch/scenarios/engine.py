@@ -141,6 +141,37 @@ class ScenarioStreams:
         )
 
 
+def tile(x: Tensor, copies: int) -> Tensor:
+    """``copies`` copies of ``x`` along its leading axis, in turn."""
+    return x.repeat(copies, *([1] * (x.dim() - 1)))
+
+
+class TiledStreams(ScenarioStreams):
+    """The draws of ``inner`` for M formations, repeated ``copies`` times
+    along the formation axis: a batch of ``copies`` x M formations whose
+    parts see the same draws (the falsifier search's population of
+    candidates, ``adversary.py``, as the JAX package's vmap over one key
+    gives them)."""
+
+    def __init__(self, inner: ScenarioStreams, copies: int) -> None:
+        super().__init__(inner.generator)
+        self.inner = inner
+        self.copies = copies
+
+    def _tiled(self, draws, cls):
+        return cls(**{f.name: tile(getattr(draws, f.name), self.copies)
+                      for f in dataclasses.fields(cls)})
+
+    def episode(self, params, m, device):
+        return self._tiled(
+            self.inner.episode(params, m // self.copies, device),
+            EpisodeDraws)
+
+    def step(self, params, m, device):
+        return self._tiled(
+            self.inner.step(params, m // self.copies, device), StepDraws)
+
+
 def init_scenario_state(
     state: FormationState, params: EnvParams, streams: ScenarioStreams
 ) -> ScenarioState:

@@ -220,7 +220,7 @@ def from_falsifiers(
 ) -> ScenarioSchedule:
     """Turn discovered worst cases into an auto-curriculum stage.
 
-    ``falsifiers`` are the JAX package's ``adversary.Falsifier`` objects or
+    ``falsifiers`` are ``adversary.Falsifier`` objects (either package's) or
     their ``record()`` dicts (anything with ``scenario`` + ``severity``). Each one registers a derived
     spec ``adv:{scenario}`` whose severity-1 magnitudes are the base
     family's scaled to the falsifier severity (times

@@ -56,7 +56,8 @@ class PhaseGraph:
     """``fn`` (a phase of the iteration, no arguments) as a CUDA graph on
     its second call; see the module docstring. With ``capture`` False every
     call runs ``fn`` eagerly on the current stream (the CPU, and the
-    card's eager comparisons)."""
+    card's eager comparisons). ``guard`` (``analysis.guards.RetraceGuard``)
+    counts the capture as a build of the program, for ``signature``."""
 
     def __init__(
         self,
@@ -64,11 +65,15 @@ class PhaseGraph:
         fn: Callable[[], None],
         generators: Sequence[torch.Generator] = (),
         capture: bool = True,
+        guard=None,
+        signature: tuple = (),
     ) -> None:
         self.name = name
         self.fn = fn
         self.generators = list(generators)
         self.capture = capture
+        self.guard = guard
+        self.signature = signature
         self.calls = 0
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: Dict[str, int] = {}
@@ -82,6 +87,8 @@ class PhaseGraph:
             self._warm_up()
         else:
             if self.graph is None:
+                if self.guard is not None:
+                    self.guard.record(*self.signature)
                 self._capture()
             self.graph.replay()
             knn_cuda.count_replay(self.launches)

@@ -66,6 +66,7 @@ import torch
 
 from marl_distributedformation_tpu_torch.algo import PPOConfig
 from marl_distributedformation_tpu_torch.device import resolve_device
+from marl_distributedformation_tpu_torch.envs import spec_for_params
 from marl_distributedformation_tpu_torch.models import (
     CTDEActorCritic,
     GNNActorCritic,
@@ -256,6 +257,14 @@ def build_hetero_trainer(
     """The curriculum's trainer, as the root ``train.py``'s
     ``build_hetero_trainer``: formation env, ring observations, the MLP or
     CTDE policy; ``num_seeds > 1`` candidates in one population."""
+    env_name = spec_for_params(env_params).name
+    if env_name != "formation":
+        raise SystemExit(
+            f"curriculum training is formation-only (the hetero padded-"
+            f"formation machinery wraps env/hetero.py, not the registered-"
+            f"env dispatch); env={env_name!r} does not compose — drop "
+            "curriculum or set env=formation"
+        )
     policy = cfg.get("policy", "mlp")
     if policy not in ("mlp", "ctde"):
         raise SystemExit(

@@ -63,11 +63,8 @@ from marl_distributedformation_tpu_torch.compat.convert import (
     params_to_jax,
 )
 from marl_distributedformation_tpu_torch.device import DeviceLike, resolve_device
-from marl_distributedformation_tpu_torch.env.formation import (
-    compute_obs,
-    reset_batch,
-)
 from marl_distributedformation_tpu_torch.env.types import EnvParams
+from marl_distributedformation_tpu_torch.envs import spec_for_params
 from marl_distributedformation_tpu_torch.models.population import (
     PopulationModel,
 )
@@ -213,12 +210,11 @@ class SweepTrainer:
 
     def _initial_env(self) -> Tuple[Any, Tensor]:
         """The env carry the population starts from: every member's reset
-        drawn from its own generator, and the observation."""
-        state = reset_batch(
+        of the run's env drawn from its own generator, and the
+        observation."""
+        return spec_for_params(self.env_params).reset_env(
             self.env_params, self.num_seeds * self.config.num_formations,
-            self.generators, self.device,
-        )
-        return state, compute_obs(state.agents, state.goal, self.env_params)
+            self.generators, self.device)
 
     def _iteration_options(self) -> Dict[str, Any]:
         """Further arguments of the population's ``PopulationIteration``."""

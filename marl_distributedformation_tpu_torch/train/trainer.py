@@ -66,14 +66,11 @@ from marl_distributedformation_tpu_torch.compat.convert import (
     params_to_jax,
 )
 from marl_distributedformation_tpu_torch.device import DeviceLike, resolve_device
-from marl_distributedformation_tpu_torch.env.formation import (
-    compute_obs,
-    reset_batch,
-)
 from marl_distributedformation_tpu_torch.env.types import (
     EnvParams,
     FormationState,
 )
+from marl_distributedformation_tpu_torch.envs import spec_for_params
 from marl_distributedformation_tpu_torch.scenarios import (
     ScenarioParams,
     ScenarioStreams,
@@ -307,6 +304,9 @@ class Trainer:
         self.device = resolve_device(device)
         ppo = fill_ent_schedule(ppo, env_params, config)
         self.env_params = env_params
+        # The env is resolved from the params type, as eval and the
+        # scenario engine resolve it.
+        self.env_spec = spec_for_params(env_params)
         self.ppo = ppo
         self.config = config
         self.num_envs = config.num_formations * env_params.num_agents
@@ -392,11 +392,11 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def _initial_env(self) -> Tuple[FormationState, Tensor]:
-        """The env carry the run starts from: a reset drawn from the run's
-        generator, and its observation."""
-        state = reset_batch(self.env_params, self.config.num_formations,
-                            self.generator, self.device)
-        return state, compute_obs(state.agents, state.goal, self.env_params)
+        """The env carry the run starts from: a reset of the run's env drawn
+        from the run's generator, and its observation."""
+        return self.env_spec.reset_env(
+            self.env_params, self.config.num_formations, self.generator,
+            self.device)
 
     def _iteration_options(self) -> Dict[str, Any]:
         """Further arguments of the run's ``PhasedIteration``."""

@@ -5,8 +5,7 @@ and training need: ``load_config`` with ``PRESETS``, ``apply_overrides``,
 ``validate_override_keys`` and ``env_params_from_config``, which resolve
 ``env=`` through the env registry (``envs/``) and validate overrides against
 the selected env's params class, and ``scenario_schedule_from_config``. The
-port reads the same YAML file and never writes it. ``env=pursuit_evasion``
-is not ported yet (ROADMAP A10).
+port reads the same YAML file and never writes it.
 """
 
 from __future__ import annotations
@@ -20,10 +19,6 @@ from typing import Any, Dict, Iterable, List, Optional
 import yaml
 
 from marl_distributedformation_tpu_torch.envs import EnvSpec, get_env
-
-# Environments of the JAX package the port has not ported, and the ROADMAP
-# item that ports each.
-UNPORTED_ENVS = {"pursuit_evasion": "A10"}
 
 # Dot-less scientific notation that YAML 1.1 leaves as a string.
 _SCI_NOTATION_RE = re.compile(r"^[+-]?\d+(\.\d*)?[eE][+-]?\d+$")
@@ -145,16 +140,9 @@ def scenario_schedule_from_config(cfg: Config):
 
 def env_spec_or_exit(name: Any) -> EnvSpec:
     """The registered env of that name; the registry's ValueError
-    (did-you-mean and listing) becomes the entry point's SystemExit, and a
-    JAX env the port lacks exits naming its ROADMAP item."""
-    name = str(name)
-    if name in UNPORTED_ENVS:
-        raise SystemExit(
-            f"env={name!r} is not ported yet (ROADMAP "
-            f"{UNPORTED_ENVS[name]}); the port has env=formation"
-        )
+    (did-you-mean and listing) becomes the entry point's SystemExit."""
     try:
-        return get_env(name)
+        return get_env(str(name))
     except ValueError as e:
         raise SystemExit(str(e)) from e
 

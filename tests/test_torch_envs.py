@@ -1,9 +1,8 @@
 """The port's env-spec layer (``envs/``) and its config resolution against
 the JAX package on the CPU: declared observation layouts, the registry's
 contents and fail-fast messages, and ``env=`` through ``utils/config.py``.
-The JAX package registers ``pursuit_evasion`` too, which the port refuses
-naming ROADMAP A10; messages are compared with the listing the port's
-registry has."""
+Both packages register ``formation`` and ``pursuit_evasion``, in that
+order, so their messages are compared whole."""
 
 import dataclasses
 
@@ -61,15 +60,14 @@ def test_formation_spec_is_the_env_functions():
 
 
 def test_registry_contents_and_fail_fast_messages():
-    assert envs.registered_envs() == ("formation",)
-    assert jenvs.registered_envs()[:1] == ("formation",)
-    listing = ", ".join(jenvs.registered_envs())
-    for name in ("formaton", "swarm"):
+    assert envs.registered_envs() == jenvs.registered_envs() == (
+        "formation", "pursuit_evasion")
+    for name in ("formaton", "swarm", "pursuit"):
         with pytest.raises(ValueError) as ours:
             envs.get_env(name)
         with pytest.raises(ValueError) as ref:
             jenvs.get_env(name)
-        assert str(ours.value) == str(ref.value).replace(listing, "formation")
+        assert str(ours.value) == str(ref.value)
     with pytest.raises(ValueError) as ours:
         envs.register_env(envs.FORMATION_SPEC)
     with pytest.raises(ValueError) as ref:
@@ -107,7 +105,8 @@ def test_spec_for_params_and_register_as_jax(monkeypatch):
     envs.register_env(sub_spec)
     assert envs.spec_for_params(Sub()) is sub_spec
     assert envs.spec_for_params(EnvParams()) is envs.FORMATION_SPEC
-    assert envs.registered_envs() == ("formation", "formation2")
+    assert envs.registered_envs() == ("formation", "pursuit_evasion",
+                                      "formation2")
 
 
 @pytest.mark.parametrize("override", ["env=formaton", "env=swarm"])
@@ -116,15 +115,15 @@ def test_config_env_typos_exit_with_the_registry_message(override):
         config.validate_override_keys([override])
     with pytest.raises(SystemExit) as ref:
         jconfig.validate_override_keys([override])
-    listing = ", ".join(jenvs.registered_envs())
-    assert str(ours.value) == str(ref.value).replace(listing, "formation")
+    assert str(ours.value) == str(ref.value)
 
 
 def test_config_resolves_env_through_the_registry():
     """``env=formation`` builds ``EnvParams`` with every field the config
     sets; a field of the params class that the YAML omits validates (as
     the JAX package's selected-env validation allows); ``pursuit_evasion``
-    is refused naming ROADMAP A10 by both entry paths."""
+    resolves to its params class with its knobs, as in the JAX package,
+    by both entry paths."""
     config.validate_override_keys(["max_steps=12", "env=formation"])
     jconfig.validate_override_keys(["max_steps=12", "env=formation"])
     cfg = config.load_config(["max_steps=12", "num_agents_per_formation=7"])
@@ -132,10 +131,12 @@ def test_config_resolves_env_through_the_registry():
     want = jconfig.env_params_from_config(
         jconfig.load_config(["max_steps=12", "num_agents_per_formation=7"]))
     assert dataclasses.asdict(params) == dataclasses.asdict(want)
-    with pytest.raises(SystemExit, match="ROADMAP A10"):
-        config.validate_override_keys(["env=pursuit_evasion"])
-    with pytest.raises(SystemExit, match="ROADMAP A10"):
-        config.env_params_from_config(
-            config.load_config(["env=pursuit_evasion"]))
+    config.validate_override_keys(["env=pursuit_evasion",
+                                   "pursuer_speed=5"])
+    pursuit = ["env=pursuit_evasion", "pursuer_speed=5", "max_steps=12"]
+    params = config.env_params_from_config(config.load_config(pursuit))
+    want = jconfig.env_params_from_config(jconfig.load_config(pursuit))
+    assert type(params).__name__ == type(want).__name__ == "PursuitParams"
+    assert dataclasses.asdict(params) == dataclasses.asdict(want)
     with pytest.raises(SystemExit, match="did you mean 'max_steps'"):
         config.validate_override_keys(["max_step=3"])

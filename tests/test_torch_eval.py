@@ -198,10 +198,18 @@ def test_evaluate_entry_points_on_cpu(tmp_path, capsys):
 
 
 def test_evaluate_cli_rejects_bad_keys():
+    """A mistyped key exits naming the right one; ``env=pursuit_evasion``
+    (ported) evaluates, and its knobs validate only under it."""
     with pytest.raises(SystemExit, match="did you mean 'eval_formations'"):
         evaluate_cli.main(["eval_formation=4", "device=cpu"])
-    with pytest.raises(SystemExit, match="not ported"):
-        evaluate_cli.main(["env=pursuit_evasion", "device=cpu"])
+    with pytest.raises(SystemExit, match="capture_radius"):
+        evaluate_cli.main([f"checkpoint={CKPT}", "capture_radius=20",
+                           "device=cpu"])
+    res = evaluate_cli.main([
+        f"checkpoint={CKPT}", "env=pursuit_evasion", "capture_radius=20",
+        "eval_formations=2", "max_steps=20", "device=cpu",
+    ])
+    assert all(np.isfinite(v) for v in res.values() if isinstance(v, float))
 
 
 @pytest.mark.parametrize("argv", [
@@ -210,11 +218,19 @@ def test_evaluate_cli_rejects_bad_keys():
     ["scenario=wnd"],
     ["scenario=gale", "scenario_severity=0.5"],
 ])
-def test_evaluate_cli_scenario_refusals_as_root_evaluate(argv):
+def test_evaluate_cli_scenario_refusals_as_root_evaluate(argv, monkeypatch):
     """The root ``evaluate.py``'s refusals, with its messages: the plural
-    training key, a severity with no scenario, an unknown name."""
+    training key, a severity with no scenario, an unknown name. Both
+    registries hold their registered defaults, as a fresh process's do:
+    the ``adv:`` specs other tests in the process derived stay out of the
+    listed names."""
     import evaluate as root_evaluate
+    from marl_distributedformation_tpu.scenarios import registry as jreg
+    from marl_distributedformation_tpu_torch.scenarios import registry as preg
 
+    for mod in (preg, jreg):
+        monkeypatch.setattr(mod, "_REGISTRY",
+                            {spec.name: spec for spec in mod._DEFAULT_SPECS})
     with pytest.raises(SystemExit) as ours:
         evaluate_cli.main([*argv, "device=cpu"])
     with pytest.raises(SystemExit) as ref:

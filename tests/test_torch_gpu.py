@@ -799,3 +799,129 @@ def test_scenario_graphs_hold_across_a_stage_change(cuda, tmp_path):
                        eager.scenario_generator.get_state())
     assert torch.equal(captured.scenario_params.wind,
                        eager.scenario_params.wind)
+
+
+def _gnn100(seed=0):
+    from marl_distributedformation_tpu_torch.models import GNNActorCritic
+
+    gen = torch.Generator().manual_seed(seed)
+    return GNNActorCritic(k=4, generator=gen)
+
+
+MATRIX_CELLS = (("clean", 0.0), ("wind", 0.5), ("storm", 1.0),
+                ("comm_dropout", 1.0), ("sensor_noise", 0.0))
+
+
+def test_matrix_captured_equals_eager(cuda):
+    """The robustness matrix's step captured as one CUDA graph against the
+    same program run eagerly, cell by cell (N=100, M=16, ``knn_fused``):
+    every metric bitwise; one build each across the cells and two
+    parameter sets; the clean cell bitwise ``eval.run_episode_metrics``;
+    ``knn_fused`` launches episode_length + 1 a cell, by replay."""
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.eval import (
+        episode_length,
+        policy_act_fn,
+        run_episode_metrics,
+    )
+    from marl_distributedformation_tpu_torch.scenarios import (
+        MatrixProgram,
+        scenario_params_for,
+    )
+
+    params = EnvParams(num_agents=100, obs_mode="knn", knn_k=4,
+                       max_steps=30)
+    models = [_gnn100(0).to(cuda), _gnn100(1).to(cuda)]
+    runs = {}
+    for capture in (True, False):
+        prog = MatrixProgram(models[0], params, num_formations=16,
+                             device=cuda, capture=capture)
+        knn_cuda.reset_launches()
+        runs[capture] = [prog.run(m.state_dict(),
+                                  scenario_params_for(name, sev))
+                         for m in models for name, sev in MATRIX_CELLS]
+        torch.cuda.synchronize()
+        assert prog.compile_count == 1
+        assert knn_cuda.LAUNCHES["knn_fused"] == (
+            len(runs[capture]) * (episode_length(params) + 1))
+    for got, want in zip(runs[True], runs[False]):
+        for key in want:
+            assert torch.equal(got[key], want[key]), key
+    raw = run_episode_metrics(policy_act_fn(models[0], params), params, 16,
+                              device=cuda)
+    for key in raw:
+        assert torch.equal(runs[True][0][key], raw[key]), key
+
+
+def test_population_fold_through_knn_fused(cuda):
+    """The falsifier search's population folded into the formation batch
+    (P=13 candidates x M=8 formations, N=100) through ``knn_fused``: every
+    severity-0 row bitwise the clean row; captured == eager bitwise; a
+    disturbed row within rtol 1e-5 of the matrix cell (batched GEMMs of
+    P x M rows may round differently from M-row ones)."""
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.scenarios import (
+        get_scenario,
+        make_matrix_runner,
+        make_population_runner,
+        registered_scenarios,
+    )
+    from marl_distributedformation_tpu_torch.scenarios.adversary import (
+        _stack_rows,
+    )
+
+    params = EnvParams(num_agents=100, obs_mode="knn", knn_k=4,
+                       max_steps=30)
+    model = _gnn100().to(cuda)
+    rows = ([(get_scenario("clean"), 0.0)]
+            + [(get_scenario(n), 0.0) for n in registered_scenarios()]
+            + [(get_scenario("wind"), 0.7)])
+    outs = {}
+    for capture in (True, False):
+        run, guard = make_population_runner(model, params, 8, device=cuda,
+                                            capture=capture)
+        knn_cuda.reset_launches()
+        outs[capture] = run(model.state_dict(), _stack_rows(rows))
+        torch.cuda.synchronize()
+        assert guard.count == 1
+        assert knn_cuda.LAUNCHES == {"knn_fused": 33, "knn_tiled": 0}
+    for key, values in outs[True].items():
+        assert torch.equal(values, outs[False][key]), key
+        for i in range(1, len(rows) - 1):
+            assert torch.equal(values[i], values[0]), (key, rows[i][0].name)
+    cell, _ = make_matrix_runner(model, params, 8, device=cuda)
+    want = cell(model.state_dict(), get_scenario("wind").build(0.7))
+    for key, value in want.items():
+        torch.testing.assert_close(outs[True][key][-1], value, rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_pursuit_kernel_path_equals_plain_path(cuda):
+    """Pursuit-evasion on k-NN observations (N=100, M=64, 30 steps through
+    a reset): ``knn_fused`` against the plain k-NN, every metric bitwise;
+    the pursuer's nearest evader is the first of equal distances."""
+    from marl_distributedformation_tpu_torch.envs import PursuitParams
+    from marl_distributedformation_tpu_torch.envs.pursuit import (
+        nearest_index,
+    )
+    from marl_distributedformation_tpu_torch.eval import (
+        evaluate,
+        policy_act_fn,
+    )
+
+    model = _gnn100().to(cuda)
+    runs = {}
+    for impl in ("auto", "torch"):
+        params = PursuitParams(num_agents=100, obs_mode="knn", knn_k=4,
+                               max_steps=28, knn_impl=impl)
+        knn_cuda.reset_launches()
+        runs[impl] = evaluate(policy_act_fn(model, params), params, 64,
+                              seed=5, device=cuda)
+        assert knn_cuda.LAUNCHES["knn_fused"] == (31 if impl == "auto"
+                                                  else 0)
+    assert runs["auto"] == runs["torch"]
+    dists = torch.tensor([[3.0, 1.0, 1.0, 2.0], [0.5, 0.5, 0.5, 0.5],
+                          [2.0, float("nan"), 0.1, float("nan")]],
+                         device=cuda).repeat(1000, 1)
+    want = torch.tensor([1, 0, 1], device=cuda).repeat(1000)
+    assert torch.equal(nearest_index(dists), want)

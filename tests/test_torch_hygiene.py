@@ -12,7 +12,9 @@ from pathlib import Path
 import pytest
 import torch
 
+from marl_distributedformation_tpu_torch import adversarial_search
 from marl_distributedformation_tpu_torch import evaluate as evaluate_cli
+from marl_distributedformation_tpu_torch import robustness_matrix
 from marl_distributedformation_tpu_torch.device import resolve_device
 from marl_distributedformation_tpu_torch.env import EnvParams, make_vec_env
 from marl_distributedformation_tpu_torch.eval import evaluate, zero_act_fn
@@ -59,7 +61,10 @@ def test_sources_found():
     assert {"envs/spec.py", "envs/registry.py", "envs/formation.py",
             "scenarios/params.py", "scenarios/registry.py",
             "scenarios/layers.py", "scenarios/engine.py",
-            "scenarios/schedule.py"} <= rel
+            "scenarios/schedule.py", "scenarios/matrix.py",
+            "scenarios/adversary.py", "envs/pursuit.py",
+            "analysis/guards.py", "robustness_matrix.py",
+            "adversarial_search.py"} <= rel
     assert (PORT / "csrc" / "knn.cu").exists()
 
 
@@ -96,6 +101,10 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked_for(monkeypatch):
         make_vec_env(params, 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         evaluate_cli.main(["eval_formations=2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        robustness_matrix.main(["eval_formations=2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        adversarial_search.main(["eval_formations=2"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(params, config=TrainConfig(num_formations=2),
                 model=MLPActorCritic(params.obs_dim))

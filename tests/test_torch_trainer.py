@@ -429,7 +429,6 @@ CURRICULUM = "curriculum=[{rollouts: 2, agent_counts: [3]}]"
 
 
 @pytest.mark.parametrize("override,match", [
-    ("env=pursuit_evasion", "ROADMAP A10"),
     ("platform=cpu", "device=cuda"),
     ("backend=torch", "device=cuda"),
     ("num_formations=4", "did you mean 'num_formation'"),
@@ -442,6 +441,8 @@ CURRICULUM = "curriculum=[{rollouts: 2, agent_counts: [3]}]"
      "curriculum training supports policy=mlp"),
     (f"obs_mode=knn {CURRICULUM}",
      "curriculum training uses the ring observation model"),
+    (f"env=pursuit_evasion {CURRICULUM}",
+     "curriculum training is formation-only"),
     (f"num_seeds=2 learning_rates=[1e-3,3e-3] {CURRICULUM}",
      "learning_rates does not compose with curriculum populations"),
     (f"fused_chunk=2 {CURRICULUM}",
