@@ -156,12 +156,36 @@ Phases (any failure exits non-zero):
      mean action printed, not gated); every scenario at severity 0 equals
      clean pursuit bitwise (M=1024, 50 steps) and ``moving_goal`` at 0.5
      differs; s/iteration beside ``gnn100``'s.
-10. Print the kernels' JSON line (launches and timings at the training
+10. Serving (``serving/``: the bucketed engine, one CUDA graph a rung,
+   the micro-batch scheduler, the hot-reload registry), ladder
+   1/8/64/512:
+   - the committed MLP checkpoint on flat ring rows, a seeded-init MLP and
+     ``gnn100``'s checkpoint (N=100, k=4) on real k-NN request rows of
+     (100, 20): env states at M=1024 through ``compute_obs_knn`` and
+     ``knn_fused`` (2 launches); at every rung the captured rung equals
+     the eager one bitwise and ``LoadedPolicy.predict`` within rtol 1e-5,
+     atol 1e-6, also on a request of 3 chunks; two stochastic dispatches
+     differ; the seeded MLP's bf16 ladder is within
+     ``tests/bf16_budget.py``'s budget of the f32 one (the trained
+     checkpoints' bf16 divergences printed); each rung's replay, ``act``
+     and eager ``act`` times, the top rung's copy in.
+   - a mixed stream over every rung (4 client threads, 48 requests) with
+     a hot swap from ``gnn100`` to ``scen100`` (its checkpoint copied into
+     the served directory under a larger step): every request answered,
+     one capture a rung and the same graphs, ``model_step`` never
+     decreasing in completion order, actions after the swap equal
+     ``scen100``'s ``predict``.
+   - ``run_smoke_benchmark`` on the ``gnn100`` scheduler (sizes 1-100
+     formations, 4 clients, 3 s): requests/s, rows/s, agent-rows/s,
+     p50/p95/p99, occupancy; the device's busy share over a profiled
+     smoke; ``max_rate_at_slo`` at a 50 ms p95.
+11. Print the kernels' JSON line (launches and timings at the training
    paths' shapes, those of the eval paths under ``eval``, the population
    paths' under ``population``, ``ctde_knn``'s launches under
-   ``ctde_knn``, ``scen100``'s under ``scenario``, and phase 9's under
-   ``matrix``, ``adversary``, ``population61`` and ``chase``), the card
-   line, and the last line ``{"ok": true, "device": {...}}``.
+   ``ctde_knn``, ``scen100``'s under ``scenario``, phase 9's under
+   ``matrix``, ``adversary``, ``population61`` and ``chase``, and phase
+   10's request rows under ``serving``), the card line, and the last line
+   ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero with no result when no GPU is found.
 """
@@ -2223,6 +2247,343 @@ def robustness_phase(gnn100, scen100_ckpt):
     return launches
 
 
+# Phase 10: serving. The ladder, the smoke's sizes and clients, and the p95
+# target of the JAX package's serving bench (bench.py:1538).
+SERVE_BUCKETS = (1, 8, 64, 512)
+SERVE_P95_MS = 50.0
+SERVE_RTOL, SERVE_ATOL = 1e-5, 1e-6  # served against LoadedPolicy.predict
+
+
+def bf16_action_atol(num_layers: int) -> float:
+    """``tests/bf16_budget.py``'s action budget of a depth-``num_layers``
+    tanh-MLP served in bf16: two casts a layer and the obs cast, each half
+    an ulp of bf16."""
+    return (2 * num_layers + 1) * 2.0 ** -9
+
+
+def serve_rows(m=1024):
+    """Real k-NN request rows for the 100-agent GNN: the port's env at
+    N=100, k=4, reset and stepped once with random actions, the
+    observations built by ``compute_obs_knn`` through ``knn_fused``.
+    Returns ``(rows (2m, 100, 20) numpy, knn_fused launches)``."""
+    import numpy as np
+    import torch
+
+    from marl_distributedformation_tpu_torch.env import EnvParams, make_vec_env
+    from marl_distributedformation_tpu_torch.ops import knn_cuda
+
+    params = EnvParams(num_agents=100, obs_mode="knn", knn_k=4)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    knn_cuda.reset_launches()
+    reset_fn, step_fn = make_vec_env(params, m, device="cuda", generator=gen)
+    state, obs = reset_fn()
+    act = torch.rand((m, 100, 2), generator=gen, device="cuda") * 2 - 1
+    _, tr = step_fn(state, act)
+    rows = torch.cat([obs, tr.obs]).cpu().numpy()
+    launches = knn_cuda.LAUNCHES["knn_fused"]
+    if launches != 2 or not np.isfinite(rows).all():
+        raise AssertionError(f"serve rows: {launches} knn_fused launches, "
+                             "want 2, and finite observations")
+    return rows, launches
+
+
+def ring_rows(m=1024):
+    """Flat request rows for the committed MLP: ring observations of the
+    port's env at N=5, one row an agent."""
+    import torch
+
+    from marl_distributedformation_tpu_torch.env import EnvParams, make_vec_env
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    reset_fn, _ = make_vec_env(EnvParams(), m, device="cuda", generator=gen)
+    _, obs = reset_fn()
+    return obs.reshape(-1, obs.shape[-1]).cpu().numpy()
+
+
+def act_ms(engine, rows, reps):
+    """CUDA events on the engine's stream around ``engine.act``: staging,
+    the copy in, the rung, the copy out and the host's wait."""
+    import torch
+
+    with torch.cuda.stream(engine._stream):
+        engine.act(rows)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            engine.act(rows)
+        end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def replay_ms(graph, stream, reps):
+    """CUDA events around back-to-back replays of one captured rung."""
+    import torch
+
+    with torch.cuda.stream(stream):
+        graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def serve_ladder(label, policy, rows, layers):
+    """The captured ladder against the eager one, rung by rung: bitwise,
+    served == ``LoadedPolicy.predict`` within tolerance, two stochastic
+    dispatches differ, bf16 against f32; then each rung's replay, act and
+    eager act times. Returns the captured engine."""
+    import numpy as np
+    import torch
+
+    from marl_distributedformation_tpu_torch.serving import (
+        BucketedPolicyEngine,
+    )
+
+    engine = BucketedPolicyEngine(policy, buckets=SERVE_BUCKETS)
+    eager = BucketedPolicyEngine(policy, buckets=SERVE_BUCKETS, capture=False)
+    bf16 = BucketedPolicyEngine(policy, buckets=SERVE_BUCKETS,
+                                dtype="bfloat16")
+    worst = bf16_worst = 0.0
+    for b in SERVE_BUCKETS:
+        x = rows[:b]
+        got, want = engine.act(x), eager.act(x)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{label}: captured rung {b} differs from "
+                                 f"eager by {np.abs(got - want).max()}")
+        ref, _ = policy.predict(x)
+        np.testing.assert_allclose(got, ref, rtol=SERVE_RTOL,
+                                   atol=SERVE_ATOL,
+                                   err_msg=f"{label} rung {b} vs predict")
+        worst = max(worst, float(np.abs(got - ref).max()))
+        bf16_worst = max(bf16_worst, float(np.abs(bf16.act(x) - got).max()))
+    big = rows[: 2 * SERVE_BUCKETS[-1] + 70]  # two top chunks and a 64-rung
+    np.testing.assert_allclose(engine.act(big), policy.predict(big)[0],
+                               rtol=SERVE_RTOL, atol=SERVE_ATOL)
+    a1 = engine.act(rows[:64], deterministic=False)
+    a2 = engine.act(rows[:64], deterministic=False)
+    if np.array_equal(a1, a2):
+        raise AssertionError(f"{label}: two stochastic dispatches are equal")
+    counts = engine.compile_counts()
+    if counts != dict.fromkeys(SERVE_BUCKETS, 1):
+        raise AssertionError(f"{label}: captures {counts}, want 1 a rung")
+    print(f"[serve] {label}: captured == eager bitwise at rungs "
+          f"{SERVE_BUCKETS}; served == predict within rtol {SERVE_RTOL} atol "
+          f"{SERVE_ATOL} (max abs diff {worst:.3g}) and on {len(big)} rows "
+          f"(3 chunks); stochastic dispatches differ; captures {counts}")
+    if layers is not None:
+        atol = bf16_action_atol(layers)
+        if not bf16_worst <= atol:
+            raise AssertionError(f"{label}: bf16 ladder off f32 by "
+                                 f"{bf16_worst}, budget {atol}")
+        print(f"[serve] {label} bf16 ladder vs f32: max abs {bf16_worst:.3g} "
+              f"within the budget {atol:.4g} ({layers} layers)")
+    else:
+        print(f"[serve] {label} bf16 ladder vs f32: max abs {bf16_worst:.3g} "
+              "(a measurement, not gated: the budget is derived for a "
+              "seeded-init tanh-MLP)")
+    for b in SERVE_BUCKETS:
+        reps = 200 if b < 512 else 50
+        rung = engine.rung(b)
+        t_replay = replay_ms(rung.graph.graph, engine._stream, reps)
+        t_act = act_ms(engine, rows[:b], reps)
+        t_eager = act_ms(eager, rows[:b], max(10, reps // 4))
+        mb = rows[:b].nbytes / 1e6
+        print(f"[serve] {label} rung {b}: replay {t_replay:.4f} ms (device, "
+              f"events over back-to-back replays, {rung.graph.nodes} graph "
+              f"nodes), act {t_act:.4f} ms (staging, {mb:.3f} MB in, replay, "
+              f"out; events on the engine's stream), eager act "
+              f"{t_eager:.4f} ms ({t_eager / t_act:.2f}x)")
+    top = engine.rung(SERVE_BUCKETS[-1])
+    stage = engine._stage_in[: SERVE_BUCKETS[-1]]
+    with torch.cuda.stream(engine._stream):
+        h2d = time_ms(lambda: top.x.copy_(stage, non_blocking=True), 50)
+    print(f"[serve] {label} rung {SERVE_BUCKETS[-1]}: the copy in of "
+          f"{stage.numel() * 4 / 1e6:.3f} MB from pinned memory "
+          f"{h2d:.4f} ms ({stage.numel() * 4 / h2d / 1e6:.1f} GB/s)")
+    return engine
+
+
+def serve_stream(engine, registry, rows, serve_dir, scen100_ckpt, p100):
+    """A mixed stream over every rung from 4 client threads with a hot swap
+    from ``gnn100`` to ``scen100`` in its middle: no request dropped, one
+    capture a rung, ``model_step`` never decreasing in completion order,
+    the rung graphs the same objects, and actions after the swap equal to
+    ``scen100``'s policy's."""
+    import shutil
+    import threading
+
+    import numpy as np
+
+    from marl_distributedformation_tpu_torch.compat.policy import LoadedPolicy
+    from marl_distributedformation_tpu_torch.serving import (
+        MicroBatchScheduler,
+    )
+    from marl_distributedformation_tpu_torch.utils.checkpoint import (
+        checkpoint_step,
+    )
+
+    graphs = {b: id(engine.rung(b).graph.graph) for b in SERVE_BUCKETS}
+    done, lock = [], threading.Lock()
+    sizes = (1, 3, 8, 9, 40, 64, 100, 512, 600)
+    futures = []
+    step0 = registry.active_step
+
+    def client(i):
+        for j in range(12):
+            n = sizes[(i + j) % len(sizes)]
+            start = (i * 97 + j * 31) % (len(rows) - n)
+            fut = sched.submit(rows[start:start + n], timeout_s=60.0)
+            fut.add_done_callback(record)
+            with lock:
+                futures.append(fut)
+            fut.result(timeout=120)
+
+    def record(fut):
+        # Completion order: the worker resolves futures one by one.
+        with lock:
+            done.append(None if fut.exception() is not None
+                        else fut.result().model_step)
+
+    with MicroBatchScheduler(engine, registry=registry, window_ms=2.0,
+                             max_queue=1024) as sched:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        deadline = time.perf_counter() + 120.0
+        while len(done) < 20 and time.perf_counter() < deadline:
+            time.sleep(0.005)
+        swap_step = checkpoint_step(scen100_ckpt) + step0 + 1
+        shutil.copy(scen100_ckpt,
+                    serve_dir / f"rl_model_{swap_step}_steps.msgpack")
+        if not registry.refresh():
+            raise AssertionError(f"serve: no swap to scen100: "
+                                 f"{list(registry.load_errors)}")
+        for t in threads:
+            t.join(timeout=300)
+        after = sched.submit(rows[:600]).result(timeout=120)
+    if any(t.is_alive() for t in threads) or None in done:
+        raise AssertionError("serve: a client stalled or a request failed")
+    if len(done) != len(futures) or len(done) != 48:
+        raise AssertionError(f"serve: {len(done)} of {len(futures)} "
+                             "requests answered, want 48")
+    if done != sorted(done) or done[0] != step0 or done[-1] != swap_step:
+        raise AssertionError(f"serve: model_step out of order: {done}")
+    counts = engine.compile_counts()
+    if counts != dict.fromkeys(SERVE_BUCKETS, 1) or graphs != {
+            b: id(engine.rung(b).graph.graph) for b in SERVE_BUCKETS}:
+        raise AssertionError(f"serve: captures {counts} after the swap")
+    scen = LoadedPolicy.from_checkpoint(scen100_ckpt, env_params=p100,
+                                        device="cuda")
+    np.testing.assert_allclose(after.actions, scen.predict(rows[:600])[0],
+                               rtol=SERVE_RTOL, atol=SERVE_ATOL)
+    if after.model_step != swap_step:
+        raise AssertionError(f"serve: step {after.model_step} after swap")
+    print(f"[serve] gnn100 mixed stream (4 clients, sizes {sizes}, 48 "
+          f"requests) with a hot swap to scen100 at step {swap_step}: all "
+          f"answered, model_step monotonic ({done.count(step0)} at "
+          f"{step0}, {done.count(swap_step)} at {swap_step}), captures "
+          f"{counts} (the same graphs), actions after the swap == scen100's "
+          f"predict within rtol {SERVE_RTOL}")
+
+
+def serving_phase(gnn100_ckpt, scen100_ckpt, duration_s=3.0):
+    """Phase 10: the ``gnn100`` checkpoint served at (100, 20) rows on real
+    k-NN observations (``serve_ladder``, ``serve_stream``), the committed
+    MLP checkpoint beside it, then ``run_smoke_benchmark`` on the
+    ``gnn100`` scheduler (default sizes, 4 clients), its device busy share,
+    and ``max_rate_at_slo`` at a 50 ms p95. Returns ``knn_fused``'s launches
+    building the request rows."""
+    import shutil
+
+    from marl_distributedformation_tpu_torch.compat.policy import LoadedPolicy
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.serving import (
+        MicroBatchScheduler,
+        ModelRegistry,
+        max_rate_at_slo,
+        run_smoke_benchmark,
+    )
+
+    import torch
+
+    from marl_distributedformation_tpu_torch.models import MLPActorCritic
+
+    p100 = EnvParams(num_agents=100, obs_mode="knn", knn_k=4)
+    rows, launches = serve_rows()
+    mlp = LoadedPolicy.from_checkpoint(CKPT, device="cuda")
+    flat = ring_rows()
+    serve_ladder("mlp (committed checkpoint)", mlp, flat, layers=None)
+    # The bf16 budget is derived for a seeded-init tanh-MLP (its fact 4);
+    # the trained checkpoint's weights amplify more (the JAX engine's own
+    # bf16 ladder is off its f32 one by more than the budget there too:
+    # tests/test_torch_serving.py).
+    seeded = LoadedPolicy(MLPActorCritic(
+        flat.shape[1], generator=torch.Generator().manual_seed(0)).to("cuda"))
+    serve_ladder("mlp (seeded init, 64x64)", seeded, flat,
+                 layers=seeded.model.depth + 1)
+    elapsed("serve mlp")
+
+    serve_dir = ROOT / "logs" / "smoke_serve100"
+    shutil.rmtree(serve_dir, ignore_errors=True)
+    serve_dir.mkdir(parents=True)
+    shutil.copy(gnn100_ckpt, serve_dir / Path(gnn100_ckpt).name)
+    registry = ModelRegistry(serve_dir, env_params=p100, device="cuda")
+    engine = serve_ladder("gnn100", registry.policy, rows, layers=None)
+    elapsed("serve gnn100 ladder")
+    serve_stream(engine, registry, rows, serve_dir, scen100_ckpt, p100)
+    elapsed("serve gnn100 stream and swap")
+
+    with MicroBatchScheduler(engine, registry=registry) as sched:
+        r = run_smoke_benchmark(sched, row_shape=rows.shape[1:],
+                                duration_s=duration_s, num_clients=4,
+                                registry=registry)
+        if r["client_requests_ok"] == 0 or r["timeouts_total"]:
+            raise AssertionError(f"serve smoke: {r}")
+        print(f"[serve] smoke gnn100 (sizes 1,3,8,9,40,100 formations of "
+              f"100 agents, 4 clients, {r['duration_s']} s): "
+              f"{r['requests_per_sec']:.1f} requests/s, "
+              f"{r['rows_per_sec']:.1f} rows/s, "
+              f"{r['rows_per_sec'] * 100:.1f} agent-rows/s; p50 "
+              f"{r['latency_p50_ms']:.3f} ms, p95 {r['latency_p95_ms']:.3f}"
+              f" ms, p99 {r['latency_p99_ms']:.3f} ms; occupancy "
+              f"{r['batch_occupancy_pct']:.1f}%, "
+              f"{r['mean_rows_per_batch']:.1f} rows a batch, "
+              f"{r['batches']:.0f} batches; rejected "
+              f"{r['client_rejected']:.0f}")
+        seen = {}
+
+        def smoke():
+            seen.update(run_smoke_benchmark(
+                sched, row_shape=rows.shape[1:], duration_s=1.5,
+                num_clients=4, seed=1))
+
+        profile_window(smoke, "serve gnn100 smoke, 1.5 s profiled "
+                       "(the profiler slows the host)", 1, "window")
+        print(f"[serve] the profiled smoke: "
+              f"{seen['requests_per_sec']:.1f} requests/s, p95 "
+              f"{seen['latency_p95_ms']:.3f} ms")
+        elapsed("serve smoke")
+        best, reports = max_rate_at_slo(
+            sched, rows.shape[1:], SERVE_P95_MS, probe_duration_s=1.0,
+            iterations=4, seed=3)
+        last = reports[-1]
+        print(f"[serve] max_rate_at_slo gnn100 (p95 <= {SERVE_P95_MS} ms, "
+              f"loss <= 1%, loadgen's default size mix 1/4/16/64/256 "
+              f"formations): {best:.1f} requests/s over {len(reports)} "
+              f"probes; last probe {last.offered_rps:.1f} offered, p95 "
+              f"{last.p95_ms:.3f} ms, loss {last.loss_fraction:.3f}")
+    if engine.compile_counts() != dict.fromkeys(SERVE_BUCKETS, 1):
+        raise AssertionError(f"serve: captures {engine.compile_counts()}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2334,6 +2695,10 @@ def main() -> int:
     robust = robustness_phase(gnn100, scen100_ckpt)
     elapsed("phase 9, robustness matrix, falsifier search, pursuit")
 
+    # Phase 10: serving, this slice's main path.
+    serve_launches = serving_phase(gnn100["ckpt"], scen100_ckpt)
+    elapsed("phase 10, serving")
+
     replaces = {
         "knn_fused": "marl_distributedformation_tpu/ops/knn_pallas.py:117",
         "knn_tiled": "marl_distributedformation_tpu/ops/knn_pallas.py:155",
@@ -2377,6 +2742,12 @@ def main() -> int:
         "path": "adversary100 P=61",
         "launches": robust["population61"]["knn_fused"],
         **stats["knn_fused"]["population61"]}
+    # Phase 10's request rows: env states through knn_fused at the train
+    # shape, (1024,100,4), timed above (the served GNN reads its neighbor
+    # indices from the rows and launches no kernel).
+    kernels[0]["serving"] = {"path": "serve100 request rows",
+                             "launches": serve_launches,
+                             "shape": stats["knn_fused"]["train"]["shape"]}
     kernels[0]["chase"] = {"path": "train chase100",
                            "launches": robust["chase100"],
                            "shape": stats["knn_fused"]["train"]["shape"]}

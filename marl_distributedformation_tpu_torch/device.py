@@ -26,10 +26,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     ``None`` means ``"cuda"``. A CUDA device raises ``RuntimeError`` when
     ``torch.cuda.is_available()`` is false. Also turns TF32 off for matmuls
     and cuDNN: the port's float32 results are compared with the JAX
-    reference, and TF32 keeps only about three decimal digits.
+    reference, and TF32 keeps only about three decimal digits. And turns
+    off cuBLAS's reduced-precision reductions in bf16 GEMMs (the serving
+    engine's bf16 rungs), so their products accumulate in float32, as the
+    bf16 action budget assumes (``tests/bf16_budget.py``, fact 2).
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

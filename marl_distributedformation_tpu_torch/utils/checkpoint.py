@@ -288,6 +288,64 @@ def restore_latest_partial(
         return path, {k: raw[k] for k in keys if k in raw}
 
 
+def restore_state_dict_partial(
+    raw: Mapping[str, Any], template: Mapping[str, Any],
+    origin: str = "<state dict>",
+) -> dict:
+    """Each key of ``template`` that ``raw`` (a parsed checkpoint) holds,
+    validated against the template's tree: the JAX package's
+    ``utils/checkpoint.py::restore_state_dict_partial``, whose flax restore
+    takes the template's keys at every level and ignores extra keys of the
+    file. A missing or renamed subtree, a dict where an array belongs (or
+    the reverse), another leaf shape, or another dtype where both leaves are
+    arrays raises ``ValueError`` naming ``origin``, the key and the leaf: a
+    checkpoint of another architecture, or the same shapes at a drifted
+    dtype, is refused here rather than served. Scalar template leaves
+    (``num_timesteps: 0``) restore at whatever integer width was written."""
+    restored = {}
+    for key, tmpl in template.items():
+        if key in raw:
+            restored[key] = _restore_subtree(tmpl, raw[key], origin, key, "")
+    return restored
+
+
+def _restore_subtree(tmpl: Any, value: Any, origin: str, key: str,
+                     path: str) -> Any:
+    where = path or "the root"
+    if isinstance(tmpl, Mapping):
+        missing = ([k for k in tmpl if k not in value]
+                   if isinstance(value, Mapping) else None)
+        if missing is None or missing:
+            found = (f"lacks {missing}" if missing
+                     else f"holds a {type(value).__name__}, not a dict")
+            raise ValueError(
+                f"checkpoint {origin}: key {key!r} does not match the "
+                f"restore template (architecture mismatch?): {where} {found}"
+            )
+        return {k: _restore_subtree(t, value[k], origin, key, f"{path}[{k!r}]")
+                for k, t in tmpl.items()}
+    if isinstance(value, Mapping):
+        raise ValueError(
+            f"checkpoint {origin}: key {key!r} tree structure does not match "
+            f"the restore template — architecture mismatch (a dict at leaf "
+            f"{where})"
+        )
+    t_shape, r_shape = np.shape(tmpl), np.shape(value)
+    t_dtype = getattr(tmpl, "dtype", None)
+    r_dtype = getattr(value, "dtype", None)
+    problem = None
+    if t_shape != r_shape:
+        problem = f"shape {r_shape}, but the template expects {t_shape}"
+    elif t_dtype is not None and r_dtype is not None and t_dtype != r_dtype:
+        problem = f"dtype {r_dtype}, but the template expects {t_dtype}"
+    if problem:
+        raise ValueError(
+            f"checkpoint {origin}: key {key!r} leaf {where} has {problem} — "
+            "architecture mismatch (refusing to restore an incompatible tree)"
+        )
+    return value
+
+
 def prune_checkpoints(
     log_dir: str | Path, keep_last_n: int, protect: Iterable[Any] = ()
 ) -> List[Path]:

@@ -925,3 +925,139 @@ def test_pursuit_kernel_path_equals_plain_path(cuda):
                          device=cuda).repeat(1000, 1)
     want = torch.tensor([1, 0, 1], device=cuda).repeat(1000)
     assert torch.equal(nearest_index(dists), want)
+
+
+# -- serving: one CUDA graph a rung -------------------------------------------
+
+
+def _serving_policy(cuda, kind):
+    """A seeded policy on the card and rows for it: the MLP on flat rows,
+    the GNN on whole formations of k-NN rows with valid indices."""
+    import numpy as np
+
+    from marl_distributedformation_tpu_torch.compat.policy import LoadedPolicy
+    from marl_distributedformation_tpu_torch.models import (
+        GNNActorCritic,
+        MLPActorCritic,
+    )
+
+    gen = torch.Generator().manual_seed(0)
+    rng = np.random.default_rng(0)
+    if kind == "mlp":
+        model = MLPActorCritic(8, generator=gen)
+        rows = rng.standard_normal((1100, 8)).astype(np.float32)
+    else:
+        n, k = 20, 4
+        model = GNNActorCritic(k=k, generator=gen)
+        feats = rng.standard_normal((1100, n, 4 + 3 * k)).astype(np.float32)
+        idx = np.stack([rng.permutation(n)[:k] for _ in range(1100 * n)])
+        rows = np.concatenate(
+            [feats, idx.reshape(1100, n, k).astype(np.float32)], -1)
+    return LoadedPolicy(model.to(cuda).eval(), num_agents=None), rows
+
+
+@pytest.mark.parametrize("kind", ["mlp", "gnn"])
+def test_serving_captured_rung_equals_eager(cuda, kind):
+    """Each rung captured as a CUDA graph equals the same rung run eagerly,
+    bitwise, on the split path too; one capture a rung."""
+    import numpy as np
+
+    from marl_distributedformation_tpu_torch.serving import (
+        BucketedPolicyEngine,
+    )
+
+    policy, rows = _serving_policy(cuda, kind)
+    captured = BucketedPolicyEngine(policy, buckets=(1, 8, 64, 512))
+    eager = BucketedPolicyEngine(policy, buckets=(1, 8, 64, 512),
+                                 capture=False)
+    for n in (1, 5, 8, 64, 300, 512, 1100):
+        got = captured.act(rows[:n])
+        assert np.array_equal(got, eager.act(rows[:n])), n
+        np.testing.assert_allclose(got, policy.predict(rows[:n])[0],
+                                   rtol=1e-5, atol=1e-6)
+    want = {1: 1, 8: 1, 64: 1, 512: 1}
+    assert captured.compile_counts() == eager.compile_counts() == want
+    assert all(captured.rung(b).graph.graph is not None for b in want)
+    assert all(eager.rung(b).graph.graph is None for b in want)
+
+
+def test_serving_swap_never_recaptures(cuda, tmp_path):
+    """A hot swap through the registry copies the new weights into the
+    captured parameter tensors at the batch barrier: the same graphs, one
+    capture a rung, results pinned to the step that computed them."""
+    import numpy as np
+
+    from marl_distributedformation_tpu_torch.compat.convert import (
+        params_to_jax,
+    )
+    from marl_distributedformation_tpu_torch.compat.policy import LoadedPolicy
+    from marl_distributedformation_tpu_torch.models import MLPActorCritic
+    from marl_distributedformation_tpu_torch.serving import (
+        BucketedPolicyEngine,
+        MicroBatchScheduler,
+        ModelRegistry,
+    )
+    from marl_distributedformation_tpu_torch.utils.checkpoint import (
+        save_checkpoint,
+    )
+
+    def write(step, seed):
+        model = MLPActorCritic(8, generator=torch.Generator().manual_seed(seed))
+        save_checkpoint(tmp_path, step, {
+            "policy": "MLPActorCritic",
+            "params": params_to_jax(model.state_dict(), "MLPActorCritic"),
+            "num_timesteps": step})
+        return LoadedPolicy(model.to(cuda))
+
+    pol_a = write(10, 0)
+    registry = ModelRegistry(tmp_path, device="cuda")
+    assert all(t.is_cuda for t in registry.active()[0].values())
+    engine = BucketedPolicyEngine(registry.policy, buckets=(1, 8, 64))
+    rows = np.random.default_rng(1).standard_normal((70, 8)).astype(
+        np.float32)
+    with MicroBatchScheduler(engine, registry=registry) as sched:
+        # One at a time, so that each builds its own rung.
+        first = [sched.submit(rows[:n]).result(timeout=60)
+                 for n in (1, 8, 70)]
+        graphs = {b: engine.rung(b).graph.graph for b in (1, 8, 64)}
+        pol_b = write(20, 1)
+        assert registry.refresh()
+        after = [sched.submit(rows[:n]).result(timeout=60)
+                 for n in (1, 8, 70)]
+    for res, n in zip(first, (1, 8, 70)):
+        assert res.model_step == 10
+        np.testing.assert_allclose(res.actions, pol_a.predict(rows[:n])[0],
+                                   rtol=1e-5, atol=1e-6)
+    for res, n in zip(after, (1, 8, 70)):
+        assert res.model_step == 20
+        np.testing.assert_allclose(res.actions, pol_b.predict(rows[:n])[0],
+                                   rtol=1e-5, atol=1e-6)
+    assert engine.compile_counts() == {1: 1, 8: 1, 64: 1}
+    assert all(engine.rung(b).graph.graph is g for b, g in graphs.items())
+
+
+def test_serving_bf16_within_budget_and_fresh_draws(cuda):
+    """The bf16 ladder of a seeded tanh-MLP within ``tests/bf16_budget.py``'s
+    budget, with cuBLAS's reduced-precision bf16 reductions off; every
+    replay of a rung draws fresh noise."""
+    import numpy as np
+    from bf16_budget import bf16_action_atol
+
+    from marl_distributedformation_tpu_torch.device import resolve_device
+    from marl_distributedformation_tpu_torch.serving import (
+        BucketedPolicyEngine,
+    )
+
+    resolve_device("cuda")
+    assert not (
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+    policy, rows = _serving_policy(cuda, "mlp")
+    f32 = BucketedPolicyEngine(policy, buckets=(1, 8, 64, 512))
+    bf16 = BucketedPolicyEngine(policy, buckets=(1, 8, 64, 512),
+                                dtype="bfloat16")
+    for n in (1, 8, 64, 512):
+        np.testing.assert_allclose(bf16.act(rows[:n]), f32.act(rows[:n]),
+                                   rtol=0, atol=bf16_action_atol(3))
+    draws = [f32.act(rows[:64], deterministic=False) for _ in range(3)]
+    assert not np.array_equal(draws[0], draws[1])
+    assert not np.array_equal(draws[1], draws[2])

@@ -64,7 +64,11 @@ def test_sources_found():
             "scenarios/schedule.py", "scenarios/matrix.py",
             "scenarios/adversary.py", "envs/pursuit.py",
             "analysis/guards.py", "robustness_matrix.py",
-            "adversarial_search.py"} <= rel
+            "adversarial_search.py", "obs/tracer.py", "obs/flightrec.py",
+            "chaos/plane.py", "serving/engine.py", "serving/metrics.py",
+            "serving/registry.py", "serving/scheduler.py",
+            "serving/client.py", "serving/smoke.py", "serving/loadgen.py",
+            "serving/autotune.py", "serve.py"} <= rel
     assert (PORT / "csrc" / "knn.cu").exists()
 
 
