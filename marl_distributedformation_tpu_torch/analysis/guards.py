@@ -1,13 +1,21 @@
-"""A budget on how often a program is built.
+"""A budget on how often a program is built, and the ledger's build seam.
 
-Counterpart of the JAX package's ``analysis/guards.py::RetraceGuard``. JAX
-counts the traces of a jitted function: each trace compiles a new program.
-The port's programs are built by hand, so the guard counts the builds: on
-the card a build is the CUDA graph capture of the program's step
+Counterpart of the JAX package's ``analysis/guards.py`` (``RetraceGuard``,
+``ledgered_jit``, ``sample_device_watermark``). JAX counts the traces of a
+jitted function: each trace compiles a new program. The port's programs
+are built by hand, so the guard counts the builds: on the card a build is
+the CUDA graph capture of the program's step
 (``train/capture.py::PhaseGraph``), and eagerly (the CPU) it is the
 construction of the eager step. A build beyond the budget raises
 ``RetraceError`` naming the program and the signature of what it was built
 for; a build that raises does not count.
+
+Where JAX's ``ledgered_jit`` registers each compiled executable in the
+program ledger (``obs/ledger.py``), the port registers each build at the
+point where it is counted: a ``PhaseGraph`` at its capture (the CPU: its
+first call) through :func:`register_program`, an eager host function
+through :func:`ledgered_call`. :func:`sample_device_watermark` records the
+device-memory watermark at drain seams.
 """
 
 from __future__ import annotations
@@ -15,7 +23,13 @@ from __future__ import annotations
 import dataclasses
 import functools
 import threading
-from typing import Any, Callable, List, Optional
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from marl_distributedformation_tpu_torch.obs.ledger import (
+    get_ledger,
+    sanitize_key,
+)
 
 
 class RetraceError(RuntimeError):
@@ -54,17 +68,23 @@ class RetraceGuard:
 
     ``wrap(build)`` returns ``build`` counting each call as one build, and
     ``record(*signature)`` counts one where the build is not a call of its
-    own (a graph capture); ``max_traces=None`` only counts.
+    own (a graph capture); ``max_traces=None`` only counts. With a
+    ``subsystem`` the program it guards registers in the ledger under the
+    guard's name (``train/capture.py::PhaseGraph`` does it at the build).
 
     >>> guard = RetraceGuard("robustness_matrix_eval", max_traces=1)
     >>> build = guard.wrap(program.build)
     """
 
     def __init__(
-        self, name: str = "program", max_traces: Optional[int] = None
+        self, name: str = "program", max_traces: Optional[int] = None,
+        subsystem: Optional[str] = None,
     ) -> None:
         self.name = name
         self.max_traces = max_traces
+        # The ledger's subsystem of the program this guard counts (its
+        # name is the program's); None registers nothing.
+        self.subsystem = subsystem
         self._lock = threading.Lock()
         self.count = 0
 
@@ -102,3 +122,182 @@ class RetraceGuard:
                 raise
 
         return counted
+
+
+# ----------------------------------------------------------------------
+# The program ledger's build seam
+# ----------------------------------------------------------------------
+
+MEMORY_FACTS_UNAVAILABLE = (
+    "a CUDA graph or an eager step has no cost_analysis(): argument, "
+    "output, temp, alias and code bytes are not known"
+)
+
+
+def _flop_mode():
+    """A dispatch mode that adds up ``torch.utils.flop_counter``'s formulas
+    (matmuls, convolutions, attention; elementwise work counts nothing)
+    over every op it sees. ``FlopCounterMode`` itself tracks modules with
+    autograd hooks that ``torch.autograd.grad`` refuses, so the port counts
+    with its formula table alone."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import flop_registry
+
+    class FlopCount(TorchDispatchMode):
+        total = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            formula = flop_registry.get(func._overloadpacket)
+            if formula is not None:
+                self.total += int(formula(*args, **kwargs, out_val=out))
+            return out
+
+    return FlopCount()
+
+
+def counted_run(fn: Callable[[], Any]) -> Tuple[Any, float, Dict[str, float],
+                                                str, Optional[str]]:
+    """Run ``fn()`` once as a program's build run: ``(result, wall
+    seconds, facts, analysis_source, analysis_error)``. With the ledger on,
+    the run goes under a FLOP-counting dispatch mode (``_flop_mode``),
+    whose total becomes the ``flops`` fact."""
+    facts: Dict[str, float] = {}
+    if not get_ledger().enabled:
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0, facts, "unavailable", None
+    counter = _flop_mode()
+    t0 = time.perf_counter()
+    with counter:
+        out = fn()
+    wall = time.perf_counter() - t0
+    facts["flops"] = float(counter.total)
+    return out, wall, facts, "flop_counter", MEMORY_FACTS_UNAVAILABLE
+
+
+def register_program(
+    *,
+    name: str,
+    subsystem: str,
+    signature: tuple = (),
+    timings: Optional[Dict[str, float]] = None,
+    facts: Optional[Dict[str, float]] = None,
+    analysis_source: str = "unavailable",
+    analysis_error: Optional[str] = None,
+    graph_nodes: Optional[int] = None,
+    device: Any = None,
+) -> Optional[str]:
+    """Register one build in the process-global ledger: the port's side of
+    JAX's ``ledgered_jit`` registration. ``signature`` (the tensors the
+    program was built for) becomes the fingerprint. Returns the ledger key
+    (None when the ledger is off); never raises."""
+    ledger = get_ledger()
+    if not ledger.enabled:
+        return None
+    try:
+        return ledger.register(
+            name=name,
+            subsystem=subsystem,
+            fingerprint=describe(*signature),
+            backend=str(getattr(device, "type", device) or ""),
+            timings=timings,
+            facts=facts,
+            analysis_source=analysis_source,
+            analysis_error=analysis_error or (
+                "no cost analysis of this program"
+                if analysis_source == "unavailable" else None),
+            dispatch_key=dispatch_key_of(subsystem, name),
+            graph_nodes=graph_nodes,
+        )
+    except Exception:  # noqa: BLE001 — observability never fails a build
+        return None
+
+
+def dispatch_key_of(subsystem: str, name: str) -> str:
+    """The ledger's dispatch key of a program (its histogram's name)."""
+    return sanitize_key(f"{subsystem}_{name}")
+
+
+def ledgered_call(
+    fn: Callable[..., Any],
+    guard: RetraceGuard,
+    *,
+    subsystem: str,
+    program: Optional[str] = None,
+) -> Callable[..., Any]:
+    """``fn``, an eager host program, with JAX's ``ledgered_jit`` receipts:
+    its first call is its build, counted by ``guard`` and registered in the
+    ledger (the call's wall as ``first_dispatch_seconds``); every later
+    call records its wall as a dispatch."""
+    name = program or getattr(fn, "__name__", None) or "program"
+    key = dispatch_key_of(subsystem, name)
+    built: List[bool] = []
+
+    @functools.wraps(fn)
+    def call(*args: Any, **kwargs: Any) -> Any:
+        if not built:
+            guard.record(args, kwargs)
+            out, wall, facts, source, error = counted_run(
+                lambda: fn(*args, **kwargs))
+            built.append(True)
+            register_program(
+                name=name, subsystem=subsystem, signature=(args, kwargs),
+                timings={"first_dispatch_seconds": wall}, facts=facts,
+                analysis_source=source, analysis_error=error, device="cpu",
+            )
+            return out
+        ledger = get_ledger()
+        if not ledger.enabled:
+            return fn(*args, **kwargs)
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        ledger.dispatch(key, time.perf_counter() - t0)
+        return out
+
+    return call
+
+
+def device_memory_bytes() -> Optional[Tuple[float, float]]:
+    """``(in use, peak)`` bytes of the current CUDA device's caching
+    allocator (``torch.cuda.memory_allocated`` and
+    ``max_memory_allocated``); None without an initialised card (the CPU
+    has no device memory to sample)."""
+    import torch
+
+    try:
+        if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
+            return None
+        return (float(torch.cuda.memory_allocated()),
+                float(torch.cuda.max_memory_allocated()))
+    except Exception:  # noqa: BLE001 — a gauge, not a contract
+        return None
+
+
+_watermark_lock = threading.Lock()
+_watermark_last = 0.0
+
+
+def sample_device_watermark(
+    min_interval_s: float = 5.0, force: bool = False
+) -> Optional[float]:
+    """Record the device-memory footprint into the ledger's watermark
+    gauge, at a drain seam (a host seam where a sync just happened); one
+    attribute read when the ledger is off. Samples closer than
+    ``min_interval_s`` are skipped unless ``force``. Returns the bytes in
+    use, or None."""
+    global _watermark_last
+    ledger = get_ledger()
+    if not ledger.enabled:
+        return None
+    now = time.monotonic()
+    with _watermark_lock:
+        if not force and now - _watermark_last < min_interval_s:
+            return None
+        _watermark_last = now
+    value = device_memory_bytes()
+    if value is None:
+        return None
+    ledger.record_watermark(value[0], peak_bytes=value[1])
+    return value[0]

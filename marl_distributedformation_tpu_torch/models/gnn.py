@@ -12,6 +12,7 @@ Building ``msg_in`` materialises ``(M, N, k, 2E+3)`` float32 per round, about
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -63,15 +64,91 @@ def parse_knn_obs(
     return torch.cat(node_parts, dim=-1), edge, idx
 
 
+# Up to this many agents the gather's backward is a one-hot GEMM, above it
+# a sorted segment sum: the GEMM's work grows with N for each agent row,
+# the sort's does not. ``scripts/port_c4_cost.py`` times each form at N=100
+# (GEMM) and N=1024 (sort) only; no crossover was measured, and any value
+# from 100 to 1023 picks the same form for every configuration the repo has.
+ONE_HOT_MAX_N = 192
+
+
+class _GatherNodes(torch.autograd.Function):
+    """``torch.gather`` on the node axis, with a backward that adds each
+    node's contributions in a fixed order.
+
+    ``torch.gather``'s own backward is a ``scatter_add``, which on the card
+    adds with atomics, so the gradient of a node that several agents list
+    as a neighbor rounds differently from run to run (ROADMAP C4). Here the
+    backward is one of two deterministic forms, by N:
+
+    - up to ``ONE_HOT_MAX_N``, each formation's gradient rows times the
+      transposed one-hot selection of its neighbor indices, ``(N, N*k) @
+      (N*k, E)``, one batched GEMM: every product is a gradient value
+      times 1 or 0, and cuBLAS adds them in the same order every run. A
+      non-finite gradient row reaches every node of its formation this
+      way (0 * inf is NaN), where ``scatter_add`` gives it to one; the
+      parameters' gradients are non-finite either way.
+    - above it, a segment sum over the inverse of the indices:
+      ``index_put_(accumulate=True)`` sorts the target rows (a stable
+      radix sort on the card) and adds each row's run in sorted order.
+
+    Neither makes a host sync, so both replay inside a captured graph.
+    Under ``torch.func.vmap`` (populations) the member axis becomes one
+    more leading axis."""
+
+    generate_vmap_rule = False
+
+    @staticmethod
+    def forward(h: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+        return torch.gather(h, -2, flat)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output) -> None:
+        h, flat = inputs
+        ctx.save_for_backward(flat)
+        ctx.h_shape = h.shape
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (flat,) = ctx.saved_tensors
+        n, e = ctx.h_shape[-2], ctx.h_shape[-1]
+        rows = flat.shape[-2]
+        b = math.prod(flat.shape[:-2])
+        idx = flat[..., 0].reshape(b, rows)
+        if n <= ONE_HOT_MAX_N:
+            select = idx.reshape(b, 1, rows) == torch.arange(
+                n, device=flat.device).reshape(1, n, 1)
+            out = torch.bmm(select.to(grad.dtype), grad.reshape(b, rows, e))
+        else:
+            base = torch.arange(b, device=flat.device).mul_(n).reshape(b, 1)
+            out = grad.new_zeros((b * n, e))
+            out.index_put_(((idx + base).reshape(-1),),
+                           grad.reshape(b * rows, e), accumulate=True)
+        return out.reshape(ctx.h_shape), None
+
+    @staticmethod
+    def vmap(info, in_dims, h, flat):
+        k = info.batch_size
+
+        def front(t: torch.Tensor, dim) -> torch.Tensor:
+            return (t.movedim(dim, 0) if dim is not None
+                    else t.expand(k, *t.shape))
+
+        return _GatherNodes.apply(front(h, in_dims[0]),
+                                  front(flat, in_dims[1])), 0
+
+
 def gather_nodes(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``h (..., N, E)``, int64 ``idx (..., N, k)`` -> neighbor embeddings
-    ``(..., N, k, E)`` by one ``torch.gather`` on the node axis."""
+    ``(..., N, k, E)`` by one ``torch.gather`` on the node axis; the
+    gradient is added in a fixed order (``_GatherNodes``), so GNN training
+    on the card is bitwise repeatable."""
     n, k = idx.shape[-2], idx.shape[-1]
     e = h.shape[-1]
     flat = idx.reshape(*idx.shape[:-2], n * k, 1).expand(
         *idx.shape[:-2], n * k, e
     )
-    return torch.gather(h, -2, flat).reshape(*idx.shape[:-2], n, k, e)
+    return _GatherNodes.apply(h, flat).reshape(*idx.shape[:-2], n, k, e)
 
 
 class GNNActorCritic(nn.Module):

@@ -48,6 +48,7 @@ from marl_distributedformation_tpu_torch.analysis.guards import (
 )
 from marl_distributedformation_tpu_torch.device import DeviceLike
 from marl_distributedformation_tpu_torch.env.types import EnvParams
+from marl_distributedformation_tpu_torch.obs.metrics import get_registry
 from marl_distributedformation_tpu_torch.scenarios.matrix import (
     EpisodeProgram,
     params_signature,
@@ -163,7 +164,8 @@ def make_population_runner(
     program for the whole search (``guard`` is the receipt). ``program``
     goes to ``matrix.EpisodeProgram`` (``seed``, ``device``, ``capture``,
     the tests' ``initial_state`` and ``streams_factory``)."""
-    guard = RetraceGuard("adversary_population_eval", max_traces=max_traces)
+    guard = RetraceGuard("adversary_population_eval", max_traces=max_traces,
+                         subsystem="adversary")
     prog = EpisodeProgram(model, env_params, num_formations, deterministic,
                           guard=guard, **program)
     return prog.run, guard
@@ -504,6 +506,10 @@ class ContinuousAdversary:
         self.last_step = step
         report["step"] = step
         self.reports.append(report)
+        registry = get_registry()
+        registry.counter("adversary_continuous_searches_total").inc()
+        registry.gauge("adversary_continuous_falsifiers").set(
+            float(len(report["falsifiers"])))
         if report["falsifiers"] and self.on_schedule is not None:
             from marl_distributedformation_tpu_torch.scenarios.schedule import (
                 from_falsifiers,

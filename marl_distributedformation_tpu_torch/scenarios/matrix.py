@@ -231,6 +231,8 @@ class EpisodeProgram:
             capture=self.capture,
             guard=self.guard if self.capture else None,
             signature=(self._weights, copies),
+            subsystem=getattr(self.guard, "subsystem", None),
+            program=getattr(self.guard, "name", None),
         )
 
     def _streams(self) -> ScenarioStreams:
@@ -358,7 +360,8 @@ def make_matrix_runner(
     the whole matrix; ``guard`` is the budget-``max_traces`` receipt.
     ``program`` goes to ``EpisodeProgram`` (``seed``, ``device``,
     ``capture``, the tests' ``initial_state`` and ``streams_factory``)."""
-    guard = RetraceGuard("robustness_matrix_eval", max_traces=max_traces)
+    guard = RetraceGuard("robustness_matrix_eval", max_traces=max_traces,
+                         subsystem="gate")
     prog = EpisodeProgram(model, env_params, num_formations, deterministic,
                           guard=guard, **program)
     return prog.run, guard

@@ -85,6 +85,9 @@ class _Rung:
             generators=[engine.generator], capture=engine.capture,
             guard=engine.guards[bucket] if engine.capture else None,
             signature=(self.x,),
+            subsystem="serving",
+            program=f"act_rung{bucket}_"
+                    f"{'f32' if engine.dtype is None else 'bf16'}",
         )
 
 

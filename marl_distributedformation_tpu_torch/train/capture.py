@@ -26,6 +26,12 @@ A failed capture or replay raises; nothing falls back to eager launches.
 The generators a phase draws from are registered with its graph, so that
 each replay draws the next numbers of their streams, as the eager calls
 would.
+
+A phase named with a ``subsystem`` and a ``program`` is a program of the
+ledger (``obs/ledger.py``): it registers at its build (the capture, with
+the warm-up's wall and FLOPs, the capture seconds and the graph's nodes;
+eagerly, its first call), and every later call records its host wall as a
+dispatch. None of this happens inside the captured region.
 """
 
 from __future__ import annotations
@@ -36,6 +42,12 @@ from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
+from marl_distributedformation_tpu_torch.analysis.guards import (
+    counted_run,
+    dispatch_key_of,
+    register_program,
+)
+from marl_distributedformation_tpu_torch.obs.ledger import get_ledger
 from marl_distributedformation_tpu_torch.ops import knn_cuda
 
 
@@ -57,7 +69,9 @@ class PhaseGraph:
     its second call; see the module docstring. With ``capture`` False every
     call runs ``fn`` eagerly on the current stream (the CPU, and the
     card's eager comparisons). ``guard`` (``analysis.guards.RetraceGuard``)
-    counts the capture as a build of the program, for ``signature``."""
+    counts the capture as a build of the program, for ``signature``.
+    ``subsystem`` and ``program`` name it in the ledger (see the module
+    docstring); without them it registers nothing."""
 
     def __init__(
         self,
@@ -67,6 +81,8 @@ class PhaseGraph:
         capture: bool = True,
         guard=None,
         signature: tuple = (),
+        subsystem: Optional[str] = None,
+        program: Optional[str] = None,
     ) -> None:
         self.name = name
         self.fn = fn
@@ -74,33 +90,93 @@ class PhaseGraph:
         self.capture = capture
         self.guard = guard
         self.signature = signature
+        self.subsystem = subsystem
+        self.program = program
+        self._dispatch_key = (None if subsystem is None
+                              else dispatch_key_of(subsystem, program))
         self.calls = 0
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: Dict[str, int] = {}
         self.nodes: Optional[int] = None
         self.capture_s: Optional[float] = None
+        self.warm_up_s: Optional[float] = None
+        self._facts: tuple = ({}, "unavailable", None)
+
+    def builds_next(self) -> bool:
+        """Whether the next call builds the program: captures it (the
+        card), or runs the eager step for the first time."""
+        if self.capture:
+            return self.calls == 1 and self.graph is None
+        return self.calls == 0
 
     def __call__(self) -> None:
+        ledger = get_ledger() if self._dispatch_key is not None else None
+        if ledger is not None and not ledger.enabled:
+            ledger = None
         if not self.capture:
-            self.fn()
+            if self.calls == 0:
+                self._eager_build()
+            elif ledger is None:
+                self.fn()
+            else:
+                t0 = time.perf_counter()
+                self.fn()
+                ledger.dispatch(self._dispatch_key, time.perf_counter() - t0)
         elif self.calls == 0:
             self._warm_up()
-        else:
-            if self.graph is None:
-                if self.guard is not None:
-                    self.guard.record(*self.signature)
-                self._capture()
+        elif self.graph is None:
+            if self.guard is not None:
+                self.guard.record(*self.signature)
+            self._capture()
             self.graph.replay()
             knn_cuda.count_replay(self.launches)
+            self._register(compile_seconds=self.capture_s)
+        else:
+            t0 = time.perf_counter()
+            self.graph.replay()
+            knn_cuda.count_replay(self.launches)
+            if ledger is not None:
+                ledger.dispatch(self._dispatch_key, time.perf_counter() - t0)
         self.calls += 1
 
+    def _eager_build(self) -> None:
+        """The first eager call: the build of an uncaptured program."""
+        if self._dispatch_key is None:
+            self.fn()
+            return
+        _, self.warm_up_s, *self._facts = counted_run(self.fn)
+        self._register()
+
+    def _register(self, compile_seconds: Optional[float] = None) -> None:
+        if self._dispatch_key is None:
+            return
+        facts, source, error = self._facts
+        timings = {"first_dispatch_seconds": self.warm_up_s}
+        if compile_seconds is not None:
+            timings["compile_seconds"] = compile_seconds
+        register_program(
+            name=self.program, subsystem=self.subsystem,
+            signature=self.signature, timings=timings, facts=facts,
+            analysis_source=source, analysis_error=error,
+            graph_nodes=self.nodes,
+            device="cuda" if self.capture else None,
+        )
+
     def _warm_up(self) -> None:
+        t0 = time.perf_counter()
         main = torch.cuda.current_stream()
         side = torch.cuda.Stream()
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            self.fn()
+            if self._dispatch_key is None:
+                self.fn()
+            else:
+                _, _, *self._facts = counted_run(self.fn)
         main.wait_stream(side)
+        if self._dispatch_key is not None:
+            # The warm-up's wall, to the end of its device work.
+            side.synchronize()
+            self.warm_up_s = time.perf_counter() - t0
 
     def _capture(self) -> None:
         graph = torch.cuda.CUDAGraph(keep_graph=True)

@@ -49,6 +49,23 @@ with ``num_seeds > 1`` exit with the root ``train.py``'s messages:
         "scenarios=[{rollouts: 12, scenarios: [clean]},
                     {rollouts: 12, scenarios: [wind, sensor_noise], severity: 0.5}]"
 
+``architecture=sebulba`` trains through the split actor and learner lanes
+(``train/sebulba/``; ``fused_chunk`` is K, the batches a learner chunk
+drains; ``transfer_queue_depth``, ``max_param_staleness``,
+``actor_devices``), refused with a curriculum or ``num_seeds > 1`` in the
+root ``train.py``'s words:
+
+    python -m marl_distributedformation_tpu_torch.train name=sebulba100 \
+        policy=gnn obs_mode=knn num_agents_per_formation=100 \
+        num_formation=1024 preset=tpu architecture=sebulba fused_chunk=10
+
+``telemetry`` and ``telemetry_reservoir`` configure the metrics registry
+(``obs/metrics.py``), ``telemetry_port`` serves it as Prometheus text on
+``GET /metrics`` during the run, ``ledger`` and ``ledger_reservoir`` the
+program ledger, whose census lands in ``logs/{name}/program_ledger.json``
+at exit (by default); ``profile=true`` traces ``profile_iterations``
+dispatches into ``logs/{name}/profile/``.
+
 A mistyped key exits with a did-you-mean. A knob of a feature the port does
 not have yet exits naming its ROADMAP item when set to anything but its
 YAML default, as does any ``env`` but ``formation``: nothing is silently
@@ -72,6 +89,12 @@ from marl_distributedformation_tpu_torch.models import (
     GNNActorCritic,
     MLPActorCritic,
 )
+from marl_distributedformation_tpu_torch.obs import (
+    TelemetryServer,
+    configure_ledger,
+    configure_metrics,
+    get_ledger,
+)
 from marl_distributedformation_tpu_torch.train.curriculum import (
     HeteroTrainer,
     curriculum_from_cfg,
@@ -80,6 +103,7 @@ from marl_distributedformation_tpu_torch.train.curriculum import (
 from marl_distributedformation_tpu_torch.train.hetero_sweep import (
     HeteroSweepTrainer,
 )
+from marl_distributedformation_tpu_torch.train.sebulba import SebulbaDriver
 from marl_distributedformation_tpu_torch.train.sweep import SweepTrainer
 from marl_distributedformation_tpu_torch.train.trainer import (
     TrainConfig,
@@ -106,17 +130,6 @@ _UNLISTED_DEFAULTS = {
 # Knobs of features not ported yet, and the ROADMAP item that ports each.
 UNPORTED = {
     "mesh": "A12 (parallelism)",
-    "architecture": "A12 (Sebulba)",
-    "actor_devices": "A12 (Sebulba)",
-    "transfer_queue_depth": "A12 (Sebulba)",
-    "max_param_staleness": "A12 (Sebulba)",
-    "profile": "A13 (obs)",
-    "profile_iterations": "A13 (obs)",
-    "telemetry": "A13 (obs)",
-    "telemetry_port": "A13 (obs)",
-    "telemetry_reservoir": "A13 (obs)",
-    "ledger": "A13 (obs)",
-    "ledger_reservoir": "A13 (obs)",
     "guard_retraces": "A14 (static analysis)",
     "guard_transfers": "A14 (static analysis)",
     "guard_nans": "A14 (static analysis)",
@@ -193,6 +206,12 @@ def train_config_from_config(cfg) -> TrainConfig:
             cfg.get("recovery_severity_backoff", 1.0)
         ),
         keep_last_n=int(cfg.get("keep_last_n", 0)),
+        profile=bool(cfg.get("profile", False)),
+        profile_iterations=int(cfg.get("profile_iterations", 3)),
+        architecture=str(cfg.get("architecture", "anakin")),
+        actor_devices=int(cfg.get("actor_devices", 1)),
+        transfer_queue_depth=int(cfg.get("transfer_queue_depth", 2)),
+        max_param_staleness=int(cfg.get("max_param_staleness", 2)),
     )
 
 
@@ -318,9 +337,15 @@ def build_trainer(
     device = resolve_device(cfg.get("device"))
     env_params = env_params_from_config(cfg)
     policy = cfg.get("policy", "mlp")
-    common = dict(ppo=ppo_from_config(cfg),
-                  config=train_config_from_config(cfg), device=device,
+    train_cfg = train_config_from_config(cfg)
+    common = dict(ppo=ppo_from_config(cfg), config=train_cfg, device=device,
                   capture=capture)
+    if train_cfg.architecture == "sebulba" and cfg.get("curriculum"):
+        raise SystemExit(
+            "architecture=sebulba does not compose with curriculum "
+            "training yet (the hetero stage machinery is Anakin-shaped); "
+            "drop one of the two"
+        )
     if cfg.get("curriculum"):
         if num_seeds > 1 and learning_rates:
             raise SystemExit(
@@ -338,6 +363,25 @@ def build_trainer(
         what = (f"{num_seeds} candidates x " if num_seeds > 1 else "") + (
             f"{trainer.curriculum.total_rollouts}-rollout curriculum of "
             f"{len(trainer.curriculum.stages)} stages, ")
+    elif train_cfg.architecture == "sebulba":
+        if num_seeds > 1:
+            raise SystemExit(
+                "architecture=sebulba does not compose with num_seeds>1 "
+                "population sweeps yet (the sweep's vmapped iteration is "
+                "Anakin-shaped); drop one of the two"
+            )
+        trainer = SebulbaDriver(
+            env_params, model=build_model(cfg, env_params, policy),
+            scenario_schedule=scenario_schedule, **common,
+        )
+        what = (f"sebulba (K={trainer._learner_chunk_k}, queue depth "
+                f"{train_cfg.transfer_queue_depth}), ")
+    elif train_cfg.architecture != "anakin":
+        raise SystemExit(
+            f"architecture={train_cfg.architecture!r} is unknown; "
+            "available: anakin (fused same-device), sebulba (split "
+            "acting/learning — docs/sebulba.md)"
+        )
     elif num_seeds > 1:
         if scenario_schedule is not None:
             raise SystemExit(
@@ -373,7 +417,37 @@ def build_trainer(
 
 
 def main(argv=None) -> Union[Trainer, SweepTrainer]:
-    trainer = build_trainer(argv)
-    final = trainer.train()
+    """Build the run, configure the metrics registry and the program
+    ledger, serve ``GET /metrics`` when ``telemetry_port`` is set, train,
+    and write ``logs/{name}/program_ledger.json`` at exit, as the root
+    ``train.py`` does."""
+    overrides = sys.argv[1:] if argv is None else list(argv)
+    trainer = build_trainer(overrides)
+    cfg = load_config(overrides)
+    configure_metrics(
+        enabled=bool(cfg.get("telemetry", True)),
+        reservoir=int(cfg.get("telemetry_reservoir", 512)),
+    )
+    configure_ledger(
+        enabled=bool(cfg.get("ledger", True)),
+        reservoir=int(cfg.get("ledger_reservoir", 256)),
+    )
+    telemetry = None
+    if cfg.get("telemetry_port") is not None:
+        telemetry = TelemetryServer(port=int(cfg.telemetry_port)).start()
+        print(f"[train] telemetry: {telemetry.url}")
+    try:
+        final = trainer.train()
+    finally:
+        if telemetry is not None:
+            telemetry.stop()
+        ledger = get_ledger()
+        if ledger.enabled and ledger.entries():
+            try:
+                path = ledger.write_census(
+                    Path(trainer.log_dir) / "program_ledger.json")
+                print(f"[train] program ledger census -> {path}")
+            except OSError as e:
+                print(f"[train] census write failed: {e!r}")
     print(f"[train] done at {trainer.num_timesteps} steps: {final}")
     return trainer

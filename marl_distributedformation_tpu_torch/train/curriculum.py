@@ -335,6 +335,7 @@ class HeteroTrainer(Trainer):
             if self.config.checkpoint:
                 self.save()
         finally:
+            self.trace_window.close()
             logger.close()
         return self.last_record
 

@@ -105,6 +105,8 @@ class HeteroSweepTrainer(SweepTrainer):
     modules (member i from ``seed + i``), built for the padded
     ``env_params``' ``obs_dim``."""
 
+    ledger_subsystem = "hetero_sweep"
+
     def __init__(
         self,
         curriculum: Curriculum = Curriculum(),
@@ -259,6 +261,7 @@ class HeteroSweepTrainer(SweepTrainer):
                 self.save()
                 self._write_summary(np.asarray(final["reward"]))
         finally:
+            self.trace_window.close()
             logger.close()
         return self.last_record
 
@@ -303,6 +306,7 @@ class HeteroSweepTrainer(SweepTrainer):
                 if final_rewards is not None:
                     self._write_summary(final_rewards)
         finally:
+            self.trace_window.close()
             if writer is not None:
                 writer.close_quietly()
             logger.close()

@@ -146,6 +146,9 @@ class PhasedIteration:
 
     members: Optional[int] = None  # K for a population (see below)
     forward = None  # collect_rollout's default, policy_forward
+    # Whether ``end`` moves the env carry on: a Sebulba learner, whose
+    # rows come from the actor lane, leaves the env to the actor.
+    writes_env = True
 
     def __init__(
         self,
@@ -358,14 +361,15 @@ class PhasedIteration:
             upd = self.update.means()
             row = torch.cat([self._rollout_row, upd], dim=-1)
             names = self.update.names
+            pairs = self.env_pairs() if self.writes_env else []
             if self.health is not None:
                 flags = self.health.apply(
                     upd[..., names.index("loss")],
-                    upd[..., names.index("grad_norm")], self.env_pairs(),
+                    upd[..., names.index("grad_norm")], pairs,
                 )
                 row = torch.cat([row, flags], dim=-1)
             else:
-                for carry, pending in self.env_pairs():
+                for carry, pending in pairs:
                     carry.copy_(pending)
             if self.ring is None:
                 self.ring = MetricsRing(

@@ -28,9 +28,12 @@ Counterpart of the JAX package's ``train/recovery.py``:
    factors at every rollback, and its scenario mixes come from draws it
    has not made before.
 
-The JAX package's metrics registry, flight records and chaos fault points
-are not ported (ROADMAP A13); ``Trainer._poison_carry`` stands in for the
-fault points in tests.
+Every transition also lands in the metrics registry under the JAX
+package's names (``train_skipped_updates_total``,
+``train_consecutive_unhealthy``, ``train_divergence_events_total``,
+``train_recoveries_total``, ``train_recovery_mttr_seconds``,
+``train_halted``). The chaos fault points are not ported (ROADMAP A13);
+``Trainer._poison_carry`` stands in for them in tests.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ import numpy as np
 import torch
 
 from marl_distributedformation_tpu_torch.algo.optim import global_norm
+from marl_distributedformation_tpu_torch.obs.metrics import get_registry
 
 Tensor = torch.Tensor
 
@@ -247,6 +251,15 @@ def nonfinite_flag_count(host_metrics: Dict[str, Any]) -> int:
     return int((np.asarray(flags, dtype=np.float64) < 0.5).sum())
 
 
+def record_health_flags(host_metrics: Dict[str, Any]) -> int:
+    """The drain seam of a run without the ladder: count the drained
+    skipped updates into ``train_skipped_updates_total``."""
+    skipped = nonfinite_flag_count(host_metrics)
+    if skipped:
+        get_registry().counter("train_skipped_updates_total").inc(skipped)
+    return skipped
+
+
 class RecoveryLadder:
     """The host's escalation ladder, fed per-iteration health flags at the
     drain.
@@ -300,6 +313,9 @@ class RecoveryLadder:
         ok = np.asarray(ok_flags, dtype=np.float64).reshape(-1)
         skipped = int((ok < 0.5).sum())
         self.skipped_total += skipped
+        registry = get_registry()
+        if skipped:
+            registry.counter("train_skipped_updates_total").inc(skipped)
         breach = False
         for value in ok:
             if value >= 0.5:
@@ -308,6 +324,8 @@ class RecoveryLadder:
                 self._consecutive += 1
                 if self._consecutive >= self.config.breach_iters:
                     breach = True
+        registry.gauge("train_consecutive_unhealthy").set(
+            float(self._consecutive))
         if skipped == 0 and self._consecutive == 0:
             self.last_rollback_path = None
             self._probation = False
@@ -327,6 +345,7 @@ class RecoveryLadder:
         if not breach:
             return "ok"
         self.breaches += 1
+        registry.counter("train_divergence_events_total").inc()
         if self.recoveries >= self.config.max_rollbacks:
             return "halt"
         return "rollback"
@@ -344,6 +363,10 @@ class RecoveryLadder:
         self._consecutive = 0
         self._probation = True
         self.last_rollback_path = str(path) if path is not None else None
+        registry = get_registry()
+        registry.counter("train_recoveries_total").inc()
+        registry.histogram("train_recovery_mttr_seconds").observe(
+            float(mttr_s))
         self._append({
             "event": "rollback",
             "iteration": int(iteration),
@@ -357,6 +380,7 @@ class RecoveryLadder:
 
     def note_halt(self, iteration: int, reason: str) -> None:
         self.halted = True
+        get_registry().gauge("train_halted").set(1.0)
         self._append({
             "event": "halt",
             "iteration": int(iteration),

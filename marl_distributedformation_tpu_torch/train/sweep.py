@@ -102,6 +102,7 @@ from marl_distributedformation_tpu_torch.utils.logging import (
     MetricsLogger,
     Throughput,
 )
+from marl_distributedformation_tpu_torch.utils.profiling import TraceWindow
 
 Tensor = torch.Tensor
 
@@ -115,6 +116,9 @@ class SweepTrainer:
     iteration's phases run as captured graphs; ``capture=False`` runs them
     eagerly (comparisons only).
     """
+
+    # The phases' subsystem in the program ledger (JAX: ledgered_jit's).
+    ledger_subsystem = "sweep"
 
     def __init__(
         self,
@@ -182,7 +186,9 @@ class SweepTrainer:
         self.capture = capture and self.device.type == "cuda"
         it = self._iteration
         self._phases = tuple(
-            PhaseGraph(name, fn, self.generators, self.capture)
+            PhaseGraph(name, fn, self.generators, self.capture,
+                       subsystem=self.ledger_subsystem,
+                       program=f"{self.ledger_subsystem}_{name}")
             for name, fn in (("rollout", it.rollout),
                              ("minibatch", it.minibatch), ("end", it.end))
         )
@@ -192,6 +198,9 @@ class SweepTrainer:
         self.log_dir = config.log_dir or str(
             repo_root() / "logs" / config.name
         )
+        # profile=true's window over whole dispatches (Trainer's).
+        self.trace_window = TraceWindow(self.log_dir, config.profile,
+                                        config.profile_iterations, skip=2)
         self.last_record: Dict[str, float] = {}
         # Called with "rollout", "update" and "end" at each iteration's
         # phase boundaries (chip_smoke.py records CUDA events there).
@@ -256,8 +265,15 @@ class SweepTrainer:
     def _dispatch(self, rollouts: int) -> ChunkMetrics:
         """``rollouts`` population iterations, queued without reading the
         device; returns their metric rows ``(rollouts, K, names)``."""
-        for _ in range(rollouts):
-            self._iteration.run(mark=self.phase_hook, phases=self._phases)
+        self.trace_window.before_dispatch()
+        try:
+            for _ in range(rollouts):
+                self._iteration.run(mark=self.phase_hook,
+                                    phases=self._phases)
+        except BaseException:
+            self.trace_window.close()
+            raise
+        self.trace_window.after_dispatch()
         self._advance(rollouts)
         ready = None
         if self.device.type == "cuda":
@@ -361,6 +377,7 @@ class SweepTrainer:
                     self.save()
                     self._write_summary(np.asarray(final["reward"]))
         finally:
+            self.trace_window.close()
             logger.close()
         return self.last_record
 
@@ -398,6 +415,7 @@ class SweepTrainer:
                 if final_rewards is not None:
                     self._write_summary(final_rewards)
         finally:
+            self.trace_window.close()
             if writer is not None:
                 writer.close_quietly()
             logger.close()

@@ -39,8 +39,18 @@ replays. The draw ``d`` comes from a CPU generator seeded from a hash of
 which never rewinds (a resume re-enters at ``num_timesteps // (n_steps *
 M * N)``; a rollback or a schedule swap draws fresh mixes). The layers
 draw from their own device generator (``seed + 2**33``), registered with
-the graphs and checkpointed beside the run's. Mesh, the metrics registry
-and chaos fault points are not ported (ROADMAP Queue A).
+the graphs and checkpointed beside the run's.
+
+Observability, as the JAX trainer's, at host seams only: the dispatch
+loop and the drain record into the metrics registry
+(``train_iterations_total``, ``train_env_steps_per_sec``,
+``train_steps_per_sec``, ``train_compiles``, ``train_chunk_drain_seconds``,
+``train_chunks_total``), each phase graph registers in the program ledger
+at its build (subsystem ``trainer``), the device-memory watermark is
+sampled at the drain, and ``profile=true`` traces ``profile_iterations``
+dispatches (``utils/profiling.py::TraceWindow``). ``architecture=sebulba``
+is ``train/sebulba/``. Mesh and chaos fault points are not ported
+(ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -58,6 +68,11 @@ import numpy as np
 import torch
 
 from marl_distributedformation_tpu_torch.algo import PPOConfig, adam_init
+from marl_distributedformation_tpu_torch.analysis.guards import (
+    RetraceGuard,
+    ledgered_call,
+    sample_device_watermark,
+)
 from marl_distributedformation_tpu_torch.compat.convert import (
     inject_hyperparams,
     opt_state_from_jax,
@@ -71,6 +86,7 @@ from marl_distributedformation_tpu_torch.env.types import (
     FormationState,
 )
 from marl_distributedformation_tpu_torch.envs import spec_for_params
+from marl_distributedformation_tpu_torch.obs.metrics import get_registry
 from marl_distributedformation_tpu_torch.scenarios import (
     ScenarioParams,
     ScenarioStreams,
@@ -91,6 +107,7 @@ from marl_distributedformation_tpu_torch.train.recovery import (
     RecoveryConfig,
     RecoveryLadder,
     fold_recovery_generator,
+    record_health_flags,
     scale_injected_lr,
     wrap_health,
 )
@@ -110,6 +127,7 @@ from marl_distributedformation_tpu_torch.utils.logging import (
     MetricsLogger,
     Throughput,
 )
+from marl_distributedformation_tpu_torch.utils.profiling import TraceWindow
 
 Tensor = torch.Tensor
 
@@ -172,6 +190,17 @@ class TrainConfig:
     recovery_severity_backoff: float = 1.0  # scenario severity factor a
     #   rollback
     keep_last_n: int = 0  # keep the newest N checkpoints (0 = all)
+    profile: bool = False  # trace profile_iterations post-warm-up
+    #   dispatches with torch.profiler into {log_dir}/profile/
+    profile_iterations: int = 3  # dispatches to trace (chunks when fused)
+    architecture: str = "anakin"  # "anakin" | "sebulba" (train/sebulba/:
+    #   an actor lane and a learner lane joined by a bounded transfer
+    #   queue and a latest-wins parameter bus; fused_chunk is K, the
+    #   batches the learner drains a chunk)
+    actor_devices: int = 1  # sebulba: CUDA devices of the actor slice
+    transfer_queue_depth: int = 2  # sebulba: trajectories in flight
+    max_param_staleness: int = 2  # sebulba: drop a batch acted with
+    #   parameters more than this many learner updates old
 
 
 def default_total_timesteps(config: TrainConfig) -> int:
@@ -350,10 +379,15 @@ class Trainer:
         self.capture = capture and self.device.type == "cuda"
         it = self._iteration
         self._phases = tuple(
-            PhaseGraph(name, fn, generators, self.capture)
+            PhaseGraph(name, fn, generators, self.capture,
+                       subsystem="trainer", program=f"train_{name}")
             for name, fn in (("rollout", it.rollout),
                              ("minibatch", it.minibatch), ("end", it.end))
         )
+        # The iteration's build receipt: one a run, at the dispatch that
+        # captures the phases (the CPU: runs them first); JAX counts the
+        # traces of its iteration program.
+        self.retrace_guard = RetraceGuard("train_iteration")
         # optax's inject_hyperparams layout in checkpoints (JAX: inject_lr).
         self.injected_lr = config.recovery_lr_backoff != 1.0
 
@@ -362,6 +396,10 @@ class Trainer:
         self.log_dir = config.log_dir or str(
             repo_root() / "logs" / config.name
         )
+        # profile=true: profile_iterations dispatches after the first two
+        # (which warm up and capture the graphs); _dispatch drives it.
+        self.trace_window = TraceWindow(self.log_dir, config.profile,
+                                        config.profile_iterations, skip=2)
         self.last_record: Dict[str, float] = {}
         # Called with "rollout", "update" and "end" at each iteration's
         # phase boundaries (chip_smoke.py records CUDA events there).
@@ -425,6 +463,7 @@ class Trainer:
         if schedule is None:
             return {}
         self._scenario_specs = tuple(get_scenario(n) for n in schedule.names)
+        self._build_scenario_samplers()
         self.scenario_severity = float(schedule.severity_at(0))
         self.scenario_generator = torch.Generator(
             device=self.device).manual_seed(
@@ -454,6 +493,7 @@ class Trainer:
                 "update freely)"
             )
         self._scenario_specs = tuple(get_scenario(n) for n in schedule.names)
+        self._build_scenario_samplers()
         self._scenario_schedule = schedule
         self._scenario_rollouts = 0
         self.scenario_severity = self._severity(0)
@@ -487,6 +527,38 @@ class Trainer:
             severity = severity * self._severity_scale
         return severity
 
+    def _build_scenario_samplers(self) -> None:
+        """The two host samplers over the schedule's current specs, each a
+        program of the ledger (subsystem ``scenarios``) built at its first
+        call, as the JAX trainer's two jitted samplers are; a schedule swap
+        rebuilds them."""
+        if not hasattr(self, "_sampler_guard"):
+            self._sampler_guard = RetraceGuard("scenario_sampler")
+        self._sample_scenarios = ledgered_call(
+            self._draw_rows, self._sampler_guard, subsystem="scenarios",
+            program="scenario_sampler")
+        self._sample_scenario_chunk = ledgered_call(
+            self._draw_rows, self._sampler_guard, subsystem="scenarios",
+            program="scenario_sampler_chunk")
+
+    def _draw_rows(self, severities: List[float], probs: Any,
+                   draw: int) -> ScenarioParams:
+        """One mix an entry of ``severities``, stacked: row i drawn with
+        draw ``draw + i``'s generator at ``probs[i]``."""
+        return stack_params([
+            sample_scenario_batch(
+                scenario_sample_generator(self.config.seed, draw + i),
+                np.float32(severity), probs[i], self._scenario_specs,
+                self.config.num_formations,
+            )
+            for i, severity in enumerate(severities)
+        ])
+
+    def _chunked_draws(self, k: int) -> bool:
+        """Whether a dispatch of ``k`` iterations draws its mixes as a chunk
+        (a ``fused_chunk`` chunk, or a burst of more than one)."""
+        return k > 1 or bool(self._fused_chunk)
+
     def _scenario_rows(
         self, rollout: int, draw: int, k: int
     ) -> Tuple[ScenarioParams, List[float]]:
@@ -498,23 +570,16 @@ class Trainer:
         ``severity_chunk`` (scaled per row), as the JAX trainer's two
         samplers do."""
         schedule = self._scenario_schedule
-        if k == 1 and not self._fused_chunk:
+        if not self._chunked_draws(k):
             severities = [self._severity(rollout)]
             probs = schedule.probs_at(rollout)[None]
-        else:
-            severities = list(schedule.severity_chunk(rollout, k))
-            if self._severity_scale != 1.0:
-                severities = [s * self._severity_scale for s in severities]
-            probs = schedule.probs_chunk(rollout, k)
-        rows = [
-            sample_scenario_batch(
-                scenario_sample_generator(self.config.seed, draw + i),
-                np.float32(severities[i]), probs[i], self._scenario_specs,
-                self.config.num_formations,
-            )
-            for i in range(k)
-        ]
-        return stack_params(rows), severities
+            return self._sample_scenarios(severities, probs, draw), severities
+        severities = list(schedule.severity_chunk(rollout, k))
+        if self._severity_scale != 1.0:
+            severities = [s * self._severity_scale for s in severities]
+        probs = schedule.probs_chunk(rollout, k)
+        return self._sample_scenario_chunk(severities, probs, draw), \
+            severities
 
     def _load_scenario_rows(self, k: int) -> Tuple[Any, List[float]]:
         """The next ``k`` iterations' mixes on the device, and their
@@ -571,12 +636,23 @@ class Trainer:
         if self._scenario_schedule is not None:
             rows, severities = self._load_scenario_rows(rollouts)
             self._last_severities = severities
-        for i in range(rollouts):
-            if rows is not None:
-                self._iteration.scenario_params.copy_(
-                    rows.map(lambda t: t[i]))
-            self._iteration.run(mark=self.phase_hook, phases=self._phases)
+        if any(phase.builds_next() for phase in self._phases):
+            self.retrace_guard.record(self._iteration.env.agents,
+                                      self._iteration.obs)
+        self.trace_window.before_dispatch()
+        try:
+            for i in range(rollouts):
+                if rows is not None:
+                    self._iteration.scenario_params.copy_(
+                        rows.map(lambda t: t[i]))
+                self._iteration.run(mark=self.phase_hook,
+                                    phases=self._phases)
+        except BaseException:
+            self.trace_window.close()
+            raise
+        self.trace_window.after_dispatch()
         self._advance(rollouts)
+        get_registry().counter("train_iterations_total").inc(rollouts)
         ready = None
         if self.device.type == "cuda":
             ready = torch.cuda.Event()
@@ -641,6 +717,9 @@ class Trainer:
                 iteration += 1
                 meter.tick(self._iters_per_dispatch * self.ppo.n_steps
                            * self.config.num_formations)
+                # Every dispatch, not at log cadence: GET /metrics answers
+                # "how fast right now" whatever log_interval is.
+                self._record_lane_metrics(meter.rate())
                 if iteration % self.config.log_interval == 0:
                     record = metrics_to_host(metrics)
                     if self._observe_health(record, iteration):
@@ -676,8 +755,19 @@ class Trainer:
             if self.config.checkpoint and not self._saves_suspended():
                 self.save()
         finally:
+            self.trace_window.close()
             logger.close()
         return self.last_record
+
+    def _record_lane_metrics(self, env_steps_rate: float) -> None:
+        """The lane's throughput gauges and build count into the registry
+        (the ``GET /metrics`` namespace), at a host seam."""
+        registry = get_registry()
+        registry.gauge("train_env_steps_per_sec").set(env_steps_rate)
+        per_iter = self.ppo.n_steps * self.config.num_formations
+        registry.gauge("train_steps_per_sec").set(
+            env_steps_rate / per_iter if per_iter else 0.0)
+        registry.gauge("train_compiles").set(self.retrace_guard.count)
 
     def _train_fused(self) -> Dict[str, float]:
         """Dispatch chunk N+1, then drain chunk N (the device computes while
@@ -727,6 +817,7 @@ class Trainer:
                 writer.close()  # the last write is on disk before return
                 writer = None
         finally:
+            self.trace_window.close()
             if writer is not None:
                 writer.close_quietly()
             logger.close()
@@ -739,13 +830,24 @@ class Trainer:
         """One transfer for a chunk's metrics, the ladder's look at its
         health flags, then a record an iteration at the JAX trainer's
         steps."""
+        t_drain = time.perf_counter()
         host = chunk.to_host()
         meter.tick(self._fused_chunk * self.ppo.n_steps
                    * self.config.num_formations)
-        if "health_ok" in host and self.recovery_ladder is not None:
-            self._recovery_verdict = self.recovery_ladder.observe(
-                host["health_ok"], host.get("health_word"), first_iteration
-            )
+        registry = get_registry()
+        registry.histogram("train_chunk_drain_seconds").observe(
+            time.perf_counter() - t_drain)
+        registry.counter("train_chunks_total").inc()
+        # The drain just synced, so the sample costs no extra stall.
+        sample_device_watermark()
+        self._record_lane_metrics(meter.rate())
+        if "health_ok" in host:
+            if self.recovery_ladder is not None:
+                self._recovery_verdict = self.recovery_ladder.observe(
+                    host["health_ok"], host.get("health_word"),
+                    first_iteration)
+            else:
+                record_health_flags(host)
         per_iter = self.ppo.n_steps * self.num_envs
         for i in range(self._fused_chunk):
             if (first_iteration + i + 1) % self.config.log_interval:
@@ -757,6 +859,72 @@ class Trainer:
                     np.float32(chunk.severities[i]))
             logger.log(record, steps_before + (i + 1) * per_iter)
             self.last_record = record
+
+    def profile_breakdown(self, iters: int = 10) -> Dict[str, float]:
+        """Where an iteration's time goes: ``iters`` iterations through the
+        trainer's own phases (captured on the card), timed phase by phase
+        with CUDA events (the host's clock on the CPU), and ``n_steps`` env
+        steps alone under uniform random actions. The run's state (learner,
+        env carry, generators, counters) is restored afterwards, so the
+        timed iterations leave no trace. Returns seconds an iteration, as
+        the JAX trainer's: ``total``, ``rollout`` (policy, env, GAE and
+        the update's rows), ``env``, ``policy`` (rollout - env),
+        ``update`` (the minibatch steps and the end), and ``frac_env``,
+        ``frac_policy``, ``frac_update`` of their sum."""
+        if self._fused_chunk:
+            raise RuntimeError("profile_breakdown times the host loop's "
+                               "iteration; build the trainer without "
+                               "fused_chunk")
+        saved = self._host_tree()
+        since_save = self._vec_steps_since_save
+        draws = self._scenario_draws
+        while any(p.calls == 0 or p.builds_next() for p in self._phases):
+            self._dispatch(1)  # warm up and capture, outside the timing
+        cuda = self.device.type == "cuda"
+
+        def stamp():
+            if not cuda:
+                return time.perf_counter()
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            return event
+
+        def seconds(a, b) -> float:
+            return a.elapsed_time(b) / 1e3 if cuda else b - a
+
+        marks: List[List[Any]] = []
+        for _ in range(iters):
+            marks.append([])
+            self._iteration.run(mark=lambda _: marks[-1].append(stamp()),
+                                phases=self._phases)
+        it = self._iteration
+        state = type(it.env)(**{f: getattr(it.env, f).clone()
+                                for f in it.env_fields})
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        step = it.env_step_fn or (lambda s, v: self.env_spec.step_batch(
+            s, v, self.env_params, gen))
+        env_marks = [stamp()]
+        for _ in range(self.ppo.n_steps):
+            velocity = self.env_params.max_speed * (
+                2 * torch.rand(state.agents.shape, generator=gen,
+                               device=self.device) - 1)
+            state, _ = step(state, velocity)
+        env_marks.append(stamp())
+        if cuda:
+            torch.cuda.synchronize()
+        rows = [(seconds(m[0], m[1]), seconds(m[1], m[2])) for m in marks]
+        env = seconds(*env_marks)
+        self._load_tree(saved, "the state before profile_breakdown")
+        self._vec_steps_since_save = since_save
+        self._scenario_draws = draws
+        rollout = float(np.mean([r for r, _ in rows]))
+        update = float(np.mean([u for _, u in rows]))
+        result = {"total": rollout + update, "rollout": rollout, "env": env,
+                  "update": update, "policy": max(rollout - env, 0.0)}
+        stage_sum = result["env"] + result["policy"] + result["update"]
+        for k in ("env", "policy", "update"):
+            result[f"frac_{k}"] = result[k] / stage_sum if stage_sum else 0.0
+        return result
 
     # ------------------------------------------------------------------
     # The recovery ladder's actions
@@ -781,7 +949,10 @@ class Trainer:
         """Feed a host-loop record's health flags to the ladder and act on
         its verdict; True when the state was restored (or the run
         halted)."""
-        if "health_ok" not in host_metrics or self.recovery_ladder is None:
+        if "health_ok" not in host_metrics:
+            return False
+        if self.recovery_ladder is None:
+            record_health_flags(host_metrics)
             return False
         self._recovery_verdict = self.recovery_ladder.observe(
             host_metrics["health_ok"], host_metrics.get("health_word"),

@@ -15,6 +15,12 @@ Writes can leave the training loop: ``device_snapshot`` copies the state on
 the device behind the work that produced it, and ``AsyncCheckpointWriter``
 brings the copy to the host and writes it on a background thread, one write
 at a time, in order. ``prune_checkpoints`` keeps the newest N files.
+
+The writer, the non-finite gate, quarantine and pruning record into the
+metrics registry under the JAX package's names (``checkpoint_writes_total``,
+``checkpoint_write_seconds``, ``checkpoint_queue_depth``,
+``checkpoint_writes_skipped_total``, ``checkpoint_nonfinite_skipped_total``,
+``checkpoint_quarantined_total``, ``checkpoint_pruned_total``).
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ from typing import Any, Callable, Iterable, List, Mapping, Optional, Tuple
 import msgpack
 import numpy as np
 import torch
+
+from marl_distributedformation_tpu_torch.obs.metrics import get_registry
 
 _STEP_RE = re.compile(r"rl_model_(\d+)_steps")
 # A population's resume anchor lives beside its seed{i}/ member directories;
@@ -186,6 +194,7 @@ def save_checkpoint(
     try:
         write_atomic(path, tree)
     except NonFiniteCheckpointError as e:
+        get_registry().counter("checkpoint_nonfinite_skipped_total").inc()
         print(f"[checkpoint] skipped: {e}", file=sys.stderr)
         return None
     return path
@@ -201,6 +210,7 @@ def save_sweep_state(
     try:
         write_atomic(path, tree)
     except NonFiniteCheckpointError as e:
+        get_registry().counter("checkpoint_nonfinite_skipped_total").inc()
         print(f"[checkpoint] skipped: {e}", file=sys.stderr)
         return None
     return path
@@ -260,6 +270,7 @@ def quarantine_checkpoint(path: str | Path, reason: str) -> Optional[Path]:
             }) + "\n")
     except OSError:
         pass
+    get_registry().counter("checkpoint_quarantined_total").inc()
     return target
 
 
@@ -377,6 +388,8 @@ def prune_checkpoints(
         except OSError:
             continue
         pruned.append(path)
+    if pruned:
+        get_registry().counter("checkpoint_pruned_total").inc(len(pruned))
     return pruned
 
 
@@ -397,7 +410,10 @@ def tree_to_host(tree: Any, ready: Optional[Any] = None) -> Any:
     for it, so they wait for the work the event closes and for nothing the
     caller queued after it."""
     def leaf(x: Any) -> Any:
-        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
+        # A copy: a CPU tensor's numpy() would alias the live tensor, and a
+        # host tree (a rollback anchor) must not move with training.
+        return (x.detach().to("cpu", copy=True).numpy()
+                if isinstance(x, torch.Tensor) else x)
 
     if ready is None:
         return _map_tree(leaf, tree)
@@ -511,6 +527,9 @@ class AsyncCheckpointWriter:
         """Queue any checkpoint-writing callable on the writer's thread,
         under the same contract as ``submit``."""
         self.wait()
+        # One write in flight: a depth stuck at 1 means training outruns
+        # the disk.
+        get_registry().gauge("checkpoint_queue_depth").set(1.0)
         thread = threading.Thread(
             target=self._run, args=(write_fn,), daemon=True,
             name="ckpt-writer",
@@ -519,11 +538,16 @@ class AsyncCheckpointWriter:
         thread.start()
 
     def _run(self, write_fn: Callable[[], None]) -> None:
+        t0 = time.perf_counter()
+        registry = get_registry()
         try:
             attempt = 0
             while True:
                 try:
                     write_fn()
+                    registry.histogram("checkpoint_write_seconds").observe(
+                        time.perf_counter() - t0)
+                    registry.counter("checkpoint_writes_total").inc()
                     return
                 except OSError as e:
                     attempt += 1
@@ -535,13 +559,20 @@ class AsyncCheckpointWriter:
                         * random.uniform(0.5, 1.5)
                     )
                 except NonFiniteCheckpointError as e:
-                    self._skip(e)
+                    self.writes_skipped += 1
+                    registry.counter(
+                        "checkpoint_nonfinite_skipped_total").inc()
+                    print(f"[checkpoint] write skipped: {e}",
+                          file=sys.stderr)
                     return
         except BaseException as e:  # noqa: BLE001 - raised on the next wait
             self._error = e
+        finally:
+            registry.gauge("checkpoint_queue_depth").set(0.0)
 
     def _skip(self, error: BaseException) -> None:
         self.writes_skipped += 1
+        get_registry().counter("checkpoint_writes_skipped_total").inc()
         print(f"[checkpoint] write skipped: {error}", file=sys.stderr)
 
     def wait(self) -> None:

@@ -68,7 +68,10 @@ def test_sources_found():
             "chaos/plane.py", "serving/engine.py", "serving/metrics.py",
             "serving/registry.py", "serving/scheduler.py",
             "serving/client.py", "serving/smoke.py", "serving/loadgen.py",
-            "serving/autotune.py", "serve.py"} <= rel
+            "serving/autotune.py", "serve.py", "obs/metrics.py",
+            "obs/export.py", "obs/ledger.py", "utils/profiling.py",
+            "train/sebulba/__init__.py", "train/sebulba/queues.py",
+            "train/sebulba/driver.py"} <= rel
     assert (PORT / "csrc" / "knn.cu").exists()
 
 

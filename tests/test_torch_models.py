@@ -43,6 +43,7 @@ from marl_distributedformation_tpu_torch.models import (
     distributions,
 )
 from marl_distributedformation_tpu_torch.models.gnn import (
+    ONE_HOT_MAX_N,
     gather_nodes,
     parse_knn_obs,
 )
@@ -126,6 +127,108 @@ def test_gnn_forward_matches_jax(kwargs, masked):
             None if mask is None else torch.from_numpy(mask),
         )
     assert_outputs_close(port, ref)
+
+
+def _hub_indices(m, n, k, seed):
+    """Neighbor indices where a few hub nodes are everyone's neighbors:
+    many contributions add into each hub's gradient row."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, 3, size=(m, n, k)))
+
+
+@pytest.mark.parametrize("n", [20, 200])
+@pytest.mark.parametrize("lead", [(), (3,), (2, 3)])
+def test_gather_gradient_equals_torch_gather(lead, n):
+    """C4: the deterministic gather's backwards (the one-hot GEMM at N=20,
+    the sorted segment sum above ``ONE_HOT_MAX_N``) against the exact
+    gradient (float64): within f32 rounding, the recursive-summation bound
+    ``terms * 2**-24 * sum|terms|`` of each row, as ``torch.gather``'s own
+    ``scatter_add`` is; the forward is bitwise ``torch.gather``'s."""
+    assert (n <= ONE_HOT_MAX_N) == (n == 20)
+    k, e = 4, 8
+    rng = np.random.default_rng(5)
+    h = torch.from_numpy(rng.normal(size=(*lead, n, e)).astype(np.float32))
+    idx = _hub_indices(int(np.prod(lead)) or 1, n, k, 6).reshape(*lead, n, k)
+    weights = torch.from_numpy(
+        rng.normal(size=(*lead, n, k, e)).astype(np.float32))
+    flat = idx.reshape(*lead, n * k, 1).expand(*lead, n * k, e)
+
+    def grad_of(x, w, gather):
+        x = x.clone().requires_grad_(True)
+        out = gather(x)
+        (g,) = torch.autograd.grad((out * w).sum(), x)
+        return out, g
+
+    out, got = grad_of(h, weights, lambda x: gather_nodes(x, idx))
+    ref, atomic = grad_of(h, weights, lambda x: torch.gather(
+        x, -2, flat).reshape(*lead, n, k, e))
+    _, exact = grad_of(h.double(), weights.double(), lambda x: torch.gather(
+        x, -2, flat).reshape(*lead, n, k, e))
+    _, abs_sum = grad_of(h.double(), weights.double().abs(),
+                         lambda x: torch.gather(x, -2, flat).reshape(
+                             *lead, n, k, e))
+    _, terms = grad_of(h.double(), torch.ones_like(weights.double()),
+                       lambda x: torch.gather(x, -2, flat).reshape(
+                           *lead, n, k, e))
+    bound = terms * 2.0 ** -24 * abs_sum
+    assert torch.equal(out, ref)
+    for g in (got, atomic):
+        assert bool(((g.double() - exact).abs() <= bound).all())
+    # Rows that nobody lists get exactly zero.
+    unused = terms == 0
+    assert torch.equal(got[unused], torch.zeros_like(got[unused]))
+
+
+def test_gather_gradient_under_vmap_equals_the_loop():
+    """The population path (``torch.func.vmap`` over members): the member
+    axis folds into the batch, bitwise the members' own gathers."""
+    rng = np.random.default_rng(7)
+    h = torch.from_numpy(rng.normal(size=(3, 2, 9, 5)).astype(np.float32))
+    idx = _hub_indices(6, 9, 3, 8).reshape(3, 2, 9, 3)
+    h1 = h.clone().requires_grad_(True)
+    (g1,) = torch.autograd.grad(
+        torch.func.vmap(gather_nodes)(h1, idx).pow(2).sum(), h1)
+    h2 = h.clone().requires_grad_(True)
+    out = torch.stack([gather_nodes(h2[i], idx[i]) for i in range(3)])
+    (g2,) = torch.autograd.grad(out.pow(2).sum(), h2)
+    assert torch.equal(g1, g2)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_gnn_gradients_match_jax(masked):
+    """The GNN's parameter gradients through the deterministic gather
+    against JAX's, within the tolerance the PPO gradients are held to
+    (rtol 1e-5, plus 1e-5 of each leaf's largest magnitude)."""
+    k, n = 4, 12
+    obs = knn_obs(3, n, k, seed=9)
+    mask = (np.random.default_rng(10).uniform(size=(3, n)) < 0.7
+            if masked else None)
+    jmodel = JaxGNN(k=k)
+    jobs = jnp.asarray(obs)
+    jmask = None if mask is None else jnp.asarray(mask)
+    jparams = jmodel.init(jax.random.PRNGKey(3), jobs, jmask)
+
+    def jloss(params):
+        mean, log_std, value = jmodel.apply(params, jobs, jmask)
+        return (mean ** 2).sum() + value.sum() + log_std.sum()
+
+    jgrads = np_tree(jax.grad(jloss)(jparams))
+    model = GNNActorCritic(k=k)
+    model.load_state_dict(params_from_jax(np_tree(jparams), "GNNActorCritic"))
+    mean, log_std, value = model(
+        torch.from_numpy(obs),
+        None if mask is None else torch.from_numpy(mask))
+    loss = (mean ** 2).sum() + value.sum() + log_std.sum()
+    names = [name for name, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    from marl_distributedformation_tpu_torch.compat.convert import (
+        params_to_jax,
+    )
+    from test_torch_algo import assert_tree_close
+
+    assert_tree_close(
+        params_to_jax(dict(zip(names, grads)), "GNNActorCritic"), jgrads,
+        rtol=1e-5, floor=1e-5, what="grads")
 
 
 @pytest.mark.parametrize("hidden", [(64, 64), (32,)])

@@ -197,3 +197,151 @@ def test_snapshot_and_flight_record_keys_equal_the_jax_package(tmp_path):
         sorted(r) for r in ref_flight["records"]]
     assert sorted(port_dump) == sorted(ref_dump)
     assert port_dump["format"] == ref_dump["format"] == "marl-obs-spans"
+
+
+# ---------------------------------------------------------------------------
+# Profile windows (utils/profiling.py::TraceWindow) on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _jax_audit_keys(tmp_path):
+    """The keys of the JAX package's capture audit line."""
+    import jax
+    import jax.numpy as jnp
+
+    from marl_distributedformation_tpu.analysis.guards import (
+        RetraceGuard as JaxRetraceGuard,
+    )
+    from marl_distributedformation_tpu.analysis.guards import ledgered_jit
+    from marl_distributedformation_tpu.utils.profiling import (
+        TraceWindow as JaxTraceWindow,
+    )
+
+    fn = ledgered_jit(lambda x: (x * 2.0).sum(), JaxRetraceGuard("t"),
+                      subsystem="test", program="jax_profiled")
+    window = JaxTraceWindow(str(tmp_path), enabled=True, count=1, skip=0)
+    window.before_dispatch()
+    window.after_dispatch(fn(jnp.ones((4,))))
+    jax.block_until_ready(0)
+    line = (tmp_path / "profile" / JaxTraceWindow.AUDIT_NAME).read_text()
+    return set(json.loads(line.splitlines()[0]))
+
+
+def test_trace_window_writes_a_trace_and_the_audit_line(tmp_path):
+    import torch
+
+    from marl_distributedformation_tpu_torch.obs import (
+        ProgramLedger,
+        set_ledger,
+    )
+    from marl_distributedformation_tpu_torch.train.capture import PhaseGraph
+    from marl_distributedformation_tpu_torch.utils.profiling import (
+        TraceWindow,
+    )
+
+    previous = set_ledger(ProgramLedger())
+    try:
+        x = torch.ones((16, 16))
+        phase = PhaseGraph("profiled", lambda: torch.tanh(x @ x).sum(),
+                           capture=False, subsystem="test",
+                           program="profiled")
+        window = TraceWindow(str(tmp_path / "port"), enabled=True, count=2,
+                             skip=1)
+        for _ in range(5):
+            window.before_dispatch()
+            phase()
+            window.after_dispatch()
+        window.close()  # a no-op: the window is closed
+    finally:
+        set_ledger(previous)
+    assert window.captured and not window.active
+    trace = json.loads(open(window.trace_path).read())
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert "aten::mm" in names  # the traced dispatches' ops
+    lines = (tmp_path / "port" / "profile" / TraceWindow.AUDIT_NAME
+             ).read_text().splitlines()
+    (line,) = [json.loads(ln) for ln in lines]
+    assert line["event"] == "profile_capture" and line["completed"] is True
+    assert line["dispatches_traced"] == 2 and line["dispatches_skipped"] == 1
+    assert line["trace_dir"].endswith("profile")
+    assert line["programs"] == {"test_profiled": 2}
+    assert set(line) == _jax_audit_keys(tmp_path / "jax")
+
+
+def test_profile_true_traces_whole_chunks(tmp_path):
+    """``profile=true`` under ``fused_chunk``: the window's unit is a
+    chunk, after the two dispatches that build the phases."""
+    import torch
+
+    from marl_distributedformation_tpu_torch.algo import PPOConfig
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.models import MLPActorCritic
+    from marl_distributedformation_tpu_torch.obs import (
+        ProgramLedger,
+        set_ledger,
+    )
+    from marl_distributedformation_tpu_torch.train import (
+        TrainConfig,
+        Trainer,
+    )
+
+    env = EnvParams(num_agents=3, max_steps=20)
+    ppo = PPOConfig(n_steps=4, batch_size=24, n_epochs=1)
+    per_iter = ppo.n_steps * 4 * env.num_agents
+    previous = set_ledger(ProgramLedger())
+    try:
+        trainer = Trainer(
+            env, ppo, TrainConfig(
+                num_formations=4, checkpoint=False, fused_chunk=2,
+                profile=True, profile_iterations=1,
+                total_timesteps=8 * per_iter, log_dir=str(tmp_path)),
+            model=MLPActorCritic(env.obs_dim,
+                                 generator=torch.Generator().manual_seed(0)),
+            device="cpu")
+        trainer.train()
+    finally:
+        set_ledger(previous)
+    audit = tmp_path / "profile" / "capture_ledger.jsonl"
+    (line,) = [json.loads(ln) for ln in audit.read_text().splitlines()]
+    assert line["completed"] and line["dispatches_traced"] == 1
+    # One chunk: 2 rollouts, 2 ends.
+    assert line["programs"]["trainer_train_rollout"] == 2
+    assert line["programs"]["trainer_train_end"] == 2
+
+
+def test_profile_true_traces_a_population(tmp_path):
+    """``profile=true`` on a population (``train/sweep.py``): the window
+    runs at its dispatch seam as the single run's does."""
+    import torch
+
+    from marl_distributedformation_tpu_torch.algo import PPOConfig
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.models import MLPActorCritic
+    from marl_distributedformation_tpu_torch.obs import (
+        ProgramLedger,
+        set_ledger,
+    )
+    from marl_distributedformation_tpu_torch.train import TrainConfig
+    from marl_distributedformation_tpu_torch.train.sweep import SweepTrainer
+
+    env = EnvParams(num_agents=3, max_steps=20)
+    ppo = PPOConfig(n_steps=4, batch_size=24, n_epochs=1)
+    previous = set_ledger(ProgramLedger())
+    try:
+        sweep = SweepTrainer(
+            env, ppo, TrainConfig(
+                num_formations=2, checkpoint=False, profile=True,
+                profile_iterations=1, total_timesteps=4 * 4 * 2 * 3,
+                log_dir=str(tmp_path)),
+            2, models=[MLPActorCritic(
+                env.obs_dim, generator=torch.Generator().manual_seed(i))
+                for i in range(2)],
+            device="cpu")
+        sweep.train()
+    finally:
+        set_ledger(previous)
+    audit = tmp_path / "profile" / "capture_ledger.jsonl"
+    (line,) = [json.loads(ln) for ln in audit.read_text().splitlines()]
+    assert line["completed"] and line["dispatches_traced"] == 1
+    assert line["programs"]["sweep_sweep_rollout"] == 1
+    assert sweep.trace_window.trace_path

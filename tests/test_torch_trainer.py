@@ -96,6 +96,8 @@ def test_train_config_ported_fields_have_jax_defaults():
         "health", "health_grad_norm_max", "health_param_drift_max",
         "recovery", "recovery_breach_iters", "recovery_max_rollbacks",
         "recovery_lr_backoff", "recovery_severity_backoff", "keep_last_n",
+        "profile", "profile_iterations", "architecture", "actor_devices",
+        "transfer_queue_depth", "max_param_staleness",
     }
     for name, default in port.items():
         assert jax_fields[name] == default, name
@@ -375,9 +377,17 @@ PORTED_KNOBS = {
     "num_seeds": 3, "learning_rates": "[3e-4,1e-3]",
     # Scenario training: a schedule built at config time.
     "scenarios": "[wind,storm]", "scenario_severity": 0.25,
+    # Profile windows and Sebulba reach the trainer's config.
+    "profile": True, "profile_iterations": 2, "architecture": "sebulba",
+    "actor_devices": 2, "transfer_queue_depth": 3, "max_param_staleness": 1,
+    # The registry's and the ledger's knobs are main()'s.
+    "telemetry": False, "telemetry_port": 0, "telemetry_reservoir": 64,
+    "ledger": False, "ledger_reservoir": 32,
 }
 POPULATION_KNOBS = ("num_seeds", "learning_rates")
 SCENARIO_KNOBS = ("scenarios", "scenario_severity")
+OBS_KNOBS = ("telemetry", "telemetry_port", "telemetry_reservoir", "ledger",
+             "ledger_reservoir")
 
 
 @pytest.mark.parametrize("key", sorted(PORTED_KNOBS))
@@ -396,6 +406,9 @@ def test_train_cli_accepts_ported_knobs(key, tmp_path, monkeypatch):
         "device=cpu", "num_formation=2", *extra,
     ])
     assert key not in train_cli.UNPORTED
+    if key in OBS_KNOBS:
+        assert isinstance(trainer, Trainer)
+        return
     if key in SCENARIO_KNOBS:
         schedule = trainer._scenario_schedule
         names = ("wind", "storm") if key == "scenarios" else ("wind",)
@@ -496,3 +509,52 @@ def test_metrics_logger_as_jax(tmp_path, capsys):
     for _ in range(4):
         meter.tick(10)
     assert meter.rate() > 0.0
+
+
+def _tiny(tmp_path, **cfg):
+    from marl_distributedformation_tpu_torch.models import MLPActorCritic
+
+    env = EnvParams(num_agents=3, max_steps=20)
+    return Trainer(
+        env, PPOConfig(n_steps=4, batch_size=24, n_epochs=2),
+        TrainConfig(num_formations=4, checkpoint=False,
+                    log_dir=str(tmp_path), **cfg),
+        model=MLPActorCritic(env.obs_dim,
+                             generator=torch.Generator().manual_seed(0)),
+        device="cpu")
+
+
+def test_profile_breakdown_times_the_phases_and_leaves_no_trace(tmp_path):
+    """The JAX trainer's keys (``tests/test_trainer.py``), the fractions
+    summing to 1; the timed iterations are undone, so the next iteration
+    equals a fresh trainer's first bitwise."""
+    profiled, fresh = _tiny(tmp_path / "a"), _tiny(tmp_path / "b")
+    bd = profiled.profile_breakdown(iters=2)
+    for k in ("total", "rollout", "env", "update", "policy"):
+        assert bd[k] >= 0.0, bd
+    assert bd["total"] > 0.0 and bd["rollout"] > 0.0
+    np.testing.assert_allclose(
+        bd["frac_env"] + bd["frac_policy"] + bd["frac_update"], 1.0,
+        rtol=1e-6)
+    got, want = profiled.run_iteration(), fresh.run_iteration()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    for p, q in zip(profiled.model.parameters(), fresh.model.parameters()):
+        assert torch.equal(p, q)
+    assert profiled.num_timesteps == fresh.num_timesteps
+
+
+def test_host_tree_is_a_copy_on_the_cpu(tmp_path):
+    """A host tree (the ladder's rollback anchor) keeps the values it was
+    taken at: on the CPU ``numpy()`` would alias the live tensors."""
+    trainer = _tiny(tmp_path)
+    tree = trainer._host_tree()
+    flat = jax.tree_util.tree_leaves(tree["params"])
+    before = [np.array(leaf) for leaf in flat]
+    trainer.run_iteration()
+    for leaf, value in zip(flat, before):
+        np.testing.assert_array_equal(leaf, value)
+    live = jax.tree_util.tree_leaves(params_to_jax(
+        {k: p.detach().numpy() for k, p in trainer.model.named_parameters()},
+        trainer.policy))
+    assert any(not np.array_equal(a, b) for a, b in zip(flat, live))
