@@ -10,7 +10,7 @@ Phases (any failure exits non-zero):
 2. Hold each k-NN kernel against its plain PyTorch version on the card, at
    the shapes each path gives it — fused: training (M=1024, N=100, k=4),
    eval and populations (M=4096), the matrix (M=256), the falsifier
-   search (M=1600 and 3904); tiled: training (M=8, N=1024, k=4), eval
+   search (M=1600 and 3904), playback (M=1); tiled: training (M=8, N=1024, k=4), eval
    (M=512), populations (M=16) and the matrix (M=32) — and on lattice, duplicate and edge-clipped points (exact ties) and
    masks with fewer than k valid points: ``idx`` and offsets bitwise,
    distances within 1 ulp. Then time the kernel (its device time under
@@ -206,13 +206,41 @@ Phases (any failure exits non-zero):
      parameters bitwise (C4).
    - ``profile=true profile_iterations=3`` at N=100, M=64: the trace holds
      3 x 10 ``knn_fused`` events, and the audit line its dispatches.
-12. Print the kernels' JSON line (launches and timings at the training
+12. The reference's own user surface (no gymnasium or matplotlib: the
+   card's machine has neither):
+   - BASELINE config 1: the ``simulate`` tool headless at N=5 for 1100
+     steps (across the first auto-reset; an episode is ``max_steps + 2``
+     steps) and at its default N=10 (300 steps): ``avg_dist_to_goal``
+     finite and falling, ms a step; the per-formation ``step`` against row 0 of
+     ``step_batch`` at M=1 from one generator seed over 1100 baseline
+     steps at N=5 (ring) and 101 at N=100 (k-NN, k=4, ``max_steps=98``:
+     episodes of 100 steps): bitwise, the observation included, one
+     auto-reset; the k-NN step launches ``knn_fused`` at (1,100,4) once a
+     step.
+   - ``FormationVecEnv`` at N=100, M=1024, k=4 driven by
+     ``LoadedPolicy.predict`` on ``gnn100``'s checkpoint for 1003 steps
+     (across the episode end): ``knn_fused`` steps + 1 launches, every
+     formation done once; obs, rewards and dones bitwise those of the
+     same actions through ``make_vec_env`` from the same seed;
+     formation-steps/s and the host copies' share of the wall time,
+     beside phase 3's eval rate. At N=1024, M=8 on ``gnn1024``'s
+     checkpoint, 101 steps (``max_steps=99``): ``knn_tiled`` steps + 1.
+   - the ``visualize_policy`` tool headless for 1003 steps on
+     ``gnn100``'s run (``knn_fused`` at (1,100,4) once a step and once
+     for the reset) and for 300 on the committed MLP checkpoint.
+   - the committed checkpoint exported to SB3 naming, packed as a
+     ``PPO.save`` zip and imported back: its deterministic actions equal
+     the checkpoint's bitwise over a full episode through
+     ``FormationVecEnv`` (N=5, M=256).
+13. Print the kernels' JSON line (launches and timings at the training
    paths' shapes, those of the eval paths under ``eval``, the population
    paths' under ``population``, ``ctde_knn``'s launches under
    ``ctde_knn``, ``scen100``'s under ``scenario``, phase 9's under
    ``matrix``, ``adversary``, ``population61`` and ``chase``, phase 10's
-   request rows under ``serving``, and phase 11's lanes under
-   ``sebulba``), the card line, and the last line ``{"ok": true,
+   request rows under ``serving``, phase 11's lanes under ``sebulba``,
+   phase 12's VecEnv runs under ``vec_env``, its playback, (1,100,4),
+   under ``playback`` and its per-formation k-NN step, (1,100,4), under
+   ``single_step``), the card line, and the last line ``{"ok": true,
    "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero with no result when no GPU is found.
@@ -435,6 +463,11 @@ def check_kernel(name, kernel, m, n, k, reps):
             "bound_by": bound_by}
 
 
+# Phase 3's eval formation-steps/s by label; phase 12 prints its VecEnv's
+# rate beside them.
+EVAL_RATES = {}
+
+
 def run_swarm(model, params, m, label):
     """One evaluation through the port's entry point with the launch
     counts set to 0 just before and read just after."""
@@ -457,6 +490,7 @@ def run_swarm(model, params, m, label):
     wall = time.perf_counter() - t0
     launches = dict(knn_cuda.LAUNCHES)
     T = episode_length(params)
+    EVAL_RATES[label] = m * T / wall
     if not all(math.isfinite(v) for v in out.values()):
         raise AssertionError(f"{label}: non-finite eval output {out}")
     if out["episodes"] != m:
@@ -1549,7 +1583,8 @@ def scenario_roll(model, params, sp, m=1024):
     gen = torch.Generator(device=dev).manual_seed(11)
     streams = ScenarioStreams(torch.Generator(device=dev).manual_seed(12))
     knn_cuda.reset_launches()
-    state, obs = env.reset_env(params, m, gen, dev)
+    state = env.reset_batch(params, m, gen, dev)
+    obs = env.obs(state, params)
     if sp is not None:
         state = init_scenario_state(state, params, streams)
         sp = broadcast_params(sp.to(dev), m)
@@ -3124,6 +3159,316 @@ def sebulba_phase(gnn100):
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 12: the reference's own user surface.
+
+CONFIG1_STEPS = 1100  # crosses the first auto-reset (episodes of 1002)
+CONFIG1_DEFAULT_STEPS = 300  # depth cut of the N=10 demo (1000) for time
+VECENV_STEPS = 1003  # one full episode of 1002 steps and one more
+MLP_PLAYBACK_STEPS = 300  # depth cut of the MLP playback for time
+
+
+def config1_phase():
+    """BASELINE config 1 through the ``simulate`` tool (N=5 for 1100 steps
+    and the default N=10), then the per-formation step against its row of
+    ``step_batch`` on the card (N=5 ring, N=100 k-NN); returns the k-NN
+    step's ``knn_fused`` launches."""
+    import torch
+
+    from marl_distributedformation_tpu_torch import simulate
+    from marl_distributedformation_tpu_torch.env import (
+        EnvParams,
+        control,
+        reset,
+        reset_batch,
+        step,
+        step_batch,
+    )
+    from marl_distributedformation_tpu_torch.ops import knn_cuda
+
+    for n, steps in ((5, CONFIG1_STEPS), (10, CONFIG1_DEFAULT_STEPS)):
+        t0 = time.perf_counter()
+        rows = simulate.main(["headless=true", f"num_agents={n}",
+                              f"steps={steps}", "device=cuda"])
+        wall = time.perf_counter() - t0
+        dist = [r["avg_dist_to_goal"] for r in rows]
+        first_episode = [r["avg_dist_to_goal"] for r in rows
+                         if r["step"] <= 1000]
+        if not all(math.isfinite(v) for r in rows for v in r.values()):
+            raise AssertionError(f"config1 N={n}: non-finite rows {rows}")
+        if not first_episode[-1] < first_episode[0]:
+            raise AssertionError(f"config1 N={n}: avg_dist_to_goal did not "
+                                 f"fall: {dist}")
+        print(f"[config1] simulate N={n} M=1 {steps} steps: "
+              f"{wall / steps * 1e3:.4f} ms a step, avg_dist_to_goal "
+              f"{first_episode[0]:.2f} -> {first_episode[-1]:.2f} "
+              f"(step {rows[-1]['step']}: {dist[-1]:.2f})")
+
+    # One formation's step is step_batch's row on a batch of one: bitwise,
+    # the observation included, the auto-reset drawn from generators of one
+    # seed; with k-NN observations at N=100 the step launches knn_fused at
+    # (1,100,4) once a step.
+    dev = torch.device("cuda")
+    single_launches = 0
+    for params, steps in ((EnvParams(num_agents=5), CONFIG1_STEPS),
+                          (EnvParams(num_agents=100, obs_mode="knn",
+                                     knn_k=4, max_steps=98), 101)):
+        label = f"N={params.num_agents} {params.obs_mode}"
+        gen_one = torch.Generator(device=dev).manual_seed(21)
+        gen_batch = torch.Generator(device=dev).manual_seed(21)
+        one = reset(params, gen_one, dev)
+        batch = reset_batch(params, 1, gen_batch, dev)
+        ones, rows = [], []  # each step's outputs, compared once at the end
+        launches = 0
+
+        def fields(state, tr):
+            return [state.agents, state.goal, state.steps, tr.obs,
+                    tr.reward, tr.done, *tr.metrics.values()]
+
+        with torch.no_grad():
+            for _ in range(steps):
+                vel = control(batch.agents, batch.goal, batch.obstacles,
+                              params)
+                knn_cuda.reset_launches()
+                one, tr_one = step(one, vel[0], params, gen_one)
+                launches += knn_cuda.LAUNCHES["knn_fused"]
+                batch, tr = step_batch(batch, vel, params, gen_batch)
+                ones.append(fields(one, tr_one))
+                rows.append([x[0] for x in fields(batch, tr)])
+        for i, (a, b) in enumerate(zip(zip(*ones), zip(*rows))):
+            if not torch.equal(torch.stack(a), torch.stack(b)):
+                raise AssertionError(f"{label}: per-formation step differs "
+                                     f"from step_batch's row on the card "
+                                     f"(field {i})")
+        dones = int(torch.stack([r[5] for r in rows]).sum())
+        if dones != 1:
+            raise AssertionError(f"{label}: {dones} auto-resets in {steps} "
+                                 "steps, want 1")
+        want = steps if params.obs_mode == "knn" else 0
+        if launches != want:
+            raise AssertionError(f"{label}: the per-formation step launched "
+                                 f"knn_fused {launches} times, want {want}")
+        if params.obs_mode == "knn":
+            single_launches = launches
+        print(f"[config1] {label}: per-formation step == step_batch row 0 "
+              f"at M=1, bitwise over {steps} steps (1 auto-reset), "
+              f"knn_fused {launches} launches by the step")
+    return single_launches
+
+
+def timed_vec_env(params, m, seed):
+    """A ``FormationVecEnv`` on the card that sums the seconds of its host
+    copies (the actions in, the transition out), each timed between
+    synchronizations."""
+    import torch
+
+    from marl_distributedformation_tpu_torch.compat import FormationVecEnv
+
+    class Timed(FormationVecEnv):
+        copy_s = 0.0
+
+        def _to_device(self, actions):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super()._to_device(actions)
+            torch.cuda.synchronize()
+            self.copy_s += time.perf_counter() - t0
+            return out
+
+        def _fetch(self, tr):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super()._fetch(tr)
+            self.copy_s += time.perf_counter() - t0
+            return out
+
+    return Timed(params, m, seed=seed, device="cuda")
+
+
+def vec_env_run(ckpt, params, m, steps, label, kernel):
+    """``FormationVecEnv`` driven by ``LoadedPolicy.predict`` on ``ckpt``:
+    the kernel's launches (steps + 1, the reset's included), one done a
+    formation an episode, and, interleaved, the same actions through
+    ``make_vec_env`` from the same seed: obs, rewards and dones bitwise.
+    Returns the VecEnv's launches of ``kernel``."""
+    import numpy as np
+    import torch
+
+    from marl_distributedformation_tpu_torch.compat import LoadedPolicy
+    from marl_distributedformation_tpu_torch.env import make_vec_env
+    from marl_distributedformation_tpu_torch.eval import episode_length
+    from marl_distributedformation_tpu_torch.ops import knn_cuda
+
+    seed = 17
+    policy = LoadedPolicy.from_checkpoint(ckpt, env_params=params,
+                                          device="cuda")
+    env = timed_vec_env(params, m, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    reset_fn, step_fn = make_vec_env(params, m, "cuda", gen)
+    n = params.num_agents
+
+    knn_cuda.reset_launches()
+    side = 0  # launches of the direct path, taken out of the count
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    obs = env.reset()
+    wall = time.perf_counter() - t0
+    before = knn_cuda.LAUNCHES[kernel]
+    state, ref_obs = reset_fn()
+    side += knn_cuda.LAUNCHES[kernel] - before
+    if not np.array_equal(obs, ref_obs.reshape(m * n, -1).cpu().numpy()):
+        raise AssertionError(f"{label}: reset obs differ from make_vec_env's")
+    # The VecEnv's host arrays go back to the card and are compared there,
+    # into one flag read at the end; the comparison is outside the timing.
+    same = torch.ones((), dtype=torch.bool, device="cuda")
+    done_rows = 0
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        actions, _ = policy.predict(obs, deterministic=True)
+        obs, rewards, dones, _ = env.step(actions)
+        wall += time.perf_counter() - t0
+        done_rows += int(dones.sum())
+        before = knn_cuda.LAUNCHES[kernel]
+        act = torch.from_numpy(actions.reshape(m, n, 2)).to("cuda")
+        state, tr = step_fn(state, act)
+        side += knn_cuda.LAUNCHES[kernel] - before
+        for host, dev in ((obs, tr.obs), (rewards, tr.reward),
+                          (dones, tr.done.repeat_interleave(n))):
+            same &= (torch.from_numpy(host).to("cuda")
+                     == dev.reshape(host.shape)).all()
+        same &= torch.isfinite(tr.obs).all()
+        torch.cuda.synchronize()
+    if not bool(same):
+        raise AssertionError(f"{label}: VecEnv differs from make_vec_env "
+                             "(or a non-finite obs)")
+    launches = knn_cuda.LAUNCHES[kernel] - side
+    if launches != steps + 1:
+        raise AssertionError(f"{label}: {kernel} launched {launches} times, "
+                             f"want {steps + 1}")
+    episodes = steps // episode_length(params)
+    if done_rows != episodes * m * n:
+        raise AssertionError(f"{label}: {done_rows} done rows, want "
+                             f"{episodes * m * n}")
+    print(f"[vec_env] {label}: M={m} N={n} {steps} steps, {kernel} "
+          f"{launches} launches, == make_vec_env bitwise; "
+          f"{m * steps / wall:.1f} formation-steps/s with predict, host "
+          f"copies {env.copy_s:.3f} s = {100 * env.copy_s / wall:.1f}% of "
+          f"{wall:.3f} s wall; phase 3 eval "
+          + ", ".join(f"{k} {v:.1f}" for k, v in EVAL_RATES.items())
+          + f" formation-steps/s; {card_line()}")
+    return launches
+
+
+def playback(name, overrides, steps):
+    """The ``visualize_policy`` tool headless on ``logs/{name}``, its
+    transitions captured; returns the k-NN launches."""
+    import contextlib
+    import io
+
+    from marl_distributedformation_tpu_torch import visualize_policy
+    from marl_distributedformation_tpu_torch.ops import knn_cuda
+
+    out = io.StringIO()
+    knn_cuda.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        played = visualize_policy.main([f"name={name}", "headless=true",
+                                        f"steps={steps}", "device=cuda",
+                                        *overrides])
+    wall = time.perf_counter() - t0
+    launches = dict(knn_cuda.LAUNCHES)
+    text = out.getvalue()
+    if played != steps or text.count("rewards:") != steps:
+        raise AssertionError(f"playback {name}: {played} steps, "
+                             f"{text.count('rewards:')} transitions printed")
+    if "nan" in text:
+        raise AssertionError(f"playback {name}: non-finite transition")
+    print(f"[playback] {name}: {steps} steps in {wall:.2f} s "
+          f"({wall / steps * 1e3:.3f} ms a step), launches {launches}")
+    return launches
+
+
+def sb3_round_trip(m=256):
+    """The committed checkpoint exported to SB3 naming, packed as a
+    ``PPO.save`` zip and imported back; its deterministic actions against
+    the checkpoint's, bitwise, over a full episode on the card."""
+    import json as _json
+    import shutil
+    import zipfile
+
+    import numpy as np
+
+    from marl_distributedformation_tpu_torch.compat import (
+        FormationVecEnv,
+        LoadedPolicy,
+    )
+    from marl_distributedformation_tpu_torch.compat.sb3_import import (
+        export_sb3_state_dict,
+        import_sb3_checkpoint,
+    )
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.eval import episode_length
+
+    work = ROOT / "logs" / "smoke_sb3"
+    shutil.rmtree(work, ignore_errors=True)
+    pth = export_sb3_state_dict(CKPT, work / "policy.sb3.pth")
+    src = work / CKPT.with_suffix(".zip").name
+    with zipfile.ZipFile(src, "w") as zf:
+        zf.writestr("data", _json.dumps({"policy_class": "MlpPolicy"}))
+        zf.writestr("policy.pth", pth.read_bytes())
+    out = import_sb3_checkpoint(src, work / "imported")
+    ours = LoadedPolicy.from_checkpoint(CKPT, device="cuda")
+    back = LoadedPolicy.from_checkpoint(out, device="cuda")
+    params = EnvParams(num_agents=5)
+    env = FormationVecEnv(params, m, seed=3, device="cuda")
+    obs = env.reset()
+    steps = episode_length(params)
+    for _ in range(steps):
+        a, _ = ours.predict(obs, deterministic=True)
+        b, _ = back.predict(obs, deterministic=True)
+        if not np.array_equal(a, b):
+            raise AssertionError("SB3 round trip: imported actions differ")
+        obs, *_ = env.step(a)
+    print(f"[sb3] {CKPT.name} -> {pth.name} -> {src.name} -> {out.name}: "
+          f"deterministic actions bitwise equal over {steps} steps at M={m}")
+
+
+def surface_phase(gnn100):
+    """Phase 12; returns the VecEnv and playback launches by kernel."""
+    import shutil
+
+    from marl_distributedformation_tpu_torch.env import EnvParams
+
+    single = config1_phase()
+    elapsed("config 1")
+    p100 = EnvParams(num_agents=100, obs_mode="knn", knn_k=4)
+    vec100 = vec_env_run(gnn100["ckpt"], p100, 1024, VECENV_STEPS,
+                         "vecenv100", "knn_fused")
+    p1024 = EnvParams(num_agents=1024, obs_mode="knn", knn_k=4, max_steps=99)
+    vec1024 = vec_env_run(gnn100["ckpt1024"], p1024, 8, 101, "vecenv1024",
+                          "knn_tiled")
+    elapsed("VecEnv")
+    gnn_run = Path(gnn100["ckpt"]).parent.relative_to(ROOT / "logs")
+    got = playback(str(gnn_run), ("obs_mode=knn",
+                                  "num_agents_per_formation=100"),
+                   VECENV_STEPS)
+    if got != {"knn_fused": VECENV_STEPS + 1, "knn_tiled": 0}:
+        raise AssertionError(f"playback100 launches {got}, want knn_fused "
+                             f"{VECENV_STEPS + 1}")
+    mlp_dir = ROOT / "logs" / "smoke_playback_mlp"
+    shutil.rmtree(mlp_dir, ignore_errors=True)
+    mlp_dir.mkdir(parents=True)
+    shutil.copy(CKPT, mlp_dir / CKPT.name)
+    if playback(mlp_dir.name, (), MLP_PLAYBACK_STEPS) != {"knn_fused": 0,
+                                                          "knn_tiled": 0}:
+        raise AssertionError("MLP playback launched a k-NN kernel")
+    sb3_round_trip()
+    elapsed("playback, SB3")
+    return {"vec_env": {"knn_fused": vec100, "knn_tiled": vec1024},
+            "playback": got["knn_fused"], "single_step": single}
+
+
 def main() -> int:
     import torch
 
@@ -3162,7 +3507,8 @@ def main() -> int:
                        "population": (4096, 100, 4),
                        "matrix": (256, 100, 4),
                        "adversary": (25 * ADVERSARY_M, 100, 4),
-                       "population61": (61 * ADVERSARY_M, 100, 4)}),
+                       "population61": (61 * ADVERSARY_M, 100, 4),
+                       "playback": (1, 100, 4)}),
         "knn_tiled": (knn_cuda.knn_tiled, 50,
                       {"train": (8, 1024, 4), "eval": (512, 1024, 4),
                        "population": (16, 1024, 4),
@@ -3244,6 +3590,10 @@ def main() -> int:
     sebulba_launches = sebulba_phase(gnn100)
     elapsed("phase 11, Sebulba, C4, observability")
 
+    # Phase 12: the reference's own user surface, this slice's main paths.
+    surface = surface_phase(gnn100)
+    elapsed("phase 12, single-formation API, VecEnv, tools")
+
     replaces = {
         "knn_fused": "marl_distributedformation_tpu/ops/knn_pallas.py:117",
         "knn_tiled": "marl_distributedformation_tpu/ops/knn_pallas.py:155",
@@ -3303,6 +3653,20 @@ def main() -> int:
             "path": "train sebulba100" if i == 0 else "train sebulba1024",
             "launches": sebulba_launches[name],
             "shape": stats[name]["train"]["shape"]}
+    # Phase 12's VecEnv runs at vecenv100's (1024,100,4), the train shape,
+    # and vecenv1024's (8,1024,4), the train shape; playback and the
+    # per-formation k-NN step at (1,100,4).
+    for i, name in enumerate(("knn_fused", "knn_tiled")):
+        kernels[i]["vec_env"] = {
+            "path": "vecenv100" if i == 0 else "vecenv1024",
+            "launches": surface["vec_env"][name],
+            "shape": stats[name]["train"]["shape"]}
+    kernels[0]["playback"] = {"path": "playback100 visualize_policy",
+                              "launches": surface["playback"],
+                              **stats["knn_fused"]["playback"]}
+    kernels[0]["single_step"] = {"path": "config1 per-formation step N=100",
+                                 "launches": surface["single_step"],
+                                 **stats["knn_fused"]["playback"]}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Formation-control environment, batched over M formations.
+"""Formation-control environment, batched over M formations, and its
+single-formation API.
 
 Counterpart of the JAX package's ``env/formation.py``, written on ``(M, N, 2)``
 tensors with the formation axis explicit. It keeps the reference's step order
@@ -7,9 +8,17 @@ pre-reset state, the Q1 timeout (``done = steps > max_steps`` under strict
 parity), auto-reset *before* metrics and observation, ``std`` with
 ``ddof=1``, and metrics per formation ``(M,)``.
 
-Resets draw from a ``torch.Generator``. ``reset_batch`` also takes the
-uniform draws themselves and ``step_batch`` a ready ``fresh`` state, so that
-tests can inject the JAX package's draws.
+``reset`` and ``step`` act on one formation (``agents (N, 2)``, ``goal
+(2,)``, ``steps ()``), as the JAX package's do: they run the batched
+functions on a batch of one and return its row, so a formation's step
+equals its row of ``step_batch`` bitwise, the observation included (with
+``obs_mode=knn`` one ``knn_batch`` over ``(1, N, 2)``, the kernel on the
+card). ``compute_obs`` on one formation's ``(N, 2)`` takes the plain
+``ops.knn``, as the JAX package's single-formation branch does.
+
+Resets draw from a ``torch.Generator``. ``reset_batch`` and ``reset`` also
+take the uniform draws themselves, and ``step_batch`` and ``step`` a ready
+``fresh`` state, so that tests can inject the JAX package's draws.
 """
 
 from __future__ import annotations
@@ -30,8 +39,10 @@ from marl_distributedformation_tpu_torch.env.types import (
     EnvParams,
     FormationState,
     Transition,
+    batch_of_one,
+    formation_row,
 )
-from marl_distributedformation_tpu_torch.ops.knn import knn_batch
+from marl_distributedformation_tpu_torch.ops.knn import knn, knn_batch, knn_local
 
 Tensor = torch.Tensor
 
@@ -144,13 +155,29 @@ def reset_batch(
     )
 
 
+def reset(
+    params: EnvParams,
+    generator: Optional[torch.Generator] = None,
+    device: DeviceLike = None,
+    uniforms: Optional[Tuple[Tensor, Tensor, Tensor]] = None,
+) -> FormationState:
+    """A fresh state of one formation (the JAX package's ``reset``,
+    ``env/formation.py:72``): ``reset_batch`` of one, so it draws what a
+    batch of one draws from ``generator``. ``uniforms`` are one
+    formation's ``(obstacles (K, 2), agents (N, 2), goal (2,))``."""
+    if uniforms is not None:
+        uniforms = tuple(u[None] for u in uniforms)
+    return formation_row(reset_batch(params, 1, generator, device, uniforms))
+
+
 def compute_obs(
     agents: Tensor,
     goal: Tensor,
     params: EnvParams,
     pos_neighbors: Optional[Tuple[Tensor, Tensor]] = None,
 ) -> Tensor:
-    """Per-agent observation ``(M, N, obs_dim)``.
+    """Per-agent observation ``(M, N, obs_dim)``, or ``(N, obs_dim)`` for
+    one formation's ``agents (N, 2)`` and ``goal (2,)``.
 
     ``ring`` (reference simulate.py:150-174): ``[own/WH, prev/WH - own/WH,
     next/WH - own/WH, (goal - own)/WH]``, the ring neighbors' positions
@@ -169,15 +196,37 @@ def compute_obs(
     normalized = agents / wh
     parts = [normalized, prev_pos / wh - normalized, next_pos / wh - normalized]
     if params.goal_in_obs:
-        parts.append((goal[:, None, :] - agents) / wh)
+        parts.append((goal[..., None, :] - agents) / wh)
     return torch.cat(parts, dim=-1)
 
 
 def compute_obs_knn(agents: Tensor, goal: Tensor, params: EnvParams) -> Tensor:
-    """k-NN observation: one ``knn_batch`` over the whole batch, then
-    ``_assemble_knn_obs``."""
-    idx, offsets, dists = knn_batch(agents, params.knn_k, impl=params.knn_impl)
+    """k-NN observation: one ``knn_batch`` over a batch ``(M, N, 2)``
+    (the kernels on the card), the plain ``knn`` over one formation
+    ``(N, 2)``, then ``_assemble_knn_obs``."""
+    if agents.dim() == 2:
+        idx, offsets, dists = knn(agents, params.knn_k)
+    else:
+        idx, offsets, dists = knn_batch(agents, params.knn_k,
+                                        impl=params.knn_impl)
     return _assemble_knn_obs(agents, goal, idx, offsets, dists, params)
+
+
+def compute_obs_knn_sharded(
+    local_agents: Tensor,
+    all_agents: Tensor,
+    goal: Tensor,
+    params: EnvParams,
+    agent_offset: int,
+) -> Tensor:
+    """k-NN observations of an agent-sharded slab (the JAX package's
+    ``env/formation.py:221``): ``local_agents (M, n_local, 2)`` are global
+    rows ``agent_offset .. agent_offset + n_local`` of ``all_agents (M, N,
+    2)``. Neighbor indices stay global, so the rows equal those of
+    ``compute_obs_knn`` on the whole formation (``ops.knn_local``)."""
+    idx, offsets, dists = knn_local(local_agents, all_agents, params.knn_k,
+                                    agent_offset)
+    return _assemble_knn_obs(local_agents, goal, idx, offsets, dists, params)
 
 
 def _assemble_knn_obs(
@@ -190,16 +239,16 @@ def _assemble_knn_obs(
 ) -> Tensor:
     """``[own/WH (2), offsets/WH (2k), dists/diag (k), (goal-own)/WH (2),
     idx as float32 (k)]`` — indices are exact in float32 (N < 2^24)."""
-    m, n, k = idx.shape
+    k = idx.shape[-1]
     wh = _const([params.width, params.height], agents)
     diag = _const([math.hypot(params.width, params.height)], agents)
     parts = [
         agents / wh,
-        (offsets / wh).reshape(m, n, 2 * k),
+        (offsets / wh).reshape(*agents.shape[:-1], 2 * k),
         dists / diag,
     ]
     if params.goal_in_obs:
-        parts.append((goal[:, None, :] - agents) / wh)
+        parts.append((goal[..., None, :] - agents) / wh)
     parts.append(idx.to(torch.float32))
     return torch.cat(parts, dim=-1)
 
@@ -348,6 +397,48 @@ def step_batch(
     return next_state, Transition(
         obs=obs, reward=reward, done=done, metrics=metrics
     )
+
+
+def step_one_formation(
+    step_batch_fn: Callable,
+    state,
+    velocity: Tensor,
+    params: EnvParams,
+    generator: Optional[torch.Generator] = None,
+    with_obs: bool = True,
+    fresh=None,
+):
+    """One formation's step through a batched env step ``step_batch_fn(
+    state, velocity, params, generator, fresh)``: its row of the step on a
+    batch of one, the observation included (with ``obs_mode=knn`` one
+    ``knn_batch`` over ``(1, N, 2)``: ``knn_fused`` on the card).
+    ``with_obs=False`` drops the observation after the row (zero-width)."""
+    if fresh is not None:
+        fresh = batch_of_one(fresh)
+    next_state, tr = step_batch_fn(batch_of_one(state), velocity[None],
+                                   params, generator, fresh)
+    next_state, tr = formation_row(next_state), formation_row(tr)
+    if not with_obs:
+        tr.obs = tr.obs[:, :0]
+    return next_state, tr
+
+
+def step(
+    state: FormationState,
+    velocity: Tensor,
+    params: EnvParams,
+    generator: Optional[torch.Generator] = None,
+    with_obs: bool = True,
+    fresh: Optional[FormationState] = None,
+) -> Tuple[FormationState, Transition]:
+    """Advance one formation one step with raw velocities ``(N, 2)`` (the
+    JAX package's ``step``, ``env/formation.py:360``): ``step_batch`` on a
+    batch of one, in the reference step order, the auto-reset drawn from
+    ``generator`` (or ``fresh``), so every output equals that batch's row
+    bitwise (``step_one_formation``). ``reward`` is ``(N,)``, ``done`` and
+    the metrics 0-d."""
+    return step_one_formation(step_batch, state, velocity, params,
+                              generator, with_obs, fresh)
 
 
 def make_vec_env(

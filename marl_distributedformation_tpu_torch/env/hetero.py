@@ -18,6 +18,10 @@ shape:
   the containment test never fires on them;
 - an auto-reset keeps the formation's ``n`` and ``k``.
 
+``hetero_reset`` and ``hetero_step`` act on one padded formation (scalar
+counts, no M axis), as the JAX package's do: the batched functions on a
+batch of one.
+
 The index, mask and target tensors derived from the counts form a
 ``HeteroLayout``. A trainer keeps one whose tensors are static buffers,
 rewritten in place at a stage reset (``HeteroLayout.set``), so that the
@@ -51,6 +55,8 @@ from marl_distributedformation_tpu_torch.env.types import (
     EnvParams,
     FormationState,
     Transition,
+    batch_of_one,
+    formation_row,
 )
 
 Tensor = torch.Tensor
@@ -203,6 +209,29 @@ def hetero_reset_batch(
     )
 
 
+def hetero_reset(
+    params: EnvParams,
+    n_agents,
+    n_obstacles,
+    generator: Optional[torch.Generator] = None,
+    device: DeviceLike = None,
+    uniforms: Optional[Tuple[Tensor, Tensor, Tensor]] = None,
+) -> HeteroState:
+    """A fresh padded formation for the counts ``n_agents`` and
+    ``n_obstacles`` (ints or 0-d tensors): ``hetero_reset_batch`` of one
+    (the JAX package's ``hetero_reset``, ``env/hetero.py:102``);
+    ``uniforms`` are one formation's draws."""
+    if uniforms is not None:
+        uniforms = tuple(u[None] for u in uniforms)
+
+    def count(c):
+        return torch.as_tensor(c, dtype=torch.int32).reshape(1)
+
+    return formation_row(hetero_reset_batch(
+        params, count(n_agents), count(n_obstacles), generator, device,
+        uniforms))
+
+
 def hetero_metrics(
     agents: Tensor,
     goal: Tensor,
@@ -317,6 +346,24 @@ def hetero_step_batch(
     return next_state, Transition(
         obs=obs, reward=reward, done=done, metrics=metrics
     )
+
+
+def hetero_step(
+    state: HeteroState,
+    velocity: Tensor,
+    params: EnvParams,
+    generator: Optional[torch.Generator] = None,
+    fresh: Optional[FormationState] = None,
+) -> Tuple[HeteroState, Transition]:
+    """Advance one padded formation one step with raw velocities ``(N_max,
+    2)`` (the JAX package's ``hetero_step``, ``env/hetero.py:127``):
+    ``hetero_step_batch`` on a batch of one, the auto-reset drawn from
+    ``generator`` (or ``fresh``, one formation's unparked reset)."""
+    if fresh is not None:
+        fresh = batch_of_one(fresh)
+    next_state, tr = hetero_step_batch(batch_of_one(state), velocity[None],
+                                       params, generator, fresh)
+    return formation_row(next_state), formation_row(tr)
 
 
 def make_hetero_vec_env(

@@ -2,8 +2,9 @@
 
 A copy of the JAX package's ``env/types.py``: ``EnvParams`` keeps the same
 fields, defaults, validation and derived widths, so a configuration means the
-same thing in both packages. State is a dataclass of batched tensors with the
-formation axis M written out (no vmap).
+same thing in both packages. State is a dataclass of tensors: batched, with
+the formation axis M written out (no vmap), or one formation's, without it
+(``batch_of_one`` and ``formation_row`` convert).
 """
 
 from __future__ import annotations
@@ -144,3 +145,21 @@ class Transition:
     reward: torch.Tensor  # (M, N) float32 — neighbor-mixed rewards
     done: torch.Tensor  # (M,) bool
     metrics: Dict[str, torch.Tensor]
+
+
+def batch_of_one(state: Any) -> Any:
+    """One formation's state (a dataclass of tensors) as a batch of one:
+    a leading axis of size 1 on every field."""
+    return type(state)(**{f.name: getattr(state, f.name)[None]
+                          for f in dataclasses.fields(state)})
+
+
+def formation_row(tree: Any, i: int = 0) -> Any:
+    """Formation ``i`` of a batched state or ``Transition``: every field
+    (and every metric) indexed at ``i`` on its leading axis."""
+    if isinstance(tree, dict):
+        return {k: formation_row(v, i) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree):
+        return type(tree)(**{f.name: formation_row(getattr(tree, f.name), i)
+                             for f in dataclasses.fields(tree)})
+    return tree[i]

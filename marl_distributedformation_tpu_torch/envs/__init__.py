@@ -7,7 +7,8 @@ JAX package's order.
 
     spec = envs.get("formation")
     spec = envs.spec_for_params(params)
-    state, obs = spec.reset_env(params, 8, generator, "cpu")
+    state, obs = spec.reset_env(params, generator, "cpu")  # one formation
+    batch = spec.reset_batch(params, 8, generator, "cpu")
 """
 
 from marl_distributedformation_tpu_torch.envs.spec import (  # noqa: F401

@@ -8,7 +8,9 @@ from __future__ import annotations
 
 from marl_distributedformation_tpu_torch.env.formation import (
     compute_obs,
+    reset,
     reset_batch,
+    step,
     step_batch,
 )
 from marl_distributedformation_tpu_torch.env.types import EnvParams
@@ -16,7 +18,7 @@ from marl_distributedformation_tpu_torch.envs.spec import EnvSpec, ObsLayout
 
 
 def formation_obs(state, params: EnvParams):
-    """The observation of a batched state."""
+    """The observation of a state, batched or one formation's."""
     return compute_obs(state.agents, state.goal, params)
 
 
@@ -53,6 +55,8 @@ FORMATION_SPEC = EnvSpec(
         "reference simulate.py"
     ),
     params_cls=EnvParams,
+    reset=reset,
+    step=step,
     reset_batch=reset_batch,
     step_batch=step_batch,
     obs=formation_obs,

@@ -41,8 +41,10 @@ from marl_distributedformation_tpu_torch.env.formation import (
     compute_metrics,
     compute_obs,
     integrate,
+    reset,
     reset_batch,
     ring_neighbors,
+    step_one_formation,
 )
 from marl_distributedformation_tpu_torch.env.types import (
     EnvParams,
@@ -193,8 +195,26 @@ def pursuit_step_batch(
     )
 
 
+def pursuit_step(
+    state: FormationState,
+    velocity: Tensor,
+    params: PursuitParams,
+    generator: Optional[torch.Generator] = None,
+    with_obs: bool = True,
+    fresh: Optional[FormationState] = None,
+) -> Tuple[FormationState, Transition]:
+    """One formation of evaders, one step (the JAX package's
+    ``pursuit_step``, ``envs/pursuit.py:153``): its row of
+    ``pursuit_step_batch`` on a batch of one (``env.formation.
+    step_one_formation``). A pursuit formation resets with the formation
+    env's ``reset``."""
+    return step_one_formation(pursuit_step_batch, state, velocity, params,
+                              generator, with_obs, fresh)
+
+
 def pursuit_obs(state: FormationState, params: PursuitParams) -> Tensor:
-    """The observation of a batched state (the pursuer in the goal slot)."""
+    """The observation of a state, batched or one formation's (the
+    pursuer in the goal slot)."""
     return compute_obs(state.agents, state.goal, params)
 
 
@@ -228,6 +248,8 @@ PURSUIT_SPEC = EnvSpec(
         "carries the pursuer"
     ),
     params_cls=PursuitParams,
+    reset=reset,
+    step=pursuit_step,
     reset_batch=reset_batch,
     step_batch=pursuit_step_batch,
     obs=pursuit_obs,

@@ -1,8 +1,8 @@
 """The environment contract: ``EnvSpec`` and the declared observation layout.
 
 Counterpart of the JAX package's ``envs/spec.py``. An ``EnvSpec`` bundles an
-environment's batched functions with two pieces of metadata the rest of the
-port keys on:
+environment's functions, one formation's and batched, with two pieces of
+metadata the rest of the port keys on:
 
 - ``params_cls``: the env's frozen params dataclass. Downstream code resolves
   the spec from the params it already holds (``registry.spec_for_params``).
@@ -12,16 +12,20 @@ port keys on:
   columns read the blocks from here and fail fast when a block they need is
   not declared, instead of masking the wrong columns.
 
-The functions carry the port's signatures, batched over M formations with
-resets drawn from a ``torch.Generator`` (the JAX package's take a key):
+The functions carry the port's signatures, with resets drawn from a
+``torch.Generator`` where the JAX package's take a key:
 
-- ``reset_batch(params, M, generator, device) -> state``;
-- ``step_batch(state, velocity, params, generator) -> (state, Transition)``,
-  raw per-agent velocities ``(M, N, 2)``, auto-reset on done;
-- ``obs(state, params) -> obs`` ``(M, N, obs_dim)``.
+- ``reset(params, generator, device) -> state``: one formation;
+- ``step(state, velocity, params, generator, with_obs=True) -> (state,
+  Transition)``: one formation, raw per-agent velocities ``(N, 2)``,
+  auto-reset on done;
+- ``reset_batch(params, M, generator, device) -> state`` and
+  ``step_batch(state, velocity, params, generator)``: M formations, the
+  forms every trainer and evaluation runs;
+- ``obs(state, params) -> obs``, batched or one formation's.
 
-``reset_env`` and ``step_env`` give the gym-flavored view of the same
-functions.
+``reset_env`` and ``step_env`` give the gym-flavored view of the
+one-formation functions, with the JAX package's meaning.
 """
 
 from __future__ import annotations
@@ -89,27 +93,29 @@ class ObsLayout:
 
 @dataclasses.dataclass(frozen=True)
 class EnvSpec:
-    """A registered environment: batched functions and metadata (module
+    """A registered environment: its functions and metadata (module
     doc). Frozen, so a spec hashes like the params it dispatches on."""
 
     name: str
     description: str
     params_cls: type
+    reset: Callable[..., Any]  # (params, generator, device) -> state
+    step: Callable[..., Any]  # (state, velocity, params, generator, with_obs)
     reset_batch: Callable[..., Any]  # (params, M, generator, device) -> state
     step_batch: Callable[..., Any]  # (state, velocity, params, generator)
     obs: Callable[..., Any]  # (state, params) -> obs
     obs_layout: Callable[..., ObsLayout]  # (params) -> ObsLayout
 
-    def reset_env(self, params, num_formations: int, generator=None,
-                  device=None):
-        """``(state, obs)``: a reset and its first observation."""
-        state = self.reset_batch(params, num_formations, generator, device)
+    def reset_env(self, params, generator=None, device=None):
+        """``(state, obs)``: one formation's reset and its first
+        observation."""
+        state = self.reset(params, generator, device)
         return state, self.obs(state, params)
 
     def step_env(self, state, velocity, params, generator=None):
-        """``(state, obs, reward, done, info)``; ``info`` is the
-        transition's metrics."""
-        next_state, tr = self.step_batch(state, velocity, params, generator)
+        """``(state, obs, reward, done, info)`` of one formation's step;
+        ``info`` is the transition's metrics."""
+        next_state, tr = self.step(state, velocity, params, generator)
         return next_state, tr.obs, tr.reward, tr.done, tr.metrics
 
     def default_params(self, **overrides):

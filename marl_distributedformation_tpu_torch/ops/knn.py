@@ -69,6 +69,74 @@ def knn_batch_torch(
     return idx.to(torch.int32), offsets, dists
 
 
+def pairwise_sq_dists(points: torch.Tensor) -> torch.Tensor:
+    """Squared distances ``(N, N)`` of ``points (N, d)`` in the direct form,
+    the diagonal masked to ``_SELF_MASK`` (the JAX package's
+    ``ops/knn.py:43``)."""
+    diff = points[:, None, :] - points[None, :, :]
+    d2 = (diff * diff).sum(-1)
+    return d2 + _SELF_MASK * torch.eye(
+        points.shape[0], dtype=points.dtype, device=points.device
+    )
+
+
+def knn(
+    points: torch.Tensor, k: int, valid: Optional[torch.Tensor] = None
+) -> KnnResult:
+    """The k nearest neighbors of each point of one formation, ``points
+    (N, d)``, self excluded: ``idx (N, k)`` int32, ``offsets (N, k, d)``,
+    ``dists (N, k)``, by ascending distance (the JAX package's
+    ``ops/knn.py:53``).
+
+    ``valid (N,)`` marks live points; an invalid point is never chosen,
+    and a row with fewer than k valid neighbors fills the rest with
+    self-loops (``idx = i``, offset 0, dist 0): the formation's row of
+    ``knn_batch_torch``. Unmasked, the search is ``knn_local`` with every
+    point a query, so the rows equal the agent-sharded search's bitwise.
+    """
+    n = points.shape[0]
+    if not 1 <= k < n:
+        raise ValueError(f"knn needs 1 <= k < N (k={k}, N={n})")
+    if valid is None:
+        return knn_local(points, points, k, 0)
+    idx, offsets, dists = knn_batch_torch(points[None], k, valid[None])
+    return idx[0], offsets[0], dists[0]
+
+
+def knn_local(
+    queries: torch.Tensor,
+    points: torch.Tensor,
+    k: int,
+    query_offset: int,
+) -> KnnResult:
+    """The k nearest neighbors of a block of query agents against the whole
+    formation (the JAX package's ``ops/knn.py:95``, the agent-sharded
+    search): ``queries (..., nq, d)`` are global rows ``query_offset ..
+    query_offset + nq`` of ``points (..., N, d)``; leading axes are
+    formations. Returns ``idx (..., nq, k)`` int32 global indices,
+    ``offsets`` and ``dists``, by ascending distance; self is masked by
+    its global row, in the same direct form and column order as ``knn``,
+    so each row equals the whole search's row bitwise."""
+    nq, n, d = queries.shape[-2], points.shape[-2], points.shape[-1]
+    if not 1 <= k < n:
+        raise ValueError(f"knn_local needs 1 <= k < N (k={k}, N={n})")
+    diff = queries[..., :, None, :] - points[..., None, :, :]
+    d2 = (diff * diff).sum(-1)  # (..., nq, N)
+    gids = query_offset + torch.arange(nq, device=points.device)
+    cols = torch.arange(n, device=points.device)
+    d2 = d2.masked_fill(cols[None, :] == gids[:, None], _SELF_MASK)
+    best, idx = torch.sort(d2, dim=-1, stable=True)
+    best, idx = best[..., :k], idx[..., :k]
+    lead = points.shape[:-2]
+    flat = points.reshape(-1, n, d)
+    nbr = torch.gather(
+        flat, 1, idx.reshape(flat.shape[0], nq * k, 1).expand(-1, -1, d)
+    ).reshape(*lead, nq, k, d)
+    offsets = nbr - queries[..., :, None, :]
+    dists = torch.sqrt(torch.clamp_min(best, 0.0))
+    return idx.to(torch.int32), offsets, dists
+
+
 def resolve_impl(points: torch.Tensor, impl: str) -> str:
     """What ``impl="auto"`` runs for ``points``: the plain version on a CPU
     tensor; on a CUDA tensor the fused kernel for N <= 640 and the tiled

@@ -27,6 +27,7 @@ from marl_distributedformation_tpu_torch.scenarios.engine import (  # noqa: F401
     TiledStreams,
     init_scenario_state,
     make_scenario_step,
+    scenario_step,
     scenario_step_batch,
 )
 from marl_distributedformation_tpu_torch.scenarios.registry import (  # noqa: F401

@@ -9,6 +9,7 @@ computes the observation once over the whole batch, so with
 ``obs_mode=knn`` the batch's neighbor search is one ``ops.knn_batch`` call
 (``knn_fused``/``knn_tiled`` on the card) and ``perturb_obs`` runs on its
 result, the route of the JAX package's ``engine.py:84-95``.
+``scenario_step`` is one formation's step: the stack on a batch of one.
 
 Random streams. The JAX package derives every layer's draws from the
 formation's own key (``fold_in(state.key, salt)`` an episode, folded with
@@ -45,6 +46,8 @@ from marl_distributedformation_tpu_torch.env.types import (
     EnvParams,
     FormationState,
     Transition,
+    batch_of_one,
+    formation_row,
 )
 from marl_distributedformation_tpu_torch.envs import spec_for_params
 from marl_distributedformation_tpu_torch.scenarios.layers import (
@@ -236,6 +239,33 @@ def scenario_step_batch(
     obs = perturb_obs(tr.obs, next_state, sp, params, step.obs_noise,
                       episode["obs_bias"], step.comm_u)
     return next_state, dataclasses.replace(tr, obs=obs)
+
+
+def scenario_step(
+    state: ScenarioState,
+    velocity: Tensor,
+    sp: ScenarioParams,
+    params: EnvParams,
+    generator=None,
+    streams: Optional[ScenarioStreams] = None,
+    with_obs: bool = True,
+    fresh: Optional[FormationState] = None,
+) -> Tuple[ScenarioState, Transition]:
+    """One formation, one step, through the disturbance stack (the JAX
+    package's ``scenario_step``, ``scenarios/engine.py:47``): its row of
+    ``scenario_step_batch`` on a batch of one, drawing what a batch of one
+    draws; ``with_obs=False`` drops the observation after the row
+    (zero-width). ``sp`` is one formation's params, ``state`` and
+    ``fresh`` one formation's."""
+    if fresh is not None:
+        fresh = batch_of_one(fresh)
+    next_state, tr = scenario_step_batch(batch_of_one(state), velocity[None],
+                                         sp, params, generator, streams,
+                                         fresh)
+    next_state, tr = formation_row(next_state), formation_row(tr)
+    if not with_obs:
+        tr.obs = tr.obs[:, :0]
+    return next_state, tr
 
 
 def make_scenario_step(

@@ -66,9 +66,10 @@ program ledger, whose census lands in ``logs/{name}/program_ledger.json``
 at exit (by default); ``profile=true`` traces ``profile_iterations``
 dispatches into ``logs/{name}/profile/``.
 
-A mistyped key exits with a did-you-mean. A knob of a feature the port does
-not have yet exits naming its ROADMAP item when set to anything but its
-YAML default, as does any ``env`` but ``formation``: nothing is silently
+A mistyped key exits with a did-you-mean, as does an ``env`` that is not
+registered (``formation`` and, since the env-spec slice, ``pursuit_evasion``
+train). A knob of a feature the port does not have yet exits naming its
+ROADMAP item when set to anything but its YAML default: nothing is silently
 ignored.
 """
 
@@ -114,6 +115,7 @@ from marl_distributedformation_tpu_torch.utils.config import (
     env_params_from_config,
     load_config,
     read_yaml,
+    refuse_jax_only,
     repo_root,
     scenario_schedule_from_config,
     validate_override_keys,
@@ -130,13 +132,10 @@ _UNLISTED_DEFAULTS = {
 # Knobs of features not ported yet, and the ROADMAP item that ports each.
 UNPORTED = {
     "mesh": "A12 (parallelism)",
-    "guard_retraces": "A14 (static analysis)",
-    "guard_transfers": "A14 (static analysis)",
-    "guard_nans": "A14 (static analysis)",
+    "guard_retraces": "A14 (runtime guards)",
+    "guard_transfers": "A14 (runtime guards)",
+    "guard_nans": "A14 (runtime guards)",
 }
-# JAX-backend selectors with no meaning here: the port picks its device
-# with ``device``.
-JAX_ONLY = ("platform", "backend")
 
 
 def refuse_unported(cfg) -> None:
@@ -149,12 +148,7 @@ def refuse_unported(cfg) -> None:
                 f"{key}={cfg[key]!r} is not ported yet (ROADMAP {item}); "
                 f"leave it at {default!r}"
             )
-    for key in JAX_ONLY:
-        if cfg.get(key) != defaults.get(key):
-            raise SystemExit(
-                f"{key}={cfg[key]!r} selects the JAX backend; the port "
-                "runs on PyTorch and picks its device with device=cuda|cpu"
-            )
+    refuse_jax_only(cfg, defaults)
 
 
 def ppo_from_config(cfg) -> PPOConfig:

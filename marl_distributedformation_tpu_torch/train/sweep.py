@@ -221,9 +221,11 @@ class SweepTrainer:
         """The env carry the population starts from: every member's reset
         of the run's env drawn from its own generator, and the
         observation."""
-        return spec_for_params(self.env_params).reset_env(
+        spec = spec_for_params(self.env_params)
+        state = spec.reset_batch(
             self.env_params, self.num_seeds * self.config.num_formations,
             self.generators, self.device)
+        return state, spec.obs(state, self.env_params)
 
     def _iteration_options(self) -> Dict[str, Any]:
         """Further arguments of the population's ``PopulationIteration``."""

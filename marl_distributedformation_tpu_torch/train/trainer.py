@@ -432,9 +432,10 @@ class Trainer:
     def _initial_env(self) -> Tuple[FormationState, Tensor]:
         """The env carry the run starts from: a reset of the run's env drawn
         from the run's generator, and its observation."""
-        return self.env_spec.reset_env(
-            self.env_params, self.config.num_formations, self.generator,
-            self.device)
+        spec = self.env_spec
+        state = spec.reset_batch(self.env_params, self.config.num_formations,
+                                 self.generator, self.device)
+        return state, spec.obs(state, self.env_params)
 
     def _iteration_options(self) -> Dict[str, Any]:
         """Further arguments of the run's ``PhasedIteration``."""

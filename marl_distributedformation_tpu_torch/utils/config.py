@@ -184,6 +184,25 @@ def validate_override_keys(
             )
 
 
+# JAX-backend selectors with no meaning in the port: it picks its device
+# with ``device``.
+JAX_ONLY = ("platform", "backend")
+
+
+def refuse_jax_only(cfg: Dict[str, Any],
+                    defaults: Optional[Dict[str, Any]] = None) -> None:
+    """Exit when ``cfg`` sets ``platform`` or ``backend`` to anything but
+    its value in ``defaults`` (the YAML's, for an entry point that reads
+    it)."""
+    defaults = defaults or {}
+    for key in JAX_ONLY:
+        if cfg.get(key) != defaults.get(key):
+            raise SystemExit(
+                f"{key}={cfg[key]!r} selects the JAX backend; the port "
+                "runs on PyTorch and picks its device with device=cuda|cpu"
+            )
+
+
 def env_params_from_config(cfg: Config):
     """The selected env's params (``env``, default ``formation``) from the
     flat config, every field the config sets forwarded

@@ -44,19 +44,23 @@ def test_formation_spec_is_the_env_functions():
     spec = envs.get("formation")
     assert spec is envs.get_env("formation") is envs.FORMATION_SPEC
     assert envs.spec_for_params(EnvParams()) is spec
+    assert spec.reset is formation.reset and spec.step is formation.step
     assert spec.reset_batch is formation.reset_batch
     assert spec.step_batch is formation.step_batch
     assert spec.params_cls is EnvParams
     assert spec.description == jenvs.FORMATION_SPEC.description
     assert spec.default_params(num_agents=7) == EnvParams(num_agents=7)
+    # reset_env/step_env act on one formation, as the JAX package's.
     params = EnvParams(num_agents=6, obs_mode="knn", knn_k=2, max_steps=3)
-    state, obs = spec.reset_env(params, 3, torch.Generator().manual_seed(0),
+    state, obs = spec.reset_env(params, torch.Generator().manual_seed(0),
                                 "cpu")
-    assert obs.shape == (3, 6, params.obs_dim)
+    assert state.agents.shape == (6, 2) and state.steps.shape == ()
+    assert obs.shape == (6, params.obs_dim)
     state, obs, reward, done, info = spec.step_env(
-        state, torch.zeros(3, 6, 2), params, torch.Generator().manual_seed(1))
-    assert reward.shape == (3, 6) and done.shape == (3,)
-    assert "avg_dist_to_goal" in info
+        state, torch.zeros(6, 2), params, torch.Generator().manual_seed(1))
+    assert reward.shape == (6,) and done.shape == ()
+    assert obs.shape == (6, params.obs_dim)
+    assert "avg_dist_to_goal" in info and info["reward"].shape == ()
 
 
 def test_registry_contents_and_fail_fast_messages():

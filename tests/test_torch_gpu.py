@@ -1195,3 +1195,44 @@ def test_census_from_a_captured_phase(cuda, tmp_path):
     assert rec["flops"] == 2 * 256 ** 3
     # Calls 3 and 4; the capturing call is the build, not a dispatch.
     assert rec["dispatches_total"] == 2.0
+
+
+@pytest.mark.parametrize("obs_mode", ["ring", "knn"])
+def test_single_formation_step_is_its_step_batch_row(cuda, obs_mode):
+    """One formation's ``step`` on the card equals row 0 of ``step_batch``
+    at M=1 from one generator seed, across an auto-reset: state, reward,
+    done, metrics and observation bitwise. A formation's k-NN observation
+    is its batch of one's (``knn_fused`` at ``(1, N, k)``, one launch a
+    step)."""
+    from marl_distributedformation_tpu_torch.env import (
+        EnvParams,
+        reset,
+        reset_batch,
+        step,
+        step_batch,
+    )
+    from marl_distributedformation_tpu_torch.ops import knn_cuda
+
+    params = EnvParams(num_agents=100 if obs_mode == "knn" else 5,
+                       obs_mode=obs_mode, knn_k=4, max_steps=6)
+    g1 = torch.Generator(device=cuda).manual_seed(4)
+    g2 = torch.Generator(device=cuda).manual_seed(4)
+    one, batch = reset(params, g1, cuda), reset_batch(params, 1, g2, cuda)
+    vel_gen = torch.Generator(device=cuda).manual_seed(5)
+    dones = 0
+    for _ in range(12):
+        vel = torch.randn((1, params.num_agents, 2), generator=vel_gen,
+                          device=cuda) * 8
+        knn_cuda.reset_launches()
+        one, t1 = step(one, vel[0], params, g1)
+        want = 1 if obs_mode == "knn" else 0
+        assert knn_cuda.LAUNCHES == {"knn_fused": want, "knn_tiled": 0}
+        batch, tb = step_batch(batch, vel, params, g2)
+        for f in ("agents", "goal", "obstacles", "steps"):
+            assert torch.equal(getattr(one, f), getattr(batch, f)[0]), f
+        for f in ("obs", "reward", "done"):
+            assert torch.equal(getattr(t1, f), getattr(tb, f)[0]), f
+        for k, v in tb.metrics.items():
+            assert torch.equal(t1.metrics[k], v[0]), k
+        dones += int(t1.done)
+    assert dones == 1

@@ -1,12 +1,19 @@
 """The port stands alone: no module of ``marl_distributedformation_tpu_torch``
 and not ``chip_smoke.py`` imports JAX, flax or the JAX package; entry points
-with no device raise when no GPU is found instead of running on the CPU.
+with no device raise when no GPU is found instead of running on the CPU;
+every package imports without gymnasium and matplotlib; and each
+subpackage exports what the JAX package's does, but for names mapped to a
+counterpart or named by an open ROADMAP item.
 
 The scan reads the sources' syntax trees; it does not look at
 ``sys.modules``, which the test process shares with the JAX tests.
 """
 
 import ast
+import importlib
+import re
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -71,7 +78,12 @@ def test_sources_found():
             "serving/autotune.py", "serve.py", "obs/metrics.py",
             "obs/export.py", "obs/ledger.py", "utils/profiling.py",
             "train/sebulba/__init__.py", "train/sebulba/queues.py",
-            "train/sebulba/driver.py"} <= rel
+            "train/sebulba/driver.py", "compat/vec_env.py",
+            "compat/gym_env.py", "compat/gym_vector_env.py",
+            "compat/render.py", "compat/sb3_import.py", "env/spaces.py",
+            "simulate.py", "visualize_policy.py", "keyboard_move.py",
+            "vectorized_env.py", "examples/functional_env.py",
+            "examples/custom_policy.py"} <= rel
     assert (PORT / "csrc" / "knn.cu").exists()
 
 
@@ -133,3 +145,144 @@ def test_make_vec_env_on_cpu():
     state, tr = step_fn(state, torch.ones(3, 6, 2))
     assert torch.equal(state.steps, torch.ones(3, dtype=torch.int32))
     assert tr.obs.shape == obs.shape and torch.isfinite(tr.reward).all()
+
+
+# ---------------------------------------------------------------------------
+# The package surfaces against the JAX package's (ROADMAP C5)
+# ---------------------------------------------------------------------------
+
+JAX = ROOT / "marl_distributedformation_tpu"
+# A JAX export the port does not export: its counterpart (a dotted path in
+# the port) or the open ROADMAP item that ports it.
+NOT_EXPORTED = {
+    "parallel": "A12",
+    "pipeline": "A13",
+    # The static linter and the runtime guards.
+    "analysis": dict.fromkeys((
+        "GraftlintConfig", "Violation", "lint_paths", "lint_source",
+        "load_config", "nan_guard", "no_host_transfers"), "A14"),
+    "chaos": dict.fromkeys((
+        "Heartbeat", "Lane", "LaneWatchdog", "Violation", "check_audit_log",
+        "check_bounded_staleness", "check_budget_one",
+        "check_checkpoint_dir", "check_final_params_finite",
+        "check_finite_checkpoints", "check_no_duplicate_consume",
+        "check_no_request_lost", "check_params_version_monotone",
+        "check_recovery_log", "check_step_monotonic", "report_violations",
+    ), "A13"),
+    "compat": {"sb3_state_dict_to_flax": "compat.sb3_state_dict_to_torch"},
+    "env": {"tree_select": "env.formation._where"},
+    "obs": dict.fromkeys((
+        "RegressionSentinel", "Watch", "default_watches", "ledger_watches",
+        "load_bench_record", "recovery_watches"), "A14"),
+    "serving": dict.fromkeys((
+        "CapacityController", "CapacityDecision", "ShardedPolicyEngine",
+        "ShardedSpec"), "A13"),
+    "train": {
+        "assign_gate_device": "A13",
+        "fold_recovery_key": "train.fold_recovery_generator",
+        "make_fused_chunk": "train.capture.PhaseGraph",
+    },
+    "utils": {
+        "CheckpointDiscovery": "A13",
+        "broadcast_restore": "A12",
+        "own_restored": "A12",
+        "read_checkpoint_payload": "utils.strip_footer",
+        "restore_checkpoint": "utils.restore_state_dict_partial",
+        "restore_checkpoint_partial": "utils.restore_state_dict_partial",
+        "setup_platform": "device.resolve_device",
+    },
+}
+
+
+def _exported(init: Path):
+    """The public names an ``__init__.py`` binds (imports, assignments,
+    definitions), from its syntax tree: nothing of it runs."""
+    names = set()
+    for node in ast.parse(init.read_text()).body:
+        if isinstance(node, ast.ImportFrom):
+            names |= {a.asname or a.name for a in node.names}
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+    return {n for n in names if not n.startswith("_")}
+
+
+def _open_items():
+    text = (ROOT / "ROADMAP.md").read_text()
+    start = text.index("## Open items")
+    return text[start:text.index("Closed (kept for the IDs", start)]
+
+
+def _resolves(dotted: str) -> bool:
+    module, _, attr = dotted.rpartition(".")
+    try:
+        mod = importlib.import_module(
+            "marl_distributedformation_tpu_torch." + module)
+    except ImportError:
+        return False
+    return hasattr(mod, attr)
+
+
+SUBPACKAGES = sorted(p.parent.name for p in JAX.glob("*/__init__.py"))
+
+
+@pytest.mark.parametrize("sub", ["", *SUBPACKAGES])
+def test_package_surface_matches_jax(sub):
+    jax_names = _exported(JAX / sub / "__init__.py")
+    allowed = NOT_EXPORTED.get(sub, {})
+    if isinstance(allowed, str):  # a whole subpackage still to port
+        assert not (PORT / sub).exists(), sub
+        assert re.search(rf"\*\*{allowed}\b", _open_items()), allowed
+        return
+    port = importlib.import_module(
+        "marl_distributedformation_tpu_torch" + (f".{sub}" if sub else ""))
+    missing = sorted(n for n in jax_names
+                     if not hasattr(port, n) and n not in allowed)
+    assert not missing, f"{sub or 'top level'}: not exported: {missing}"
+    open_items = _open_items()
+    for name, where in allowed.items():
+        assert name in jax_names, f"{sub}.{name} is not the JAX package's"
+        assert not hasattr(port, name), f"{sub}.{name} is exported now"
+        if re.fullmatch(r"A\d+", where):
+            assert re.search(rf"\*\*{where}\b", open_items), (name, where)
+        else:
+            assert _resolves(where), (name, where)
+
+
+def test_packages_import_without_gymnasium_and_matplotlib():
+    """Neither package is on the card's machine: every ``__init__``, the
+    tools and the VecEnv import without them, and what needs one names
+    it."""
+    inits = sorted(".".join(p.relative_to(ROOT).with_suffix("").parts[:-1])
+                   for p in PORT.rglob("__init__.py"))
+    tools = [f"marl_distributedformation_tpu_torch.{m}" for m in (
+        "simulate", "visualize_policy", "keyboard_move", "vectorized_env",
+        "compat.vec_env", "compat.render", "compat.sb3_import")]
+    code = f"""
+import importlib, sys
+sys.modules["gymnasium"] = None
+sys.modules["matplotlib"] = None
+for name in {inits + tools!r}:
+    importlib.import_module(name)
+for name, needs in (("compat.gym_env", "gymnasium"),
+                    ("compat.gym_vector_env", "gymnasium")):
+    try:
+        importlib.import_module("marl_distributedformation_tpu_torch." + name)
+    except ImportError as e:
+        assert needs in str(e), e
+    else:
+        raise AssertionError(name + " imported without " + needs)
+from marl_distributedformation_tpu_torch.compat.render import FormationRenderer
+from marl_distributedformation_tpu_torch.env import Box, EnvParams
+for build, needs in ((lambda: FormationRenderer(EnvParams()), "matplotlib"),
+                     (lambda: Box(-1.0, 1.0, (2,)).to_gymnasium(),
+                      "gymnasium")):
+    try:
+        build()
+    except ImportError as e:
+        assert needs in str(e), e
+    else:
+        raise AssertionError("built without " + needs)
+"""
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT)

@@ -280,7 +280,7 @@ def _drive(params, sp, m=16, steps=9):
     """Each step's state, obs, reward and done, clean (``sp`` None) or
     through the scenario step, from one seed (through a reset)."""
     gen = torch.Generator().manual_seed(0)
-    state, _ = PURSUIT_SPEC.reset_env(params, m, gen, "cpu")
+    state = PURSUIT_SPEC.reset_batch(params, m, gen, "cpu")
     streams = ScenarioStreams(torch.Generator().manual_seed(1))
     if sp is not None:
         state = init_scenario_state(state, params, streams)
