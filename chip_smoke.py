@@ -32,7 +32,7 @@ Phases (any failure exits non-zero):
      the last 3 iterations must beat the first 3 by 20 and be above 0; the
      checkpoint it wrote, evaluated through the evaluate CLI (M=1024, full
      episode), must rank learned > baseline > zero. Then the same command
-     eagerly for 3 iterations, for the captured-to-eager ratio.
+     eagerly for 2 iterations, for the captured-to-eager ratio.
    - ``gnn1024`` (M=8, N=1024, ``preset=tpu``, 12 iterations): ``knn_tiled``
      must launch 1 + 12 x 10 times; the last 3 iterations must beat the
      first 3.
@@ -56,8 +56,8 @@ Phases (any failure exits non-zero):
      end on finite parameters with a rollback in ``recovery.jsonl``.
 6. Train populations (``train/sweep.py``) through the ``train`` CLI, every
    member's formations folded into one env batch, the iteration captured:
-   - ``pop4``: ``gnn100``'s command with ``num_seeds=4`` (30 iterations,
-     ``fused_chunk=10``): ``knn_fused`` must launch 1 + 30 x 10 times (one
+   - ``pop4``: ``gnn100``'s command with ``num_seeds=4``, cut to 20
+     iterations (``fused_chunk=10``): ``knn_fused`` must launch 1 + 20 x 10 times (one
      launch a step for the whole population, at (4096,100,4)); the
      population mean of the last 3 iterations must beat the first 3 by 20
      and the best member end above 0; member 0's reward an iteration is
@@ -232,7 +232,37 @@ Phases (any failure exits non-zero):
      ``PPO.save`` zip and imported back: its deterministic actions equal
      the checkpoint's bitwise over a full episode through
      ``FormationVecEnv`` (N=5, M=256).
-13. Print the kernels' JSON line (launches and timings at the training
+13. The serving fleet (``serving/fleet/``), the lane watchdog and the
+   runtime guards:
+   - ``fleet100``: ``gnn100``'s checkpoint behind ``FleetRouter`` at R=1
+     and then R=2 replicas on ``cuda:0`` (ladder 1/8/64/512, request rows
+     from ``serve_rows`` through ``knn_fused``), every rung of every
+     replica captured before traffic: one capture a rung a replica; every
+     replica's deterministic actions equal the single engine's ``act``
+     bitwise (else within serving's tolerance, printed); 4 clients sending
+     1, 3, 8, 9, 40 and 100 formations for 3 s with a coordinated swap to
+     ``scen100``'s checkpoint in the middle (at R=2 ``kill_replica(0)``
+     before it, the replica revived and readmitted half-open after):
+     ``check_step_monotonic``, ``check_no_request_lost`` and
+     ``check_budget_one`` find nothing; requests/s and p50/p95/p99 at
+     R=1 and R=2 beside phase 10's single engine, the longest barrier
+     hold at the swap, each rung's replay on each replica, and the busy
+     share of one profiled R=2 window.
+   - the HTTP frontend over the R=2 fleet: 4 ``ServingClient`` threads
+     send 200 requests over HTTP; each answer equals the in-process
+     router's bitwise and carries ``model_step`` and its ``X-Trace-Id``;
+     ``/v1/health`` and ``/v1/metrics`` in Prometheus text; a 429 with
+     ``Retry-After`` from a one-slot fleet and a 503 with every replica
+     killed.
+   - ``LaneWatchdog.watch_fleet`` over the R=2 fleet: a seeded
+     ``scheduler.dispatch`` crash kills a worker under traffic; it is
+     restarted (``restarts_total`` 1, its MTTR printed) and no accepted
+     request is lost.
+   - ``guards64``: ``gnn100``'s command at M=64, 3 iterations, with
+     ``guard_retraces=1 guard_transfers=true guard_nans=true`` passes;
+     then an ``.item()`` inside a guarded dispatch, ``train.carry_poison``
+     armed through the chaos plane, and a forced rebuild must raise.
+14. Print the kernels' JSON line (launches and timings at the training
    paths' shapes, those of the eval paths under ``eval``, the population
    paths' under ``population``, ``ctde_knn``'s launches under
    ``ctde_knn``, ``scen100``'s under ``scenario``, phase 9's under
@@ -240,7 +270,8 @@ Phases (any failure exits non-zero):
    request rows under ``serving``, phase 11's lanes under ``sebulba``,
    phase 12's VecEnv runs under ``vec_env``, its playback, (1,100,4),
    under ``playback`` and its per-formation k-NN step, (1,100,4), under
-   ``single_step``), the card line, and the last line ``{"ok": true,
+   ``single_step``, phase 13's request rows under ``fleet``), the card
+   line, and the last line ``{"ok": true,
    "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero with no result when no GPU is found.
@@ -992,10 +1023,12 @@ def train_phase():
                    "one captured iteration", 1, "iteration")
     elapsed("gnn100 captured")
 
+    # Two eager iterations: the second is the steady one the ratio reads
+    # (cut from 3 for phase 13's room).
     *_, eager_s = train_run(
         "smoke_gnn100_eager",
-        GNN100[:-1] + ("total_timesteps=3072000",),
-        "gnn100 M=1024 N=100, 3 iterations", capture=False)
+        GNN100[:-1] + ("total_timesteps=2048000",),
+        "gnn100 M=1024 N=100, 2 iterations", capture=False)
     print(f"[capture] gnn100: captured {captured_s:.4f} s/iteration, eager "
           f"{eager_s:.4f} s/iteration, {eager_s / captured_s:.2f}x")
     elapsed("gnn100 eager")
@@ -1058,7 +1091,12 @@ SWEEP8_ENV = ("num_agents_per_formation=3", "strict_parity=false",
 TPU_SWEEP8_WINDOWS = {(1, 25): -47.3, (76, 100): -38.3, (126, 150): -37.1,
                       (151, 175): -36.7, (176, 200): -38.1}
 SWEEP8_MARGIN = 5.0
-POP4 = GNN100 + ("num_seeds=4", "fused_chunk=10")
+# Cut from gnn100's 30 iterations to 20 for phase 13's room: by 20 the
+# learning gate (last 3 above the first 3 by 20, the best member above 0)
+# holds with a margin of ~40 (member 0 at 7.1-7.8 over iterations 18-20
+# on an NVIDIA H100 80GB HBM3 at 700 W).
+POP4 = GNN100[:-1] + ("total_timesteps=20480000", "num_seeds=4",
+                      "fused_chunk=10")
 # The N=1024 population: gnn1024's command, 2 members, 4 iterations.
 POP1024 = GNN1024[:-1] + ("total_timesteps=327680", "num_seeds=2")
 LR_SWEEP = ("num_formation=64", "num_seeds=4",
@@ -2579,7 +2617,7 @@ def serving_phase(gnn100_ckpt, scen100_ckpt, duration_s=3.0):
     MLP checkpoint beside it, then ``run_smoke_benchmark`` on the
     ``gnn100`` scheduler (default sizes, 4 clients), its device busy share,
     and ``max_rate_at_slo`` at a 50 ms p95. Returns ``knn_fused``'s launches
-    building the request rows."""
+    building the request rows and the smoke's report."""
     import shutil
 
     from marl_distributedformation_tpu_torch.compat.policy import LoadedPolicy
@@ -2661,7 +2699,7 @@ def serving_phase(gnn100_ckpt, scen100_ckpt, duration_s=3.0):
               f"{last.p95_ms:.3f} ms, loss {last.loss_fraction:.3f}")
     if engine.compile_counts() != dict.fromkeys(SERVE_BUCKETS, 1):
         raise AssertionError(f"serve: captures {engine.compile_counts()}")
-    return launches
+    return launches, r
 
 
 # Phase 11: Sebulba on one card, C4 and the observability plane.
@@ -3469,6 +3507,535 @@ def surface_phase(gnn100):
             "playback": got["knn_fused"], "single_step": single}
 
 
+# Phase 13: the serving fleet, the lane watchdog and the runtime guards.
+# gnn100's command at M=64 for 3 iterations, one a dispatch: the first
+# warms the phases up, the second captures them, the third is the first
+# post-warm-up dispatch, which guard_transfers guards.
+GUARDS64 = ("policy=gnn", "obs_mode=knn", "num_agents_per_formation=100",
+            "num_formation=64", "preset=tpu", "total_timesteps=192000",
+            "fused_chunk=1", "guard_retraces=1", "guard_transfers=true",
+            "guard_nans=true")
+FLEET_DURATION_S = 3.0
+FLEET_HTTP_REQUESTS = 200  # over 4 HTTP clients
+
+
+def fleet_equals_engine(router, engine, rows):
+    """Every replica's deterministic actions against the single engine's
+    ``act`` on the same rows, rung by rung: bitwise, or else within
+    serving's tolerance with the largest difference printed. Returns the
+    largest difference."""
+    import numpy as np
+
+    worst, bitwise = 0.0, True
+    for r in router.replicas:
+        params, _ = r.registry.active()
+        for b in SERVE_BUCKETS:
+            got = r.engine.act(rows[:b], nn_params=params)
+            want = engine.act(rows[:b])
+            if not np.array_equal(got, want):
+                bitwise = False
+                np.testing.assert_allclose(
+                    got, want, rtol=SERVE_RTOL, atol=SERVE_ATOL,
+                    err_msg=f"fleet replica {r.index} rung {b} vs engine")
+                worst = max(worst, float(np.abs(got - want).max()))
+    print(f"[fleet] R={len(router.replicas)}: every replica's deterministic "
+          f"actions == the single engine's act at rungs {SERVE_BUCKETS}: "
+          + ("bitwise" if bitwise else
+             f"NOT bitwise, within rtol {SERVE_RTOL} atol {SERVE_ATOL} (max "
+             f"abs diff {worst:.3g})"))
+    return worst
+
+
+def fleet_storm(replicas, fleet_dir, p100, rows, swap_ckpt, step0, engine):
+    """One fleet cell: ``replicas`` replicas of ``gnn100``'s checkpoint on
+    ``cuda:0``, every rung of every replica captured before traffic, then
+    4 clients for ``FLEET_DURATION_S`` with a coordinated swap to
+    ``scen100``'s checkpoint in the middle (and at R=2 ``kill_replica(0)``
+    before it and its half-open readmission after). Gates: one capture a
+    rung a replica, no step-monotonicity violation, no accepted request
+    lost, every replica on the new step. Returns ``(router, coordinator,
+    report)`` with the router still started."""
+    import shutil
+
+    from marl_distributedformation_tpu_torch.chaos import (
+        check_budget_one,
+        check_no_request_lost,
+        check_step_monotonic,
+    )
+    from marl_distributedformation_tpu_torch.serving.fleet import (
+        fleet_from_checkpoint_dir,
+        run_fleet_smoke,
+        warmup_fleet,
+    )
+
+    router, coordinator = fleet_from_checkpoint_dir(
+        fleet_dir, env_params=p100, num_replicas=replicas,
+        buckets=SERVE_BUCKETS, window_ms=2.0, probe_interval_s=0.2,
+        max_failovers=2)
+    t0 = time.perf_counter()
+    warmup_fleet(router, rows.shape[1:])
+    capture_s = time.perf_counter() - t0
+    counts = router.compile_counts()
+    if counts != {r.index: dict.fromkeys(SERVE_BUCKETS, 1)
+                  for r in router.replicas}:
+        raise AssertionError(f"fleet R={replicas}: captures {counts}")
+    fleet_equals_engine(router, engine, rows)
+    swap_step = step0 + replicas  # a newer step for each cell
+    target = fleet_dir / f"rl_model_{swap_step}_steps.msgpack"
+    events = {}
+
+    def chaos():
+        if replicas > 1:
+            router.kill_replica(0)
+        shutil.copy(swap_ckpt, fleet_dir / ".incoming.tmp")
+        (fleet_dir / ".incoming.tmp").replace(target)
+        if not coordinator.refresh():
+            raise AssertionError(f"fleet R={replicas}: no swap: "
+                                 f"{list(coordinator.load_errors)}")
+        events["pause_ms"] = coordinator.last_pause_ms
+        if replicas > 1:
+            router.replicas[0].scheduler.start()
+
+    log = {}
+    router.start()
+    report = run_fleet_smoke(
+        router, rows.shape[1:], duration_s=FLEET_DURATION_S, num_clients=4,
+        coordinator=coordinator, mid_storm=chaos,
+        mid_storm_at_s=FLEET_DURATION_S / 2, warmup=False, row_pool=rows,
+        log=log)
+    if replicas > 1:
+        # The half-open probe readmits the revived replica on the routing
+        # path once its interval has passed.
+        deadline = time.perf_counter() + 10.0
+        while not router.replicas[0].healthy and time.perf_counter() < deadline:
+            router.submit(rows[:1]).result(timeout=30)
+            time.sleep(0.01)
+        if not router.replicas[0].healthy:
+            raise AssertionError("fleet R=2: replica 0 never readmitted")
+    violations = (
+        check_step_monotonic(log["steps"])
+        + check_no_request_lost(log["outcomes"])
+        + check_budget_one({f"replica{i}_rung{b}": n
+                            for i, c in router.compile_counts().items()
+                            for b, n in c.items()}))
+    if violations:
+        raise AssertionError(f"fleet R={replicas}: "
+                             f"{[v.record() for v in violations]}")
+    if (report["client_requests_ok"] == 0 or report["client_failed"]
+            or report["client_timed_out"]
+            or report["model_step_max"] != swap_step
+            or any(r.registry.active_step != swap_step
+                   for r in router.replicas)):
+        raise AssertionError(f"fleet R={replicas}: {report}")
+    report["capture_s"] = capture_s
+    report["pause_ms"] = events["pause_ms"]
+    report["outcomes"] = len(log["outcomes"])
+    print(f"[fleet] fleet100 R={replicas} on cuda:0 (sizes 1,3,8,9,40,100 "
+          f"formations of 100 agents, 4 clients, {report['duration_s']} s, "
+          f"{'kill_replica(0), ' if replicas > 1 else ''}a coordinated swap "
+          f"to scen100 at step {swap_step}"
+          f"{', readmitted half-open' if replicas > 1 else ''}): "
+          f"{report['requests_per_sec_fleet']:.1f} requests/s; p50 "
+          f"{report['latency_p50_ms']:.3f} ms, p95 "
+          f"{report['latency_p95_ms']:.3f} ms, p99 "
+          f"{report['latency_p99_ms']:.3f} ms; routed "
+          + ", ".join(f"replica{r.index} "
+                      f"{report.get(f'replica{r.index}_routed', 0):.0f}"
+                      for r in router.replicas)
+          + f"; failed over {report['fleet_failed_over_total']:.0f}, breaks "
+          f"{report['fleet_breaks_total']:.0f}, rejected "
+          f"{report['client_rejected']:.0f}; {report['outcomes']} accepted "
+          f"requests, none lost; model_step {report['model_step_min']:.0f} "
+          f"-> {report['model_step_max']:.0f}, 0 monotonicity violations; "
+          f"the longest barrier hold at the swap {events['pause_ms']:.3f} ms;"
+          f" captures {router.compile_counts()} ({capture_s:.2f} s)")
+    for r in router.replicas:
+        print(f"[fleet] R={replicas} replica {r.index} replay ms a rung "
+              "(events over back-to-back replays on its stream): "
+              + ", ".join(
+                  f"{b}: {replay_ms(r.engine.rung(b).graph.graph, r.engine._stream, 100 if b < 512 else 30):.4f}"
+                  for b in SERVE_BUCKETS))
+    return router, coordinator, report
+
+
+def http_cell(router, rows):
+    """``FleetFrontend`` on 127.0.0.1:0 over the R=2 fleet: 4 HTTP clients
+    send ``FLEET_HTTP_REQUESTS`` requests through the port's
+    ``ServingClient``; every answer equals the in-process router's
+    bitwise and carries ``model_step`` and its ``X-Trace-Id``; then
+    ``/v1/health`` and ``/v1/metrics`` in Prometheus text. The schedulers
+    coalesce nothing during the cell (window 0), so a request is served
+    alone through the rung its size picks, over HTTP as in-process: a row
+    served in a batch of another rung runs other GEMM tiles, and can
+    differ in its last bits."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from marl_distributedformation_tpu_torch.obs import TRACE_HEADER
+    from marl_distributedformation_tpu_torch.serving import ServingClient
+    from marl_distributedformation_tpu_torch.serving.client import post_json
+    from marl_distributedformation_tpu_torch.serving.fleet import (
+        FleetFrontend,
+    )
+
+    lat, errors, seen, lock = [], [], [], threading.Lock()
+
+    def worker(i, url):
+        client = ServingClient(url, max_retries=3)
+
+        def traced(base_url, body, trace_id, wait_s):
+            status, payload, headers = post_json(
+                base_url, "/v1/act", body, headers={TRACE_HEADER: trace_id},
+                timeout_s=wait_s + 10.0)
+            with lock:
+                seen.append(headers.get(TRACE_HEADER) == trace_id
+                            and "model_step" in payload
+                            and payload.get("trace_id", trace_id)
+                            == trace_id)
+            return status, payload
+
+        client._post_act = traced
+        rng = np.random.default_rng(100 + i)
+        try:
+            for j in range(FLEET_HTTP_REQUESTS // 4):
+                # Small requests: a 100-formation request is ~4 MB of JSON.
+                n = (1, 3, 8, 9)[(i + j) % 4]
+                start = int(rng.integers(0, len(rows) - n))
+                obs = rows[start:start + n]
+                t0 = time.perf_counter()
+                actions, step = client.predict(obs)
+                dt = time.perf_counter() - t0
+                local = router.submit(obs).result(timeout=60)
+                if not np.array_equal(actions, local.actions) or \
+                        step != local.model_step:
+                    raise AssertionError(
+                        f"HTTP answer off the router's by "
+                        f"{np.abs(actions - local.actions).max()} (steps "
+                        f"{step}, {local.model_step})")
+                with lock:
+                    lat.append(dt)
+        except Exception as e:  # noqa: BLE001 — raised below
+            with lock:
+                errors.append(repr(e))
+
+    windows = [r.scheduler.window_s for r in router.replicas]
+    for r in router.replicas:
+        r.scheduler.window_s = 0.0
+    with FleetFrontend(router, port=0) as frontend:
+        threads = [threading.Thread(target=worker, args=(i, frontend.url))
+                   for i in range(4)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        with urllib.request.urlopen(frontend.url + "/v1/health",
+                                    timeout=10) as resp:
+            health = (resp.status, json.loads(resp.read()))
+        with urllib.request.urlopen(urllib.request.Request(
+                frontend.url + "/v1/metrics",
+                headers={"Accept": "text/plain"}), timeout=10) as resp:
+            text = resp.read().decode()
+            ctype = resp.headers["Content-Type"]
+    for r, window in zip(router.replicas, windows):
+        r.scheduler.window_s = window
+    if errors or len(lat) != FLEET_HTTP_REQUESTS:
+        raise AssertionError(f"http: {len(lat)} answered, errors {errors[:3]}")
+    if len(seen) < FLEET_HTTP_REQUESTS or not all(seen):
+        raise AssertionError("http: a response without its X-Trace-Id or "
+                             "model_step")
+    if health[0] != 200 or health[1]["healthy_replicas"] != 2:
+        raise AssertionError(f"http: /v1/health {health}")
+    if not ctype.startswith("text/plain") or \
+            "fleet_routed_total" not in text:
+        raise AssertionError(f"http: /v1/metrics {ctype} {text[:200]}")
+    lat.sort()
+    p50, p95 = lat[len(lat) // 2], lat[int(0.95 * (len(lat) - 1))]
+    print(f"[fleet] frontend over R=2: {len(lat)} HTTP requests from 4 "
+          f"ServingClient threads (sizes 1, 3, 8, 9 formations), "
+          f"{len(lat) / wall:.1f} requests/s over HTTP (each also served "
+          f"in-process for the comparison), p50 {p50 * 1e3:.3f} ms, p95 "
+          f"{p95 * 1e3:.3f} ms; every answer == the router's bitwise (each "
+          f"served alone, window 0), "
+          f"model_step and X-Trace-Id on every response; /v1/health "
+          f"{health[1]}; /v1/metrics Prometheus text ({len(text)} bytes)")
+
+
+def http_failures(policy, rows):
+    """The frontend's forced failures on a one-slot fleet: a 429 with
+    ``Retry-After`` (the worker held at its batch barrier, one request
+    queued), then a 503 from act and health with every replica killed."""
+    import urllib.error
+    import urllib.request
+
+    from marl_distributedformation_tpu_torch.serving.fleet import (
+        FleetFrontend,
+        FleetRouter,
+        warmup_fleet,
+    )
+
+    def post(url, obs):
+        req = urllib.request.Request(
+            url + "/v1/act", data=json.dumps({"obs": obs.tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                return resp.status, resp.headers, json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            return e.code, e.headers, json.loads(e.read() or b"{}")
+
+    router = FleetRouter(policy, num_replicas=1, buckets=(1,), window_ms=0.0,
+                         max_queue=1, probe_interval_s=60.0)
+    warmup_fleet(router, rows.shape[1:])
+    gate = router.replicas[0].registry.batch_lock
+    with router, FleetFrontend(router, port=0) as frontend:
+        gate.acquire()  # the worker blocks at its next batch
+        try:
+            held = router.submit(rows[:1])
+            deadline = time.perf_counter() + 10.0
+            while (router.replicas[0].scheduler.queue_depth
+                   and time.perf_counter() < deadline):
+                time.sleep(0.001)
+            queued = router.submit(rows[1:2])
+            status, headers, body = post(frontend.url, rows[2:3])
+        finally:
+            gate.release()
+        held.result(timeout=30)
+        queued.result(timeout=30)
+        if (status != 429 or int(headers["Retry-After"]) < 1
+                or body.get("error") != "backpressure"
+                or headers["X-Trace-Id"] != body.get("trace_id")):
+            raise AssertionError(f"http 429: {status} {dict(headers)} {body}")
+        router.kill_replica(0)
+        act503 = post(frontend.url, rows[3:4])[0]
+        try:
+            urllib.request.urlopen(frontend.url + "/v1/health", timeout=10)
+            health503 = 200
+        except urllib.error.HTTPError as e:
+            health503 = e.code
+    if (act503, health503) != (503, 503):
+        raise AssertionError(f"http 503: act {act503}, health {health503}")
+    print(f"[fleet] frontend failures: 429 with Retry-After "
+          f"{headers['Retry-After']} s (retry_after_s "
+          f"{body['retry_after_s']:.4f}) from a full one-slot fleet; every "
+          "replica killed: act 503, health 503")
+
+
+def watchdog_cell(router, rows):
+    """``LaneWatchdog.watch_fleet`` over the R=2 fleet: a seeded
+    ``scheduler.dispatch`` crash kills one worker while clients send; the
+    watchdog restarts it within the wedge timeout, ``restarts_total`` is
+    1, and no accepted request is lost. Prints the MTTR (the fault's
+    firing to the worker alive again)."""
+    import threading
+
+    from marl_distributedformation_tpu_torch.chaos import (
+        FaultPlane,
+        FaultSchedule,
+        LaneWatchdog,
+        check_no_request_lost,
+        set_fault_plane,
+    )
+
+    schedule = FaultSchedule.from_seed(
+        13, faults=1, points={"scheduler.dispatch": ("crash",)}, max_hit=4)
+    watchdog = LaneWatchdog(backoff_base_s=0.0, poll_interval_s=0.005)
+    watchdog.watch_fleet(router)
+    plane = FaultPlane(enabled=False)
+    previous = set_fault_plane(plane)
+    outcomes, stop = [], threading.Event()
+
+    def client(i):
+        while not stop.is_set():
+            fut = router.submit(rows[i:i + 8])
+            try:
+                fut.result(timeout=router.default_timeout_s + 5.0)
+                outcomes.append({"ok": True, "hung": False})
+            except Exception as e:  # noqa: BLE001 — classified below
+                outcomes.append({"ok": False, "error": repr(e),
+                                 "hung": not fut.done()})
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+    try:
+        watchdog.start()
+        for t in threads:
+            t.start()
+        plane.arm(schedule)
+        plane.enabled = True
+        deadline = time.perf_counter() + 30.0
+        while not plane.fired and time.perf_counter() < deadline:
+            time.sleep(0.0005)
+        if not plane.fired:
+            raise AssertionError("watchdog: the armed crash never fired")
+        fired_at = plane.fired[0]["t"]
+        plane.enabled = False
+        while watchdog.restarts_total() < 1 and \
+                time.perf_counter() < deadline:
+            time.sleep(0.0005)
+        alive = all(r.scheduler.alive for r in router.replicas)
+        mttr = time.perf_counter() - fired_at
+        time.sleep(0.3)  # traffic through the healed fleet
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        watchdog.stop()
+        set_fault_plane(previous)
+    lost = check_no_request_lost(outcomes)
+    if (watchdog.restarts_total() != 1 or not alive or lost
+            or mttr > watchdog.wedge_timeout_s
+            or not all(o["ok"] for o in outcomes)):
+        raise AssertionError(
+            f"watchdog: restarts {watchdog.restarts_total()}, alive {alive}, "
+            f"mttr {mttr:.3f} s, lost {[v.record() for v in lost]}, "
+            f"failed {[o for o in outcomes if not o['ok']][:3]}")
+    print(f"[fleet] watchdog over R=2: a seeded scheduler.dispatch crash "
+          f"(hit {schedule.specs[0].at_hit}) killed "
+          f"{watchdog.restart_log[0]['lane']}; restarted by the watchdog, "
+          f"restarts_total 1, MTTR {mttr * 1e3:.3f} ms (fault to worker "
+          f"alive; wedge timeout {watchdog.wedge_timeout_s:g} s); "
+          f"{len(outcomes)} accepted requests, none lost or failed")
+
+
+def guards_run():
+    """``GUARDS64`` must train through with the three guards on; then
+    three negatives on the same trainer, each of which must raise: an
+    ``.item()`` inside a guarded dispatch (the sync debug mode),
+    ``train.carry_poison`` armed through the plane (``FloatingPointError``
+    naming an aten op) and a forced rebuild (``RetraceError``)."""
+    import torch
+
+    from marl_distributedformation_tpu_torch.analysis import RetraceError
+    from marl_distributedformation_tpu_torch.chaos import (
+        FaultPlane,
+        FaultSchedule,
+        FaultSpec,
+        set_fault_plane,
+    )
+
+    trainer, rewards, launches, _ = train_run(
+        "guards64", GUARDS64, "guards64 (gnn100 at M=64, guard_retraces=1 "
+        "guard_transfers=true guard_nans=true)")
+    if trainer.retrace_guard.count != 1 or trainer.graph_count() != 3:
+        raise AssertionError(f"guards64: builds {trainer.retrace_guard.count}"
+                             f", graphs {trainer.graph_count()}")
+    caught = {}
+
+    def sync(phase):
+        if phase == "update":
+            torch.ones((), device="cuda").add(1).item()
+
+    trainer.phase_hook = sync
+    try:
+        trainer.run_chunk()
+    except RuntimeError as e:
+        caught["transfers"] = str(e).splitlines()[0]
+    finally:
+        trainer.phase_hook = None
+    plane = FaultPlane(enabled=True)
+    plane.arm(FaultSchedule([FaultSpec("train.carry_poison", "raise", 1)]))
+    previous = set_fault_plane(plane)
+    try:
+        trainer.run_chunk()
+    except FloatingPointError as e:
+        caught["nans"] = str(e)
+    finally:
+        set_fault_plane(previous)
+    for phase in trainer._phases:
+        phase.drop()
+    try:
+        trainer.run_chunk()
+    except RetraceError as e:
+        caught["retraces"] = str(e)[:120]
+    if ("synchroniz" not in caught.get("transfers", "")
+            or "aten." not in caught.get("nans", "")
+            or "budget 1" not in caught.get("retraces", "")):
+        raise AssertionError(f"guards: a negative did not raise: {caught}")
+    print(f"[guards] guards64 passed with the three guards on (1 build, 3 "
+          f"graphs, {launches['knn_fused']} knn_fused launches); negatives "
+          f"raised: .item() in a guarded dispatch -> {caught['transfers']!r}; "
+          f"train.carry_poison under guard_nans -> {caught['nans']!r}; a "
+          f"forced rebuild under guard_retraces=1 -> {caught['retraces']!r}")
+
+
+def fleet_phase(gnn100_ckpt, scen100_ckpt, single=None):
+    """Phase 13: ``fleet100`` at R=1 and R=2 on ``cuda:0`` (the request rows
+    through ``knn_fused``), the R=2 fleet's profiled window, the HTTP
+    frontend and its failures, the watchdog, and the runtime guards;
+    ``single`` is phase 10's smoke report, printed beside the fleet's.
+    Returns ``knn_fused``'s launches building the request rows."""
+    import shutil
+
+    from marl_distributedformation_tpu_torch.compat.policy import LoadedPolicy
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.serving import (
+        BucketedPolicyEngine,
+    )
+    from marl_distributedformation_tpu_torch.serving.fleet import (
+        run_fleet_smoke,
+    )
+    from marl_distributedformation_tpu_torch.utils.checkpoint import (
+        checkpoint_step,
+    )
+
+    p100 = EnvParams(num_agents=100, obs_mode="knn", knn_k=4)
+    rows, launches = serve_rows()
+    policy = LoadedPolicy.from_checkpoint(gnn100_ckpt, env_params=p100,
+                                          device="cuda")
+    engine = BucketedPolicyEngine(policy, buckets=SERVE_BUCKETS)
+    step0 = checkpoint_step(gnn100_ckpt)
+    swap_step0 = max(step0, checkpoint_step(scen100_ckpt)) + 1
+    reports = {}
+    for replicas in (1, 2):
+        fleet_dir = ROOT / "logs" / f"smoke_fleet100_r{replicas}"
+        shutil.rmtree(fleet_dir, ignore_errors=True)
+        fleet_dir.mkdir(parents=True)
+        shutil.copy(gnn100_ckpt, fleet_dir / Path(gnn100_ckpt).name)
+        router, coordinator, report = fleet_storm(
+            replicas, fleet_dir, p100, rows, scen100_ckpt, swap_step0,
+            engine)
+        reports[replicas] = report
+        if replicas == 1:
+            router.stop()
+            elapsed("fleet R=1")
+    print("[fleet] requests/s and p50/p95/p99 ms: "
+          + "; ".join(
+              f"R={r} {reports[r]['requests_per_sec_fleet']:.1f}, "
+              f"{reports[r]['latency_p50_ms']:.3f}/"
+              f"{reports[r]['latency_p95_ms']:.3f}/"
+              f"{reports[r]['latency_p99_ms']:.3f}" for r in (1, 2))
+          + (f"; phase 10's single engine {single['requests_per_sec']:.1f}, "
+             f"{single['latency_p50_ms']:.3f}/{single['latency_p95_ms']:.3f}"
+             f"/{single['latency_p99_ms']:.3f}" if single else "")
+          + f"; R=2/R=1 {reports[2]['requests_per_sec_fleet'] / reports[1]['requests_per_sec_fleet']:.3f}")
+    seen = {}
+
+    def storm():
+        seen.update(run_fleet_smoke(
+            router, rows.shape[1:], duration_s=1.5, num_clients=4,
+            warmup=False, row_pool=rows, seed=1))
+
+    profile_window(storm, "fleet100 R=2 storm, 1.5 s profiled (the "
+                   "profiler slows the host)", 1, "window")
+    print(f"[fleet] the profiled R=2 storm: "
+          f"{seen['requests_per_sec_fleet']:.1f} requests/s, p95 "
+          f"{seen['latency_p95_ms']:.3f} ms")
+    elapsed("fleet R=2")
+    try:
+        http_cell(router, rows)
+        elapsed("fleet frontend")
+        watchdog_cell(router, rows)
+    finally:
+        router.stop()
+    http_failures(policy, rows)
+    elapsed("fleet watchdog and frontend failures")
+    guards_run()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3583,7 +4150,7 @@ def main() -> int:
     elapsed("phase 9, robustness matrix, falsifier search, pursuit")
 
     # Phase 10: serving.
-    serve_launches = serving_phase(gnn100["ckpt"], scen100_ckpt)
+    serve_launches, serve_smoke = serving_phase(gnn100["ckpt"], scen100_ckpt)
     elapsed("phase 10, serving")
 
     # Phase 11: Sebulba, C4 and observability, this slice's main paths.
@@ -3593,6 +4160,11 @@ def main() -> int:
     # Phase 12: the reference's own user surface, this slice's main paths.
     surface = surface_phase(gnn100)
     elapsed("phase 12, single-formation API, VecEnv, tools")
+
+    # Phase 13: the serving fleet, the watchdog and the runtime guards,
+    # this slice's main paths.
+    fleet_launches = fleet_phase(gnn100["ckpt"], scen100_ckpt, serve_smoke)
+    elapsed("phase 13, fleet, watchdog, guards")
 
     replaces = {
         "knn_fused": "marl_distributedformation_tpu/ops/knn_pallas.py:117",
@@ -3667,6 +4239,11 @@ def main() -> int:
     kernels[0]["single_step"] = {"path": "config1 per-formation step N=100",
                                  "launches": surface["single_step"],
                                  **stats["knn_fused"]["playback"]}
+    # Phase 13's request rows: env states through knn_fused at the train
+    # shape, (1024,100,4) (the served GNN launches no kernel).
+    kernels[0]["fleet"] = {"path": "fleet100 request rows",
+                           "launches": fleet_launches,
+                           "shape": stats["knn_fused"]["train"]["shape"]}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

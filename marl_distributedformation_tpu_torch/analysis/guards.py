@@ -16,15 +16,21 @@ point where it is counted: a ``PhaseGraph`` at its capture (the CPU: its
 first call) through :func:`register_program`, an eager host function
 through :func:`ledgered_call`. :func:`sample_device_watermark` records the
 device-memory watermark at drain seams.
+
+The runtime guards of ``train.TrainConfig`` (``guard_retraces``,
+``guard_transfers``, ``guard_nans``) are a budget on a ``RetraceGuard``,
+:func:`no_host_transfers` (the CUDA sync debug mode) and :func:`nan_guard`
+(a dispatch mode naming the op that made a NaN).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 from marl_distributedformation_tpu_torch.obs.ledger import (
     get_ledger,
@@ -301,3 +307,82 @@ def sample_device_watermark(
         return None
     ledger.record_watermark(value[0], peak_bytes=value[1])
     return value[0]
+
+
+# ----------------------------------------------------------------------
+# Runtime guards: host syncs and NaNs inside a dispatch
+# ----------------------------------------------------------------------
+
+# JAX's ``transfer_guard`` levels and the sync debug modes they map to.
+_SYNC_LEVELS = {"disallow": "error", "log": "warn"}
+
+
+@contextlib.contextmanager
+def no_host_transfers(level: str = "disallow") -> Iterator[None]:
+    """Forbid the calls that wait for the card inside the wrapped region:
+    ``torch.cuda.set_sync_debug_mode`` at ``level`` ("disallow"/"error"
+    raises, "log"/"warn" warns), restored on exit.
+
+    It catches what synchronizes the host with the device: ``.item()``,
+    ``float()`` of a device tensor, a copy to pageable host memory,
+    ``nonzero``. An asynchronous copy into pinned memory does not
+    synchronize and passes, where JAX's guard refuses every
+    device-to-host transfer. The mode is the process's, not the
+    thread's: every thread that synchronizes meanwhile raises too, so a
+    caller guards a region that no other lane runs beside. Without a
+    CUDA device there is nothing to wait for and the guard is a no-op,
+    as JAX's is on its CPU backend."""
+    import torch
+
+    mode = _SYNC_LEVELS[level]
+    if not torch.cuda.is_available() or not torch.cuda.is_initialized():
+        yield
+        return
+    previous = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(mode)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(previous)
+
+
+def _nan_check_mode():
+    """A dispatch mode that raises ``FloatingPointError`` naming the first
+    aten op on tensors whose floating-point output holds a NaN. An op with
+    no tensor input (``scalar_tensor``, ``full``) makes a constant, not a
+    result: a NaN fill there is a literal, as in JAX, where
+    ``jax_debug_nans`` checks primitives' outputs and not constants."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class NanCheck(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not any(isinstance(a, torch.Tensor)
+                       for a in tree_leaves((args, kwargs))):
+                return out
+            for t in tree_leaves(out):
+                if (isinstance(t, torch.Tensor) and t.is_floating_point()
+                        and bool(torch.isnan(t).any())):
+                    raise FloatingPointError(
+                        f"invalid value (nan) encountered in {func} "
+                        f"(output {t.dtype}{list(t.shape)})"
+                    )
+            return out
+
+    return NanCheck()
+
+
+@contextlib.contextmanager
+def nan_guard(enable: bool = True) -> Iterator[None]:
+    """Eager ops in the wrapped region raise ``FloatingPointError`` at the
+    first op whose output holds a NaN, naming it (JAX's scoped
+    ``jax_debug_nans``). A captured graph's replay runs no op the mode can
+    see: the trainer reads a NaN flag after a guarded dispatch and re-runs
+    it eagerly under this guard (``train/trainer.py``)."""
+    if not enable:
+        yield
+        return
+    with _nan_check_mode():
+        yield

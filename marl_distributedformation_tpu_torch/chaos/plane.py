@@ -4,7 +4,9 @@ Counterpart of the JAX package's ``chaos/plane.py``, the same code, so a
 schedule drawn from a seed here equals the JAX package's record for
 record (``FaultSchedule.from_seed`` draws from the standard library's
 ``random.Random``). The catalogue keeps every JAX injection point; the
-port declares ``scheduler.dispatch`` so far.
+port calls each of them but the pipeline's (``stream.poll``, ``gate.eval``,
+``pipeline.poll``), the mesh's (``mesh.*``) and elastic capacity's
+(``elastic.*``), which wait for those modules (ROADMAP A13, A12).
 
 Five PRs of failure machinery (circuit break, failover, wedged-barrier
 abort, rollback, torn-write invisibility) each earned ONE hand-written

@@ -20,8 +20,9 @@ Counterpart of the JAX package's ``obs/``:
 - :mod:`~.export` — Chrome trace-event JSON and Prometheus text
   exposition, byte-equal to the JAX package's for the same snapshot.
 
-The regression sentinel is not ported (ROADMAP A13). Imports nothing but
-the standard library.
+The regression sentinel is not ported: it reads the port's own
+benchmark record, which does not exist yet (ROADMAP A14). Imports
+nothing but the standard library.
 """
 
 from marl_distributedformation_tpu_torch.obs.export import (

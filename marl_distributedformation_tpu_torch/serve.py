@@ -14,19 +14,27 @@ Counterpart of the single-engine modes of the repository's
     python -m marl_distributedformation_tpu_torch.serve \\
         --init-policy MLPActorCritic --obs-dim 8 --smoke --device cpu
 
+    # a fleet of replicas behind one router, coordinated hot reload, and
+    # an HTTP frontend (POST /v1/act, GET /v1/health, GET /v1/metrics)
+    python -m marl_distributedformation_tpu_torch.serve logs/run1 \\
+        --fleet --replicas 2 --port 8100
+
 The server is the in-process stack of ``serving/`` (the bucketed engine,
 one CUDA graph a rung on the card; the micro-batching scheduler; the
-hot-reload registry). ``--device`` defaults to ``cuda`` and raises without
+hot-reload registry), or with ``--fleet`` the fleet of ``serving/fleet/``
+(``--replicas`` replicas, default one a CUDA device, so several share a
+card; with ``--port`` the HTTP frontend; without ``--port`` or
+``--watch``, the fleet smoke storm's one JSON line). ``--device`` defaults to ``cuda`` and raises without
 a GPU; the CPU serves only with ``--device cpu``. A per-formation policy
 (CTDE, GNN) takes whole formations as request rows, ``(agents, obs_dim)``:
 pass both. A GNN checkpoint reads its ``knn_k`` and ``goal_in_obs`` from
 the run's ``config.json`` beside the checkpoints, which the port's trainer
 writes.
 
-The fleet, tenant lanes, the sharded and bf16 rungs and the serving
-benches (``--fleet``, ``--replicas``, ``--tenants``, ``--port``,
-``--sharded``, ``--bf16``, ``--slo-bench``, ``--elastic-bench``,
-``--record-trace`` and their knobs) are not ported yet: each exits naming
+Tenant lanes, the sharded and bf16 rungs, the trace recorder and the
+serving benches (``--tenants``, ``--sharded``, ``--bf16``,
+``--mesh-devices``, ``--record-trace``, ``--slo-bench``,
+``--elastic-bench`` and their knobs) are not ported yet: each exits naming
 ROADMAP A13.
 """
 
@@ -41,10 +49,7 @@ from pathlib import Path
 # serve_policy.py flags the port does not serve yet, each refused naming
 # the ROADMAP item.
 UNPORTED_FLAGS = {
-    "--fleet": "store_true",
-    "--replicas": int,
     "--tenants": str,
-    "--port": int,
     "--sharded": "store_true",
     "--bf16": "store_true",
     "--mesh-devices": int,
@@ -114,6 +119,20 @@ def _parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("--device", default=None,
                         help="cuda (the default) or cpu")
+    parser.add_argument(
+        "--fleet", action="store_true",
+        help="serve a fleet of replicas behind one router, with a "
+        "coordinated hot reload (serving/fleet/)",
+    )
+    parser.add_argument(
+        "--replicas", type=int,
+        help="with --fleet: replica count (default one a CUDA device; "
+        "more than devices cycle over them)",
+    )
+    parser.add_argument(
+        "--port", type=int,
+        help="with --fleet: serve HTTP on this port (0: ephemeral)",
+    )
     for flag, kind in UNPORTED_FLAGS.items():
         if kind == "store_true":
             parser.add_argument(flag, action="store_true",
@@ -128,9 +147,9 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         value = getattr(args, flag.lstrip("-").replace("-", "_"))
         if value is not None and value is not False:
             raise SystemExit(
-                f"{flag} is not ported yet (ROADMAP A13: the fleet, tenancy, "
-                "the sharded and bf16 rungs and the serving benches); serve "
-                "one engine without it"
+                f"{flag} is not ported yet (ROADMAP A13: tenancy, the "
+                "sharded and bf16 rungs, the trace recorder and the serving "
+                "benches); serve without it"
             )
 
 
@@ -199,9 +218,123 @@ def _infer_row_shape(policy) -> tuple:
     return (int(layer.weight.shape[1]),)
 
 
+def _run_fleet(args, device) -> int:
+    """The ``--fleet`` path: router + coordinated reload + the optional
+    HTTP frontend."""
+    from marl_distributedformation_tpu_torch.serving.fleet import (
+        FleetFrontend,
+        FleetRouter,
+        fleet_from_checkpoint_dir,
+        run_fleet_smoke,
+        warmup_fleet,
+    )
+
+    buckets = tuple(int(b) for b in args.buckets.split(","))
+    # The CUDA default replicates over every card; an explicit device
+    # (the CPU) hosts every replica.
+    devices = None if args.device in (None, "cuda") else [device]
+    logger = None
+    coordinator = None
+    common = dict(num_replicas=args.replicas, devices=devices,
+                  buckets=buckets, window_ms=args.window_ms,
+                  max_queue=args.queue)
+    if args.init_policy:
+        router = FleetRouter(_init_policy(args, device), **common)
+    elif args.log_dir:
+        from marl_distributedformation_tpu_torch.utils.logging import (
+            MetricsLogger,
+        )
+
+        logger = MetricsLogger(Path(args.log_dir) / "serving",
+                               run_name="fleet")
+        router, coordinator = fleet_from_checkpoint_dir(
+            args.log_dir, env_params=_run_env_params(Path(args.log_dir)),
+            poll_interval_s=args.poll_s, device=device, logger=logger,
+            **common,
+        )
+        print(
+            f"[serve] fleet serving {type(router.policy.model).__name__} "
+            f"from {args.log_dir} at step {coordinator.fleet_step}",
+            file=sys.stderr,
+        )
+    else:
+        raise SystemExit("need a log_dir or --init-policy (see --help)")
+    policy = router.policy
+    if args.obs_dim:
+        row_shape = ((args.agents, args.obs_dim) if args.agents
+                     else (args.obs_dim,))
+    else:
+        row_shape = _infer_row_shape(policy)
+    print(
+        f"[serve] fleet: {len(router.replicas)} replicas over "
+        f"{len({str(r.device) for r in router.replicas})} devices, "
+        f"buckets {args.buckets}",
+        file=sys.stderr,
+    )
+    frontend = None
+    try:
+        # Every rung of every replica built (captured on the card) before
+        # any traffic.
+        warmup_fleet(router, row_shape)
+        router.start()
+        if coordinator is not None:
+            coordinator.start()
+        if args.port is not None:
+            frontend = FleetFrontend(router, port=args.port).start()
+            print(f"[serve] fleet frontend listening on {frontend.url}",
+                  file=sys.stderr)
+        if args.smoke or (args.port is None and not args.watch):
+            report = run_fleet_smoke(
+                router, row_shape=row_shape, duration_s=args.duration,
+                num_clients=args.clients,
+                deterministic=not args.stochastic, coordinator=coordinator,
+                warmup=False,
+            )
+            report["buckets"] = ",".join(str(b) for b in buckets)
+            report["replicas"] = float(len(router.replicas))
+            report["device"] = str(device)
+            print(json.dumps(report), flush=True)
+            if report["client_requests_ok"] == 0:
+                print("[serve] fleet smoke served 0 requests — failing",
+                      file=sys.stderr)
+                return 1
+        else:
+            print("[serve] fleet serving; Ctrl-C to stop", file=sys.stderr)
+            while True:
+                time.sleep(10.0)
+                snap = router.snapshot()
+                print(
+                    f"[serve] step={snap['model_step']:.0f} "
+                    f"healthy={snap['fleet_healthy_replicas']:.0f}/"
+                    f"{len(router.replicas)} "
+                    f"routed={snap['fleet_routed_total']:.0f} "
+                    f"p95={snap['latency_p95_ms']:.1f}ms",
+                    file=sys.stderr,
+                )
+    except KeyboardInterrupt:
+        print("[serve] interrupted; shutting down", file=sys.stderr)
+    finally:
+        if frontend is not None:
+            frontend.stop()
+        if coordinator is not None:
+            coordinator.stop()
+        router.stop()
+        if logger is not None:
+            logger.close()
+    return 0
+
+
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     _refuse_unported(args)
+    if (args.port is not None or args.replicas is not None) \
+            and not args.fleet:
+        raise SystemExit("--port/--replicas require --fleet")
+    if args.fleet and args.scenario:
+        raise SystemExit(
+            "--scenario perturbs the single-engine smoke only; run it "
+            "without --fleet"
+        )
 
     from marl_distributedformation_tpu_torch import obs
     from marl_distributedformation_tpu_torch.device import resolve_device
@@ -219,6 +352,8 @@ def main(argv=None) -> int:
         except ValueError as e:
             raise SystemExit(str(e)) from e
     device = resolve_device(args.device)
+    if args.fleet:
+        return _run_fleet(args, device)
 
     from marl_distributedformation_tpu_torch.serving import (
         BucketedPolicyEngine,

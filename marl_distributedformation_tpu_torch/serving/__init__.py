@@ -13,12 +13,17 @@
   directory and hot-swaps new checkpoints atomically between batches.
 - :class:`~.metrics.ServingMetrics` — queue depth, batch occupancy,
   latency percentiles.
-- :class:`~.client.ServingClient` — the in-process client.
+- :class:`~.client.ServingClient` — the client, over one scheduler, a
+  fleet router, or HTTP endpoints (the fleet frontend's ``/v1/act``).
 - ``loadgen`` / ``autotune`` — open-loop traffic replay measuring req/s at
   a p95 target (``max_rate_at_slo``), and the ladder autotuner.
+- ``serving.fleet`` — the multi-replica layer: ``FleetRouter``,
+  ``FleetReloadCoordinator`` (poll-once batch-barrier swap, globally
+  step-monotonic), ``FleetFrontend`` (stdlib HTTP/JSON), ``FleetMetrics``,
+  ``run_fleet_smoke``.
 
-The fleet, the sharded engine, tenancy, elastic capacity and the mesh are
-not ported yet (ROADMAP A13).
+The sharded engine, tenancy, elastic capacity and the mesh are not ported
+yet (ROADMAP A13).
 """
 
 from marl_distributedformation_tpu_torch.serving.autotune import (

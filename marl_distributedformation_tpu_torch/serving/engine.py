@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import copy
 import threading
+import weakref
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -66,6 +67,28 @@ from marl_distributedformation_tpu_torch.train.capture import PhaseGraph
 # bounded (worst-case occupancy 1/8 just above a rung) while the build count
 # stays at 4.
 DEFAULT_BUCKETS = (1, 8, 64, 512)
+
+# The CUDA stream each live engine holds, by its handle: no two engines on
+# a card share one (PyTorch hands streams out of a small pool, round
+# robin).
+_ENGINE_STREAMS: "weakref.WeakValueDictionary[int, Any]" = (
+    weakref.WeakValueDictionary())
+_STREAMS_LOCK = threading.Lock()
+
+
+def _own_stream(engine: "BucketedPolicyEngine") -> torch.cuda.Stream:
+    """A stream no other live engine holds. The engine's rungs are captured
+    and replayed on it, so each engine's captured GEMMs write a cuBLAS
+    workspace of their own: fleet replicas on one card replay at once, and
+    two graphs replaying at once over one workspace can corrupt each
+    other's GEMMs or wait on each other forever."""
+    with _STREAMS_LOCK:
+        for _ in range(256):
+            stream = torch.cuda.Stream(engine.device)
+            if stream.cuda_stream not in _ENGINE_STREAMS:
+                _ENGINE_STREAMS[stream.cuda_stream] = engine
+                return stream
+    raise RuntimeError("no CUDA stream free of another serving engine")
 
 
 class _Rung:
@@ -88,6 +111,7 @@ class _Rung:
             subsystem="serving",
             program=f"act_rung{bucket}_"
                     f"{'f32' if engine.dtype is None else 'bf16'}",
+            stream=engine._stream,
         )
 
 
@@ -109,6 +133,10 @@ class BucketedPolicyEngine:
       capture: on the card, capture each rung as a CUDA graph (the
         default); False runs every rung eagerly, for comparisons only.
         The CPU always runs eagerly.
+      device: where the engine serves (default the policy's device); a
+        fleet replica's engine takes its replica's device. On another
+        device than the policy's, ``nn_params=None`` serves a copy of the
+        policy's parameters made there.
     """
 
     def __init__(
@@ -119,6 +147,7 @@ class BucketedPolicyEngine:
         seed: int = 0,
         dtype: Optional[str] = None,
         capture: bool = True,
+        device: Any = None,
     ) -> None:
         self.policy = policy
         self.buckets = tuple(sorted({int(b) for b in buckets}))
@@ -141,15 +170,20 @@ class BucketedPolicyEngine:
         # The served model: the policy's architecture with parameter
         # tensors of its own, the ones every rung's graph reads.
         self.model = copy.deepcopy(policy.model).eval().requires_grad_(False)
+        if device is not None:
+            self.model.to(device)
         self.device = next(self.model.parameters()).device
         self.capture = bool(capture) and self.device.type == "cuda"
         self._params = self.model.state_dict()
         self._own = policy.params
+        if next(iter(self._own.values())).device != self.device:
+            self._own = {k: v.detach().clone()
+                         for k, v in self._params.items()}
         self._loaded: Any = self._own
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._det = torch.ones((), dtype=torch.bool, device=self.device)
         self._rungs: Dict[int, _Rung] = {}
-        self._stream = (torch.cuda.Stream(self.device)
+        self._stream = (_own_stream(self)
                         if self.device.type == "cuda" else None)
         self._stage_in: Optional[torch.Tensor] = None
         self._stage_out: Optional[torch.Tensor] = None

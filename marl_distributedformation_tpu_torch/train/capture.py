@@ -71,7 +71,11 @@ class PhaseGraph:
     card's eager comparisons). ``guard`` (``analysis.guards.RetraceGuard``)
     counts the capture as a build of the program, for ``signature``.
     ``subsystem`` and ``program`` name it in the ledger (see the module
-    docstring); without them it registers nothing."""
+    docstring); without them it registers nothing. ``stream`` is the
+    stream the capture runs on (default PyTorch's one capture stream): the
+    cuBLAS workspace a captured GEMM writes is the capture stream's, so
+    graphs that replay concurrently on different streams are captured on
+    streams of their own."""
 
     def __init__(
         self,
@@ -83,8 +87,10 @@ class PhaseGraph:
         signature: tuple = (),
         subsystem: Optional[str] = None,
         program: Optional[str] = None,
+        stream: Optional[torch.cuda.Stream] = None,
     ) -> None:
         self.name = name
+        self.stream = stream
         self.fn = fn
         self.generators = list(generators)
         self.capture = capture
@@ -108,6 +114,15 @@ class PhaseGraph:
         if self.capture:
             return self.calls == 1 and self.graph is None
         return self.calls == 0
+
+    def drop(self) -> None:
+        """Forget the build: the next call builds the program again (a
+        forced rebuild, which a budget on the builds refuses)."""
+        if self.capture:
+            self.graph = None
+            self.calls = min(self.calls, 1)
+        else:
+            self.calls = 0
 
     def __call__(self) -> None:
         ledger = get_ledger() if self._dispatch_key is not None else None
@@ -186,7 +201,8 @@ class PhaseGraph:
             graph.register_generator_state(gen)
         counted = dict(knn_cuda.LAUNCHES)
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        with torch.cuda.graph(graph, stream=self.stream,
+                              capture_error_mode="thread_local"):
             self.fn()
         self.capture_s = time.perf_counter() - t0
         self.launches = {

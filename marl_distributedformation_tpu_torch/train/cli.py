@@ -132,9 +132,6 @@ _UNLISTED_DEFAULTS = {
 # Knobs of features not ported yet, and the ROADMAP item that ports each.
 UNPORTED = {
     "mesh": "A12 (parallelism)",
-    "guard_retraces": "A14 (runtime guards)",
-    "guard_transfers": "A14 (runtime guards)",
-    "guard_nans": "A14 (runtime guards)",
 }
 
 
@@ -206,6 +203,9 @@ def train_config_from_config(cfg) -> TrainConfig:
         actor_devices=int(cfg.get("actor_devices", 1)),
         transfer_queue_depth=int(cfg.get("transfer_queue_depth", 2)),
         max_param_staleness=int(cfg.get("max_param_staleness", 2)),
+        guard_retraces=int(cfg.get("guard_retraces") or 0),
+        guard_transfers=bool(cfg.get("guard_transfers", False)),
+        guard_nans=bool(cfg.get("guard_nans", False)),
     )
 
 
@@ -358,6 +358,14 @@ def build_trainer(
             f"{trainer.curriculum.total_rollouts}-rollout curriculum of "
             f"{len(trainer.curriculum.stages)} stages, ")
     elif train_cfg.architecture == "sebulba":
+        if train_cfg.guard_transfers or train_cfg.guard_nans:
+            raise SystemExit(
+                "guard_transfers and guard_nans guard the Anakin dispatch; "
+                "under architecture=sebulba the actor lane synchronizes on "
+                "its own thread while the learner dispatches (the CUDA "
+                "sync debug mode is the process's), so they are refused "
+                "there; guard_retraces budgets both lanes"
+            )
         if num_seeds > 1:
             raise SystemExit(
                 "architecture=sebulba does not compose with num_seeds>1 "

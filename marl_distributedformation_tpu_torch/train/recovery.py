@@ -32,8 +32,11 @@ Every transition also lands in the metrics registry under the JAX
 package's names (``train_skipped_updates_total``,
 ``train_consecutive_unhealthy``, ``train_divergence_events_total``,
 ``train_recoveries_total``, ``train_recovery_mttr_seconds``,
-``train_halted``). The chaos fault points are not ported (ROADMAP A13);
-``Trainer._poison_carry`` stands in for them in tests.
+``train_halted``). The chaos plane's train seams (``train.carry_poison``,
+``train.grad_bomb`` at the dispatch boundary, ``train.snapshot`` at a
+checkpoint's snapshot; ``train/trainer.py``) poison the state through
+``Trainer._poison_carry`` and the snapshot copy, so a seeded
+``FaultSchedule`` drives the ladder as organic divergence would.
 """
 
 from __future__ import annotations

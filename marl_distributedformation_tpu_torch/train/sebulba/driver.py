@@ -246,8 +246,11 @@ class SebulbaDriver(Trainer):
         learner.writes_env = False
         self._moved_generators()
         self._build_actor()
-        self.actor_guard = RetraceGuard("sebulba_actor", subsystem="sebulba")
+        budget = self.config.guard_retraces or None
+        self.actor_guard = RetraceGuard("sebulba_actor", max_traces=budget,
+                                        subsystem="sebulba")
         self.learner_guard = RetraceGuard("sebulba_learner",
+                                          max_traces=budget,
                                           subsystem="sebulba")
         self._actor_phase = PhaseGraph(
             "actor_rollout", self._actor_step, self._actor_generators,
@@ -301,6 +304,9 @@ class SebulbaDriver(Trainer):
         self._actor_error: Optional[BaseException] = None
         self._stop = threading.Event()
         self._actor_meter = Throughput()
+        # Set by attach_watchdog: each lane beats once a rollout / chunk.
+        self._actor_heartbeat: Any = None
+        self._learner_heartbeat: Any = None
 
     # ------------------------------------------------------------------
     # The actor lane
@@ -626,6 +632,41 @@ class SebulbaDriver(Trainer):
             target=self._actor_loop, name="sebulba-actor", daemon=True)
         self._actor_thread.start()
 
+    def _restart_actor(self) -> None:
+        """The watchdog's restart of a dead actor thread: the carry still
+        holds the last finished rollout's state, so the new thread goes on
+        with the stream. No-op while the actor lives or after a stop."""
+        if self._stop.is_set():
+            return
+        if self._actor_thread is not None and self._actor_thread.is_alive():
+            return
+        self._actor_error = None
+        self._spawn_actor()
+
+    def attach_watchdog(self, watchdog: Any) -> None:
+        """Register both lanes with a ``chaos.LaneWatchdog``: their
+        heartbeats age a rollout (actor) and a chunk (learner); a dead
+        actor thread restarts through :meth:`_restart_actor`; a learner
+        that stops beating past the wedge timeout is reported (it is the
+        calling thread, which nothing restarts)."""
+        from marl_distributedformation_tpu_torch.chaos.watchdog import (
+            Heartbeat,
+        )
+
+        self._actor_heartbeat = Heartbeat("sebulba_actor")
+        self._learner_heartbeat = Heartbeat("sebulba_learner")
+        watchdog.register(
+            "sebulba_actor", self._actor_heartbeat,
+            is_alive=lambda: (self._actor_thread is None
+                              or self._actor_thread.is_alive()
+                              or self._stop.is_set()),
+            restart=self._restart_actor,
+        )
+        watchdog.register(
+            "sebulba_learner", self._learner_heartbeat,
+            is_alive=lambda: True, restart=lambda: None,
+        )
+
     def _actor_loop(self) -> None:
         """The producer lane: act against the newest parameters and
         enqueue, until stopped. The queue's backpressure is its only
@@ -637,6 +678,8 @@ class SebulbaDriver(Trainer):
                 self._act()
                 if self._queue.closed:
                     return
+                if self._actor_heartbeat is not None:
+                    self._actor_heartbeat.beat()
                 self._actor_meter.tick(
                     self.ppo.n_steps * self.config.num_formations)
                 get_registry().gauge("actor_env_steps_per_sec").set(
@@ -704,6 +747,8 @@ class SebulbaDriver(Trainer):
                 self._learner_version += 1
                 self._publish(self._learner_version)
                 tracer.after_dispatch()
+                if self._learner_heartbeat is not None:
+                    self._learner_heartbeat.beat()
                 self._dispatches += 1
                 t_drain = time.perf_counter()
                 host = chunk.to_host()

@@ -55,6 +55,7 @@ is ``train/sebulba/``. Mesh and chaos fault points are not ported
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import struct
@@ -71,7 +72,13 @@ from marl_distributedformation_tpu_torch.algo import PPOConfig, adam_init
 from marl_distributedformation_tpu_torch.analysis.guards import (
     RetraceGuard,
     ledgered_call,
+    nan_guard,
+    no_host_transfers,
     sample_device_watermark,
+)
+from marl_distributedformation_tpu_torch.chaos.plane import (
+    InjectedFault,
+    fault_point,
 )
 from marl_distributedformation_tpu_torch.compat.convert import (
     inject_hyperparams,
@@ -201,6 +208,14 @@ class TrainConfig:
     transfer_queue_depth: int = 2  # sebulba: trajectories in flight
     max_param_staleness: int = 2  # sebulba: drop a batch acted with
     #   parameters more than this many learner updates old
+    # Runtime guards (analysis/guards.py), the JAX trainer's knobs.
+    guard_retraces: int = 0  # > 0: fail the run when the iteration is
+    #   built more often than this (1: the steady-state contract)
+    guard_transfers: bool = False  # the CUDA sync debug mode ("error")
+    #   around every post-warm-up dispatch: a host sync inside raises
+    guard_nans: bool = False  # a dispatch whose outputs hold a NaN is
+    #   re-run eagerly from its starting state under nan_guard, which
+    #   raises FloatingPointError naming the first op that made one
 
 
 def default_total_timesteps(config: TrainConfig) -> int:
@@ -276,6 +291,16 @@ def reduce_burst(names: Tuple[str, ...], rows: Tensor) -> Tensor:
         else mins[j] if n.startswith("health_") else means[j]
         for j, n in enumerate(names)
     ])
+
+
+def _copy_into(dst: Any, src: Any) -> None:
+    """Copy the tensors of ``src`` into those of ``dst``, two trees of
+    dicts of one layout."""
+    if isinstance(dst, dict):
+        for k, v in dst.items():
+            _copy_into(v, src[k])
+    elif isinstance(dst, torch.Tensor):
+        dst.copy_(src)
 
 
 def metrics_to_host(metrics: Dict[str, Any]) -> Dict[str, float]:
@@ -387,7 +412,11 @@ class Trainer:
         # The iteration's build receipt: one a run, at the dispatch that
         # captures the phases (the CPU: runs them first); JAX counts the
         # traces of its iteration program.
-        self.retrace_guard = RetraceGuard("train_iteration")
+        self.retrace_guard = RetraceGuard(
+            "train_iteration", max_traces=config.guard_retraces or None)
+        # guard_transfers waits for the checkpoint write in flight before a
+        # guarded dispatch: the sync debug mode is the process's.
+        self._guarded_writer: Optional[AsyncCheckpointWriter] = None
         # optax's inject_hyperparams layout in checkpoints (JAX: inject_lr).
         self.injected_lr = config.recovery_lr_backoff != 1.0
 
@@ -633,25 +662,43 @@ class Trainer:
         scenarios, each iteration's mix is written into the scenario
         buffers before its replay."""
         self._apply_pending_schedule()
+        # The train lane's chaos seams: a 'raise' armed here is state
+        # corruption at the dispatch boundary, a NaN or a finite 1e18
+        # multiplied into the live parameters (the stand-ins for organic
+        # divergence that the health word and the ladder absorb).
+        try:
+            fault_point("train.carry_poison")
+        except InjectedFault:
+            self._poison_carry(float("nan"))
+        try:
+            fault_point("train.grad_bomb")
+        except InjectedFault:
+            self._poison_carry(1.0e18)
         rows = severities = None
         if self._scenario_schedule is not None:
             rows, severities = self._load_scenario_rows(rollouts)
             self._last_severities = severities
+        warm = all(p.calls > 0 and not p.builds_next() for p in self._phases)
         if any(phase.builds_next() for phase in self._phases):
             self.retrace_guard.record(self._iteration.env.agents,
                                       self._iteration.obs)
+        start = self._nan_guard_start() if self.config.guard_nans else None
+        guard: Any = contextlib.nullcontext()
+        if self.config.guard_transfers and warm:
+            # Post-warm-up only: a build legitimately reads the device.
+            if self._guarded_writer is not None:
+                self._guarded_writer.wait()
+            guard = no_host_transfers()
         self.trace_window.before_dispatch()
         try:
-            for i in range(rollouts):
-                if rows is not None:
-                    self._iteration.scenario_params.copy_(
-                        rows.map(lambda t: t[i]))
-                self._iteration.run(mark=self.phase_hook,
-                                    phases=self._phases)
+            with guard:
+                self._run_iterations(rows, rollouts, self._phases)
         except BaseException:
             self.trace_window.close()
             raise
         self.trace_window.after_dispatch()
+        if start is not None:
+            self._check_nans(start, rows, rollouts)
         self._advance(rollouts)
         get_registry().counter("train_iterations_total").inc(rollouts)
         ready = None
@@ -661,6 +708,54 @@ class Trainer:
         return ChunkMetrics(
             self.metric_names, self._iteration.ring.take(rollouts), ready,
             severities,
+        )
+
+    def _run_iterations(self, rows: Any, rollouts: int,
+                        phases: Optional[Tuple[Any, ...]]) -> None:
+        """``rollouts`` iterations through ``phases`` (None: eagerly),
+        each with its scenario row written first."""
+        for i in range(rollouts):
+            if rows is not None:
+                self._iteration.scenario_params.copy_(
+                    rows.map(lambda t: t[i]))
+            self._iteration.run(mark=self.phase_hook, phases=phases)
+
+    def _nan_guard_start(self) -> Tuple[Dict[str, Any], Dict[str, Any],
+                                        List[Tuple[Any, Any]]]:
+        """The live carry a dispatch starts from, a copy of it and the
+        generators' states: what ``_check_nans`` re-runs the dispatch
+        from."""
+        state = self._checkpoint_state()
+        live = {k: v for k, v in state.items()
+                if k not in ("num_timesteps", "generator",
+                             "scenario_generator")}
+        saved = device_snapshot(live).tree
+        generators = [self.generator]
+        if self._scenario_schedule is not None:
+            generators.append(self.scenario_generator)
+        return live, saved, [(g, g.get_state()) for g in generators]
+
+    def _check_nans(self, start: Any, rows: Any, rollouts: int) -> None:
+        """guard_nans after a dispatch: one flag of its outputs (the
+        metric rows and the parameters); on a NaN, the dispatch again from
+        its starting state, eagerly under ``nan_guard``, which raises
+        ``FloatingPointError`` at the first op that makes one."""
+        outputs = [self._iteration.ring.take(rollouts),
+                   *self.model.parameters()]
+        if not bool(torch.stack([torch.isnan(t).any() for t in outputs])
+                    .any()):
+            return
+        live, saved, generators = start
+        with torch.no_grad():
+            _copy_into(live, saved)
+        for gen, state in generators:
+            gen.set_state(state)
+        with nan_guard():
+            self._run_iterations(rows, rollouts, None)
+        raise FloatingPointError(
+            "invalid value (nan) in the outputs of a train dispatch; its "
+            "eager re-run under nan_guard made none (a NaN only the "
+            "captured graph makes)"
         )
 
     def _advance(self, rollouts: int) -> None:
@@ -1123,11 +1218,26 @@ class Trainer:
     def _host_tree(self) -> Dict[str, Any]:
         return self._checkpoint_tree(tree_to_host(self._checkpoint_state()))
 
+    def _snapshot_for_write(self) -> Dict[str, Any]:
+        """The checkpoint's state through the ``train.snapshot`` chaos
+        seam: an armed fault poisons the parameters of this copy (never
+        the live carry), which the non-finite write gate must keep out of
+        discovery."""
+        state = self._checkpoint_state()
+        try:
+            fault_point("train.snapshot")
+        except InjectedFault:
+            state = dict(state)
+            state["params"] = {k: p * float("nan")
+                               for k, p in state["params"].items()}
+        return state
+
     def save(self) -> Optional[str]:
         """Write a checkpoint now; returns its path, or None when the
         non-finite gate refused the state."""
         path = save_checkpoint(
-            self.log_dir, self.num_timesteps, self._host_tree()
+            self.log_dir, self.num_timesteps,
+            self._checkpoint_tree(tree_to_host(self._snapshot_for_write())),
         )
         self._vec_steps_since_save = 0
         if path is None:
@@ -1150,10 +1260,12 @@ class Trainer:
 
         writer.submit(
             path,
-            device_snapshot(self._checkpoint_state(),
+            device_snapshot(self._snapshot_for_write(),
                             finish=self._checkpoint_tree),
             on_done=on_done,
         )
+        if self.config.guard_transfers:
+            self._guarded_writer = writer
         self._vec_steps_since_save = 0
         return str(path)
 

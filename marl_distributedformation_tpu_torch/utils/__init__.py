@@ -12,6 +12,7 @@ from marl_distributedformation_tpu_torch.utils.config import (  # noqa: F401
 )
 from marl_distributedformation_tpu_torch.utils.checkpoint import (  # noqa: F401
     AsyncCheckpointWriter,
+    CheckpointDiscovery,
     CorruptCheckpointError,
     NonFiniteCheckpointError,
     checkpoint_path,

@@ -15,6 +15,13 @@ Writes can leave the training loop: ``device_snapshot`` copies the state on
 the device behind the work that produced it, and ``AsyncCheckpointWriter``
 brings the copy to the host and writes it on a background thread, one write
 at a time, in order. ``prune_checkpoints`` keeps the newest N files.
+``CheckpointDiscovery`` is the incremental discovery a long-running watcher
+polls (the fleet's reload coordinator).
+
+The chaos plane's checkpoint seams (``chaos/plane.py``) sit in the atomic
+write (``checkpoint.write``, ``checkpoint.pre_rename``,
+``checkpoint.post_rename``) and at the writer's submit
+(``ckpt_writer.submit``).
 
 The writer, the non-finite gate, quarantine and pruning record into the
 metrics registry under the JAX package's names (``checkpoint_writes_total``,
@@ -27,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import random
 import re
 import struct
@@ -35,12 +43,25 @@ import threading
 import time
 import zlib
 from pathlib import Path
-from typing import Any, Callable, Iterable, List, Mapping, Optional, Tuple
+from typing import (
+    Any,
+    Callable,
+    Dict,
+    Iterable,
+    List,
+    Mapping,
+    Optional,
+    Tuple,
+)
 
 import msgpack
 import numpy as np
 import torch
 
+from marl_distributedformation_tpu_torch.chaos.plane import (
+    SimulatedCrash,
+    fault_point,
+)
 from marl_distributedformation_tpu_torch.obs.metrics import get_registry
 
 _STEP_RE = re.compile(r"rl_model_(\d+)_steps")
@@ -180,8 +201,12 @@ def write_atomic(path: Path, tree: Any) -> None:
         )
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.parent / f".{path.name}.tmp"
-    tmp.write_bytes(with_footer(msgpack_serialize(tree)))
+    payload = with_footer(msgpack_serialize(tree))
+    fault_point("checkpoint.write", path=tmp)
+    tmp.write_bytes(payload)
+    fault_point("checkpoint.pre_rename", path=tmp)
     tmp.replace(path)
+    fault_point("checkpoint.post_rename", path=path)
 
 
 def save_checkpoint(
@@ -473,11 +498,13 @@ class AsyncCheckpointWriter:
     first, so writes land in the order submitted and one snapshot is held
     at a time. A write is ``write_atomic``'s, so a crash at any point
     leaves at most a dot-prefixed temporary file that discovery never
-    picks up. An ``OSError`` is retried ``IO_RETRIES`` times with jittered
+    picks up. An ``OSError`` is retried ``io_retries`` times with jittered
     backoff and then skipped (``writes_skipped``), as is a state the
-    non-finite gate refuses: training goes on and the next save tries
-    again. Any other failure is raised as ``RuntimeError`` on the next
-    ``submit``, ``wait`` or ``close``.
+    non-finite gate refuses and a write the chaos plane kills
+    (``SimulatedCrash``: the checkpoint is lost, as a real crash loses
+    it): training goes on and the next save tries again. Any other
+    failure is raised as ``RuntimeError`` on the next ``submit``,
+    ``wait`` or ``close``.
     """
 
     IO_RETRIES = 3
@@ -493,6 +520,8 @@ class AsyncCheckpointWriter:
         self.writes_skipped = 0
         self.keep_last_n = max(0, int(keep_last_n))
         self._protect = protect
+        self.io_retries = self.IO_RETRIES
+        self.io_backoff_s = self.IO_BACKOFF_S
 
     def submit(
         self,
@@ -525,7 +554,9 @@ class AsyncCheckpointWriter:
 
     def submit_write(self, write_fn: Callable[[], None]) -> None:
         """Queue any checkpoint-writing callable on the writer's thread,
-        under the same contract as ``submit``."""
+        under the same contract as ``submit``. The ``ckpt_writer.submit``
+        chaos seam runs on the caller's (the training) thread."""
+        fault_point("ckpt_writer.submit")
         self.wait()
         # One write in flight: a depth stuck at 1 means training outruns
         # the disk.
@@ -551,13 +582,16 @@ class AsyncCheckpointWriter:
                     return
                 except OSError as e:
                     attempt += 1
-                    if attempt > self.IO_RETRIES:
+                    if attempt > self.io_retries:
                         self._skip(e)
                         return
                     time.sleep(
-                        self.IO_BACKOFF_S * 2.0 ** (attempt - 1)
+                        self.io_backoff_s * 2.0 ** (attempt - 1)
                         * random.uniform(0.5, 1.5)
                     )
+                except SimulatedCrash as e:
+                    self._skip(e)
+                    return
                 except NonFiniteCheckpointError as e:
                     self.writes_skipped += 1
                     registry.counter(
@@ -571,8 +605,14 @@ class AsyncCheckpointWriter:
             registry.gauge("checkpoint_queue_depth").set(0.0)
 
     def _skip(self, error: BaseException) -> None:
+        from marl_distributedformation_tpu_torch.obs import get_tracer
+
         self.writes_skipped += 1
         get_registry().counter("checkpoint_writes_skipped_total").inc()
+        get_tracer().incident(
+            "checkpoint_write_skipped", error=repr(error)[:300],
+            retries=self.io_retries, writes_skipped=self.writes_skipped,
+        )
         print(f"[checkpoint] write skipped: {error}", file=sys.stderr)
 
     def wait(self) -> None:
@@ -596,3 +636,83 @@ class AsyncCheckpointWriter:
         if thread is not None:
             thread.join()
         self._error = None
+
+
+class CheckpointDiscovery:
+    """Incremental ``rl_model_*`` discovery for long-running watchers.
+
+    ``latest_checkpoint`` lists and parses the whole directory on every
+    call; a watcher polling a training run for hours would pay for every
+    checkpoint ever written on every poll. This keeps
+    ``latest_checkpoint``'s contract (the same name filter and step
+    parse; dot-prefixed temp files never seen) at a bounded cost:
+
+    - each file name is parsed once (a name-to-step cache);
+    - an idle poll is one ``stat``: the directory's mtime changes when an
+      entry is added or renamed in, so an unchanged mtime means an
+      unchanged listing. The skip is trusted only when the last listing
+      ran ``_MTIME_SLACK_S`` after the mtime it recorded, so a file that
+      lands within the same mtime tick is found one listing later, never
+      missed.
+
+    ``latest()`` is the non-consuming view (the fleet coordinator's);
+    ``poll_new()`` the consuming stream, ascending, each checkpoint once,
+    ignoring steps at or below the consumed high-water mark.
+    """
+
+    _MTIME_SLACK_S = 2.0
+
+    def __init__(
+        self, log_dir: str | Path, start_after_step: int = -1
+    ) -> None:
+        self.log_dir = Path(log_dir)
+        self._known: Dict[str, int] = {}  # file name -> parsed step
+        self._high_water = int(start_after_step)
+        self._dir_mtime_ns: Optional[int] = None
+        self._listing_stable = False  # the last listing postdated the mtime
+
+    def _refresh(self) -> None:
+        try:
+            st = os.stat(self.log_dir)
+        except OSError:  # the directory is not there yet
+            self._dir_mtime_ns = None
+            self._listing_stable = False
+            return
+        if self._listing_stable and st.st_mtime_ns == self._dir_mtime_ns:
+            return  # an idle poll: one stat
+        now = time.time()
+        with os.scandir(self.log_dir) as entries:
+            for entry in entries:
+                name = entry.name
+                if name in self._known or not name.endswith(".msgpack"):
+                    continue
+                m = _STEP_RE.search(name)
+                if m is not None:
+                    self._known[name] = int(m.group(1))
+        self._dir_mtime_ns = st.st_mtime_ns
+        self._listing_stable = (now - st.st_mtime) > self._MTIME_SLACK_S
+
+    def latest(self) -> Optional[Path]:
+        """The newest checkpoint (``latest_checkpoint``'s answer); a
+        deleted entry leaves the cache, so the answer can step back down
+        to an older file."""
+        self._refresh()
+        while self._known:
+            name = max(self._known, key=self._known.__getitem__)
+            path = self.log_dir / name
+            if path.exists():
+                return path
+            del self._known[name]
+        return None
+
+    def poll_new(self) -> List[Path]:
+        """Checkpoints above the consumed high-water mark, ascending; the
+        mark moves past everything returned."""
+        self._refresh()
+        fresh = sorted(
+            (step, name) for name, step in self._known.items()
+            if step > self._high_water
+        )
+        if fresh:
+            self._high_water = fresh[-1][0]
+        return [self.log_dir / name for _, name in fresh]

@@ -1236,3 +1236,80 @@ def test_single_formation_step_is_its_step_batch_row(cuda, obs_mode):
             assert torch.equal(t1.metrics[k], v[0]), k
         dones += int(t1.done)
     assert dones == 1
+
+
+# ---------------------------------------------------------------------------
+# The fleet and the runtime guards on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["mlp", "gnn"])
+def test_fleet_of_two_on_one_card_equals_one_engine(cuda, kind):
+    """Two replicas on ``cuda:0``, each with its own engine, stream and
+    copy of the parameters: every rung of every replica captured before
+    traffic, once; each replica's deterministic actions equal a single
+    engine's bitwise, served through the router too."""
+    import numpy as np
+
+    from marl_distributedformation_tpu_torch.serving import (
+        BucketedPolicyEngine,
+    )
+    from marl_distributedformation_tpu_torch.serving.fleet import (
+        FleetRouter,
+        warmup_fleet,
+    )
+
+    policy, rows = _serving_policy(cuda, kind)
+    buckets = (1, 8, 64, 512)
+    engine = BucketedPolicyEngine(policy, buckets=buckets)
+    router = FleetRouter(policy, num_replicas=2, buckets=buckets)
+    assert [r.device for r in router.replicas] == [torch.device("cuda", 0)] * 2
+    warmup_fleet(router, rows.shape[1:])
+    assert router.compile_counts() == {0: dict.fromkeys(buckets, 1),
+                                       1: dict.fromkeys(buckets, 1)}
+    for r in router.replicas:
+        params, _ = r.registry.active()
+        for n in (1, 5, 64, 512, 1100):
+            assert np.array_equal(r.engine.act(rows[:n], nn_params=params),
+                                  engine.act(rows[:n])), (r.index, n)
+    with router:
+        # One at a time: a request coalesced with another runs through a
+        # larger rung, whose GEMM tiles can round its rows apart.
+        for n in (3, 64, 300, 9):
+            got = router.submit(rows[:n]).result(timeout=60).actions
+            assert np.array_equal(got, engine.act(rows[:n])), n
+    assert router.compile_counts() == {0: dict.fromkeys(buckets, 1),
+                                       1: dict.fromkeys(buckets, 1)}
+
+
+def test_guard_transfers_raises_on_an_item_in_a_guarded_dispatch(
+        cuda, tmp_path):
+    """With ``guard_transfers`` the post-warm-up dispatches run under the
+    CUDA sync debug mode: a clean one passes, an ``.item()`` inside one
+    raises, and the mode is restored after."""
+    from marl_distributedformation_tpu_torch.algo import PPOConfig
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.models import MLPActorCritic
+    from marl_distributedformation_tpu_torch.train import (
+        TrainConfig,
+        Trainer,
+    )
+
+    params = EnvParams(num_agents=3)
+    trainer = Trainer(
+        params, PPOConfig(n_steps=4, batch_size=24, n_epochs=2),
+        TrainConfig(num_formations=4, log_dir=str(tmp_path),
+                    checkpoint=False, guard_transfers=True,
+                    guard_retraces=1),
+        model=MLPActorCritic(params.obs_dim,
+                             generator=torch.Generator().manual_seed(0)),
+        device="cuda")
+    for _ in range(3):  # warm-up, capture, the first guarded dispatch
+        trainer.run_iteration()
+    trainer.phase_hook = lambda phase: torch.ones((), device="cuda").item()
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        trainer.run_iteration()
+    trainer.phase_hook = None
+    assert torch.cuda.get_sync_debug_mode() == 0
+    trainer.run_iteration()
+    assert trainer.retrace_guard.count == 1

@@ -835,8 +835,13 @@ def test_client_with_no_retries_surfaces_the_reject():
 @pytest.mark.parametrize("endpoints", ["http://localhost:1",
                                        ["http://localhost:1"]])
 def test_client_refuses_http_endpoints_naming_a13(endpoints):
-    with pytest.raises(ValueError, match="ROADMAP A13"):
-        ServingClient(endpoints)
+    """Endpoints were refused until the fleet frontend was ported: they
+    select HTTP mode now (``tests/test_torch_fleet.py`` drives it), and a
+    frontend nobody answers at fails as a connection error after the
+    retry budget."""
+    client = ServingClient(endpoints, max_retries=1, backoff_base_s=0.001)
+    with pytest.raises(ConnectionError, match="unreachable"):
+        client.predict(_obs(1))
 
 
 # ---------------------------------------------------------------------------
@@ -908,15 +913,36 @@ def test_serve_cli_needs_a_gpu_unless_cpu_is_asked_for(monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--fleet"], ["--replicas", "2"], ["--tenants", "a=logs/a"],
-    ["--port", "0"], ["--sharded"], ["--bf16"], ["--mesh-devices", "2"],
-    ["--slo-bench"], ["--elastic-bench"], ["--record-trace", "t.jsonl"],
+    # The first and fourth cases were --fleet, --replicas and --port until
+    # the fleet was ported (test_serve_cli_serves_a_fleet below).
+    ["--slo-iterations", "3"], ["--slo-passes", "2"],
+    ["--tenants", "a=logs/a"], ["--big-rung", "64"], ["--sharded"],
+    ["--bf16"], ["--mesh-devices", "2"], ["--slo-bench"],
+    ["--elastic-bench"], ["--record-trace", "t.jsonl"],
     ["--slo-p95-ms", "20"], ["--load-rps", "10"],
 ])
 def test_serve_cli_refuses_unported_flags_naming_a13(argv):
     with pytest.raises(SystemExit, match="ROADMAP A13"):
         serve_cli.main(["--init-policy", "MLPActorCritic", "--obs-dim", "8",
                         "--smoke", "--device", "cpu", *argv])
+
+
+def test_serve_cli_serves_a_fleet(tmp_path, capsys):
+    """``--fleet --replicas 2``: the fleet smoke's JSON line over two
+    replicas on the CPU, one build a rung a replica; ``--port`` and
+    ``--replicas`` need ``--fleet``."""
+    _write_ckpt(tmp_path, 7, _make_policy())
+    rc = serve_cli.main([str(tmp_path), "--fleet", "--replicas", "2",
+                         "--buckets", "1,8", "--duration", "0.3",
+                         "--device", "cpu"])
+    assert rc == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["replicas"] == 2.0 and report["client_requests_ok"] > 0
+    assert report["max_compiles_per_rung"] == 1.0
+    assert report["model_step_max"] == 7.0
+    for argv in (["--port", "0"], ["--replicas", "2"]):
+        with pytest.raises(SystemExit, match="require --fleet"):
+            serve_cli.main([str(tmp_path), "--device", "cpu", *argv])
 
 
 def test_serve_cli_refuses_a_per_formation_policy_without_its_row(tmp_path):

@@ -97,7 +97,8 @@ def test_train_config_ported_fields_have_jax_defaults():
         "recovery", "recovery_breach_iters", "recovery_max_rollbacks",
         "recovery_lr_backoff", "recovery_severity_backoff", "keep_last_n",
         "profile", "profile_iterations", "architecture", "actor_devices",
-        "transfer_queue_depth", "max_param_staleness",
+        "transfer_queue_depth", "max_param_staleness", "guard_retraces",
+        "guard_transfers", "guard_nans",
     }
     for name, default in port.items():
         assert jax_fields[name] == default, name
