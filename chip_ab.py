@@ -1,0 +1,87 @@
+#!/usr/bin/env python3
+"""Times ``gnn100``'s training on one NVIDIA GPU in several trees of this
+repo, to compare two versions of the port on one card:
+
+    python3 chip_ab.py TREE [TREE ...]
+
+Each tree runs in a process of its own, in the order given (put the two
+versions as A, B, B, A to see the card drift): the tree's own
+``chip_smoke.train_run`` runs ``chip_smoke.GNN100`` (N=100, M=1024, k=4,
+``preset=tpu``) for ``--iterations`` iterations with the iteration
+captured, and its steady seconds an iteration (CUDA events around the
+phases, the warm-up and capture iterations left out) is printed. The last
+line is one JSON object: the card's name and power limit (``nvidia-smi``)
+and, per run, the tree, the steady s/iteration, its rollout and update
+parts and the run's wall. The logs go under each tree's ``logs/``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as smoke
+overrides = [o for o in smoke.GNN100 if not o.startswith("total_timesteps=")]
+overrides.append(f"total_timesteps={int(sys.argv[2]) * 1024000}")
+t0 = time.perf_counter()
+trainer, _, launches, s_iter = smoke.train_run("ab_gnn100", overrides,
+                                               "gnn100 A/B")
+wall = time.perf_counter() - t0
+steady = trainer.smoke_phase_ms[smoke.WARM_ITERATIONS[True]:]
+print(json.dumps({
+    "s_iter": s_iter,
+    "rollout_s": sum(r for r, _ in steady) / len(steady) / 1e3,
+    "update_s": sum(u for _, u in steady) / len(steady) / 1e3,
+    "iterations": len(trainer.smoke_phase_ms), "wall_s": wall,
+    "launches": launches}))
+"""
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("trees", nargs="+", type=Path)
+    parser.add_argument("--iterations", type=int, default=20)
+    args = parser.parse_args()
+    card = card_line()
+    print(card)
+    runs = []
+    for tree in args.trees:
+        tree = tree.resolve()
+        if not (tree / "chip_smoke.py").is_file():
+            print(f"chip_ab: no chip_smoke.py in {tree}", file=sys.stderr)
+            return 2
+        out = subprocess.run(
+            [sys.executable, "-c", CHILD, str(tree), str(args.iterations)],
+            cwd=tree, capture_output=True, text=True, timeout=900)
+        sys.stderr.write(out.stderr[-4000:])
+        if out.returncode != 0:
+            print(out.stdout[-4000:])
+            print(f"chip_ab: {tree} failed with {out.returncode}",
+                  file=sys.stderr)
+            return 1
+        lines = out.stdout.strip().splitlines()
+        print("\n".join(line for line in lines if line.startswith("[train]")))
+        run = {"tree": str(tree), **json.loads(lines[-1])}
+        print(f"[ab] {tree.name}: {run['s_iter']:.4f} s/iteration (rollout "
+              f"{run['rollout_s']:.4f} + update {run['update_s']:.4f}), "
+              f"{run['iterations']} iterations in {run['wall_s']:.1f} s")
+        runs.append(run)
+    print(json.dumps({"card": card, "runs": runs}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

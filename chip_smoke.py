@@ -10,7 +10,8 @@ Phases (any failure exits non-zero):
 2. Hold each k-NN kernel against its plain PyTorch version on the card, at
    the shapes each path gives it — fused: training (M=1024, N=100, k=4),
    eval and populations (M=4096), the matrix (M=256), the falsifier
-   search (M=1600 and 3904), playback (M=1); tiled: training (M=8, N=1024, k=4), eval
+   search (M=1600 and 3904), playback (M=1), the promotion gate (M=64);
+   tiled: training (M=8, N=1024, k=4), eval
    (M=512), populations (M=16) and the matrix (M=32) — and on lattice, duplicate and edge-clipped points (exact ties) and
    masks with fewer than k valid points: ``idx`` and offsets bitwise,
    distances within 1 ulp. Then time the kernel (its device time under
@@ -31,14 +32,15 @@ Phases (any failure exits non-zero):
      must launch 1 + 30 x 10 times, counted by replay; the mean reward of
      the last 3 iterations must beat the first 3 by 20 and be above 0; the
      checkpoint it wrote, evaluated through the evaluate CLI (M=1024, full
-     episode), must rank learned > baseline > zero. Then the same command
-     eagerly for 2 iterations, for the captured-to-eager ratio.
+     episode), must rank learned > baseline > zero. Then the rollout and
+     the first epoch of the same command run eagerly beside the same
+     window replayed, for the captured-to-eager ratio.
    - ``gnn1024`` (M=8, N=1024, ``preset=tpu``, 12 iterations): ``knn_tiled``
      must launch 1 + 12 x 10 times; the last 3 iterations must beat the
      first 3.
    - the ring/MLP default (M=1000, N=5, ``batch_size=64``), 2 iterations
-     captured and 1 eager; its profile covers the rollout and the first of
-     the 10 epochs.
+     captured; its profile and its captured-to-eager ratio cover the
+     rollout and the first of the 10 epochs.
    - for every run: seconds an iteration split into rollout and update
      (CUDA events between graph replays), formation-steps/s,
      agent-transitions/s, peak memory (and above what earlier phases
@@ -262,7 +264,33 @@ Phases (any failure exits non-zero):
      ``guard_retraces=1 guard_transfers=true guard_nans=true`` passes;
      then an ``.item()`` inside a guarded dispatch, ``train.carry_poison``
      armed through the chaos plane, and a forced rebuild must raise.
-14. Print the kernels' JSON line (launches and timings at the training
+14. The always-learning pipeline (``pipeline/``, ``always_learning``)
+   and tenant lanes (``serving/tenancy/``) on the card:
+   - ``always100``: ``always_learning`` in-process on ``cuda:0`` with
+     ``gnn100``'s command for 20 iterations (``fused_chunk=5``, a
+     checkpoint a chunk: 4 candidates), the gate at JAX's defaults (wind
+     and sensor_noise at 0.5 and 1.0, M=64), 2 replicas, 2 clients sending
+     1-100 formations of ``serve_rows`` through the router, a NaN
+     candidate written after the second checkpoint and a forced
+     regression once two good checkpoints serve: every candidate gated,
+     the NaN one rejected as non-finite and never published or served,
+     the promotions strictly ascending, one rollback to a promoted step
+     through ``reload_pinned``, one build of the gate's matrix,
+     ``check_audit_log``, ``check_step_monotonic``,
+     ``check_no_request_lost`` and ``check_budget_one`` find nothing, and
+     ``knn_fused``'s launches equal the trainer's 1 + 20 x 10 plus the
+     gate's cells x 1003, counted by replay. Prints the promotion latency
+     p50/p95, ``gate_eval_steps_per_sec``, the trainer's s/iteration
+     beside ``gnn100``'s and the busy share of one profiled window.
+   - ``tenants100``: a ``TenantFleet`` at R=1 on ``cuda:0`` over
+     ``gnn100``'s, ``scen100``'s and ``chase100``'s checkpoints (one GNN
+     signature, one group) and the committed MLP (a second group): one
+     capture a (arch, rung); each lane's deterministic actions, each
+     request alone, equal a single engine's bitwise; a storm on
+     ``formation-a`` with a swap of ``formation-a`` in it leaves
+     ``formation-b`` without a 429 and every lane's step monotonic.
+     Prints each lane's requests/s and p95.
+15. Print the kernels' JSON line (launches and timings at the training
    paths' shapes, those of the eval paths under ``eval``, the population
    paths' under ``population``, ``ctde_knn``'s launches under
    ``ctde_knn``, ``scen100``'s under ``scenario``, phase 9's under
@@ -270,7 +298,9 @@ Phases (any failure exits non-zero):
    request rows under ``serving``, phase 11's lanes under ``sebulba``,
    phase 12's VecEnv runs under ``vec_env``, its playback, (1,100,4),
    under ``playback`` and its per-formation k-NN step, (1,100,4), under
-   ``single_step``, phase 13's request rows under ``fleet``), the card
+   ``single_step``, phase 13's request rows under ``fleet``, phase 14's
+   trainer and gate under ``always`` at the gate's (64,100,4), its lanes'
+   request rows under ``tenants``), the card
    line, and the last line ``{"ok": true,
    "device": {...}}``.
 
@@ -805,7 +835,10 @@ def rollout_graph_equals_plain(model, n, m):
         PopulationModel,
     )
     from marl_distributedformation_tpu_torch.ops import knn_cuda
-    from marl_distributedformation_tpu_torch.train.capture import PhaseGraph
+    from marl_distributedformation_tpu_torch.train.capture import (
+        PhaseGraph,
+        own_stream,
+    )
 
     dev = torch.device("cuda")
     k = getattr(model, "num_members", None)
@@ -829,7 +862,8 @@ def rollout_graph_equals_plain(model, n, m):
 
         if impl == "auto":
             knn_cuda.reset_launches()
-            graph = PhaseGraph("rollout", rollout, gens)
+            graph = PhaseGraph("rollout", rollout, gens,
+                               stream=own_stream(rollout, dev))
             graph()  # the warm-up, eager
             for g, s in zip(gens, start):
                 g.set_state(s)
@@ -980,11 +1014,38 @@ def poisoned_health_run():
           f"{kinds}")
 
 
+def wall_s(fn):
+    """Seconds of one call of ``fn`` to the end of its device work."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def epoch_window(trainer):
+    """A call of ``trainer``'s rollout phase and of its minibatch phase for
+    one epoch's steps: the window the captured-to-eager ratios and the
+    ring/MLP profile read (captured: replays; eager: the steps)."""
+    rollout, minibatch, _ = trainer._phases
+    steps = trainer._iteration.num_minibatch_steps // trainer.ppo.n_epochs
+
+    def window():
+        rollout()
+        for _ in range(steps):
+            minibatch()
+
+    return window
+
+
 def train_phase():
     """Phase 5; returns the training paths' launch counts and the captured
     ``gnn100`` run's rewards and s/iteration (phase 6 sets them beside its
     population's)."""
     from marl_distributedformation_tpu_torch import evaluate as evaluate_cli
+    from marl_distributedformation_tpu_torch.train import cli
     from marl_distributedformation_tpu_torch.utils.checkpoint import (
         latest_checkpoint,
     )
@@ -1023,15 +1084,23 @@ def train_phase():
                    "one captured iteration", 1, "iteration")
     elapsed("gnn100 captured")
 
-    # Two eager iterations: the second is the steady one the ratio reads
-    # (cut from 3 for phase 13's room).
-    *_, eager_s = train_run(
-        "smoke_gnn100_eager",
-        GNN100[:-1] + ("total_timesteps=2048000",),
-        "gnn100 M=1024 N=100, 2 iterations", capture=False)
-    print(f"[capture] gnn100: captured {captured_s:.4f} s/iteration, eager "
-          f"{eager_s:.4f} s/iteration, {eager_s / captured_s:.2f}x")
-    elapsed("gnn100 eager")
+    # The captured-to-eager ratio over one window, the rollout and the
+    # first of the 10 epochs, by a trainer of the same command built with
+    # capture=False (its phases' first calls are their eager builds; cut
+    # from 2 whole eager iterations, 10.2 s on an NVIDIA H100 80GB HBM3 at
+    # 700 W, for phase 14's room), beside the same window replayed.
+    window_s = {"captured": wall_s(epoch_window(trainer))}
+    eager = cli.build_trainer(["name=smoke_gnn100_eager", "device=cuda",
+                               *GNN100], capture=False)
+    window_s["eager"] = wall_s(epoch_window(eager))
+    print(f"[capture] gnn100, the rollout and the first epoch "
+          f"({trainer._iteration.num_minibatch_steps // trainer.ppo.n_epochs}"
+          f" minibatch steps): captured {window_s['captured']:.4f} s, eager "
+          f"{window_s['eager']:.4f} s, "
+          f"{window_s['eager'] / window_s['captured']:.2f}x (a whole captured "
+          f"iteration {captured_s:.4f} s)")
+    del eager
+    elapsed("gnn100 eager window")
 
     trainer, rewards, got, _ = train_run("smoke_gnn1024", GNN1024,
                                          "gnn1024 M=8 N=1024")
@@ -1053,26 +1122,30 @@ def train_phase():
     # Depth cut: its rollout and first epoch (781 of 7,810 replays of one
     # minibatch graph), not the whole iteration, whose 1.39 M traced
     # kernels took the profiler 116-177 s; the epochs replay one graph.
-    rollout, minibatch, _ = trainer._phases
+    first_epoch = epoch_window(trainer)
     steps = trainer._iteration.num_minibatch_steps // trainer.ppo.n_epochs
-
-    def first_epoch():
-        rollout()
-        for _ in range(steps):
-            minibatch()
 
     profile_window(first_epoch, f"train ring/MLP default, the rollout and "
                    f"the first epoch ({steps} minibatch replays) of a "
                    "captured iteration", 1, "window")
     elapsed("ring/MLP profile")
-    *_, eager_s = train_run(
-        "smoke_mlp_eager", ("total_timesteps=50000",),
-        "ring/MLP default M=1000 N=5, 1 iteration", capture=False)
-    print(f"[capture] ring/MLP default: captured {captured_s:.4f} "
-          f"s/iteration, eager {eager_s:.4f} s/iteration, "
-          f"{eager_s / captured_s:.2f}x")
+    # The captured-to-eager ratio over that same window (cut from a whole
+    # eager iteration, 52.8 s of host-bound launches on an NVIDIA H100 80GB
+    # HBM3 at 700 W, for phase 14's room): the window replayed once more
+    # and timed, then the same window run eagerly by a trainer of the same
+    # command built with capture=False.
+    captured_window_s = wall_s(first_epoch)
+    eager = cli.build_trainer(["name=smoke_mlp_eager", "device=cuda",
+                               *MLP_DEFAULT], capture=False)
+    eager_window_s = wall_s(epoch_window(eager))
+    del eager
+    print(f"[capture] ring/MLP default, the rollout and the first epoch "
+          f"({steps} minibatch steps): captured {captured_window_s:.4f} s, "
+          f"eager {eager_window_s:.4f} s, "
+          f"{eager_window_s / captured_window_s:.2f}x (a whole captured "
+          f"iteration {captured_s:.4f} s)")
 
-    elapsed("ring/MLP eager")
+    elapsed("ring/MLP eager window")
     captured_equals_eager("mlp")
     captured_equals_eager("gnn")
     poisoned_health_run()
@@ -4036,6 +4109,491 @@ def fleet_phase(gnn100_ckpt, scen100_ckpt, single=None):
     return launches
 
 
+# Phase 14: the always-learning pipeline and tenant lanes on one card.
+# gnn100's command for 20 iterations at fused_chunk=5: the trainer writes
+# a checkpoint at each chunk boundary (JAX's and the port's fused loops
+# both do), so K=10 would give 2 candidates in 20 iterations; K=5 gives 4.
+ALWAYS_GATE_M = 64  # JAX's gate_formations default
+ALWAYS100 = GNN100[:-1] + (
+    "total_timesteps=20480000", "fused_chunk=5", "save_freq=50",
+    f"gate_formations={ALWAYS_GATE_M}", "pipeline_replicas=2",
+    "pipeline_buckets=[1,8,64]",
+    "pipeline_budget_s=240", "pipeline_poll_s=0.05",
+    "watchdog_wedge_timeout_s=120")
+ALWAYS_CLIENT_SIZES = (1, 3, 8, 9, 40, 100)
+TENANT_DURATION_S = 2.0
+ALWAYS_PROFILE_S = 0.4
+
+
+def write_nan_candidate(source, step):
+    """``source``'s checkpoint with NaN parameters under a valid footer, as
+    ``rl_model_{step}_steps.msgpack`` beside it: it loads, and must fail
+    the gate on its eval (the trainer's own writer refuses non-finite
+    trees)."""
+    import numpy as np
+
+    from marl_distributedformation_tpu_torch.utils.checkpoint import (
+        checkpoint_path,
+        msgpack_restore_file,
+        msgpack_serialize,
+        with_footer,
+    )
+
+    raw = msgpack_restore_file(source)
+
+    def nan(tree):
+        if isinstance(tree, dict):
+            return {k: nan(v) for k, v in tree.items()}
+        if isinstance(tree, np.ndarray) and tree.dtype.kind == "f":
+            return np.full_like(tree, np.nan)
+        return tree
+
+    raw["params"] = nan(raw["params"])
+    path = checkpoint_path(Path(source).parent, step)
+    tmp = path.parent / f".{path.name}.tmp"
+    tmp.write_bytes(with_footer(msgpack_serialize(raw)))
+    tmp.replace(path)
+    return path
+
+
+def always100(gnn100, rows):
+    """``always100``: the port's ``always_learning`` in-process on
+    ``cuda:0`` (``ALWAYS100``), one NaN candidate written after the second
+    checkpoint, a forced regression once the fleet serves two good
+    checkpoints, and 2 clients sending 1-100 formations of ``rows``
+    through the router from the fleet's start to the training's end.
+    Returns the ``knn_fused`` launches of the run, the trainer's and the
+    gate's each counted on its own (``knn_cuda.counted_for``)."""
+    import shutil
+    import threading
+
+    import torch
+
+    from marl_distributedformation_tpu_torch import always_learning
+    from marl_distributedformation_tpu_torch.chaos import (
+        check_audit_log,
+        check_budget_one,
+        check_no_request_lost,
+        check_step_monotonic,
+    )
+    from marl_distributedformation_tpu_torch.obs import (
+        MetricsRegistry,
+        ProgramLedger,
+        set_ledger,
+        set_registry,
+    )
+    from marl_distributedformation_tpu_torch.ops import knn_cuda
+    from marl_distributedformation_tpu_torch.pipeline import (
+        PromotionLog,
+        RollbackMonitor,
+    )
+    from marl_distributedformation_tpu_torch.utils.checkpoint import (
+        checkpoint_step,
+    )
+
+    name = "smoke_always100"
+    shutil.rmtree(ROOT / "logs" / name, ignore_errors=True)
+    ctx = {"nan": None, "seen": 0, "written": set(), "forced": False,
+           "steps": [],
+           "outcomes": [], "share": None}
+    previous = set_registry(MetricsRegistry()), set_ledger(
+        ProgramLedger(enabled=True))
+
+    # Each owner's launches, counted where they are made: the trainer's
+    # thread (its dispatches), the gate's evaluations (on this thread), and
+    # this thread as a whole, whose launches outside the gate are the
+    # trainer's reset at its construction.
+    owned = {"trainer": {}, "gate": {}, "main": {}}
+
+    def counted(fn, tally):
+        def run(*args, **kwargs):
+            with knn_cuda.counted_for(tally):
+                return fn(*args, **kwargs)
+        return run
+
+    def on_trainer(trainer, pipeline):
+        ctx["trainer"], ctx["pipeline"] = trainer, pipeline
+        ctx["events"] = record_phases(trainer)
+        trainer.train = counted(trainer.train, owned["trainer"])
+        pipeline.gate.evaluate = counted(pipeline.gate.evaluate,
+                                         owned["gate"])
+        nudge = trainer.on_checkpoint
+
+        def on_checkpoint(path):
+            # On the writer thread, after the rename: after the second
+            # checkpoint, a NaN candidate one step above it.
+            ctx["seen"] += 1
+            ctx["written"].add(checkpoint_step(path))
+            if ctx["seen"] == 2 and ctx["nan"] is None:
+                ctx["nan"] = write_nan_candidate(path,
+                                                 checkpoint_step(path) + 1)
+            nudge(path)
+
+        trainer.on_checkpoint = on_checkpoint
+
+    def on_fleet(pipeline, router, coordinator):
+        ctx["router"], ctx["coordinator"] = router, coordinator
+
+        def forced():
+            # One served-metric regression, once two good checkpoints
+            # serve (the monitor samples only then).
+            if ctx["forced"]:
+                return {"forced_regression": 0.0}
+            ctx["forced"] = True
+            return {"forced_regression": 1.0}
+
+        pipeline.attach_monitor(RollbackMonitor(
+            forced, "forced_regression", threshold=0.5, trip_after=1))
+        stop = threading.Event()
+        lock = threading.Lock()
+
+        def record(result):
+            with lock:
+                ctx["steps"].append((time.perf_counter(),
+                                     int(result.model_step)))
+
+        def client(idx):
+            import numpy as np
+
+            rng = np.random.default_rng(idx)
+            i = idx
+            while not stop.is_set():
+                n = ALWAYS_CLIENT_SIZES[i % len(ALWAYS_CLIENT_SIZES)]
+                i += 1
+                start = int(rng.integers(0, len(rows) - n + 1))
+                try:
+                    fut = router.submit(rows[start:start + n],
+                                        on_result=record)
+                except Exception as e:  # noqa: BLE001 — measured
+                    with lock:
+                        ctx["outcomes"].append(
+                            {"ok": False, "error": repr(e), "hung": False})
+                    time.sleep(0.01)
+                    continue
+                try:
+                    fut.result(timeout=router.default_timeout_s + 5.0)
+                    outcome = {"ok": True, "error": None, "hung": False}
+                except TimeoutError:
+                    outcome = {"ok": False, "error": "hung", "hung": True}
+                except Exception as e:  # noqa: BLE001 — typed, resolved
+                    outcome = {"ok": False, "error": repr(e), "hung": False}
+                with lock:
+                    ctx["outcomes"].append(outcome)
+
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        ctx["fleet_at"] = (time.perf_counter() - t0, len(ctx["events"]))
+
+        def stop_traffic():
+            # The profiled window comes after the training and the last
+            # gate eval: a trace stopped while the trainer's thread
+            # launched its graphs hung the process on the card (twice), so
+            # it holds the R=2 fleet under the 2 clients, on this thread,
+            # while the pipeline's loop sleeps.
+            trainer = ctx["trainer"]
+            if trainer.num_timesteps >= trainer.total_timesteps:
+                ctx["share"] = profile_window(
+                    lambda: time.sleep(ALWAYS_PROFILE_S),
+                    f"always100, {ALWAYS_PROFILE_S} s of the R=2 fleet under "
+                    "2 clients after the training (profiled; the profiler "
+                    "slows the host)", 1, "window")
+            stop.set()
+            for t in threads:
+                t.join(timeout=60.0)
+
+        return stop_traffic
+
+    knn_cuda.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with knn_cuda.counted_for(owned["main"]):
+            report = always_learning.main(
+                [f"name={name}", "device=cuda", *ALWAYS100],
+                on_trainer=on_trainer, on_fleet=on_fleet)
+    finally:
+        set_registry(previous[0])
+        set_ledger(previous[1])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(knn_cuda.LAUNCHES)
+    trainer, pipeline = ctx["trainer"], ctx["pipeline"]
+    router, coordinator = ctx["router"], ctx["coordinator"]
+    trainer.phase_hook = None
+    del trainer.train, pipeline.gate.evaluate
+    log = Path(trainer.log_dir) / "promotions.jsonl"
+    records = PromotionLog.read(log)
+    gated = [r for r in records if r["event"] in ("promoted", "rejected")]
+    nan_step = checkpoint_step(ctx["nan"]) if ctx["nan"] else None
+    written = sorted(ctx["written"] | {nan_step} - {None})
+    promoted = [r["step"] for r in records if r["event"] == "promoted"]
+    rejected = [r for r in records if r["event"] == "rejected"]
+    rolled = [r for r in records if r["event"] == "rolled_back"]
+    served = sorted({s for _, s in ctx["steps"]})
+    iterations = len(ctx["events"])
+    T = pipeline.gate.program.run.__self__.T
+    want_trainer = 1 + iterations * trainer.ppo.n_steps
+    want_gate = pipeline.gate.cells_evaluated * (T + 1)
+    reset = owned["main"]["knn_fused"] - owned["gate"]["knn_fused"]
+    counts = {"trainer": owned["trainer"]["knn_fused"] + reset,
+              "gate": owned["gate"]["knn_fused"],
+              "knn_fused": launches["knn_fused"]}
+    receipts = {f"gate:{pipeline.gate.program.guard.name}":
+                pipeline.gate.program.compile_count,
+                "train_iteration": trainer.retrace_guard.count}
+    for i, per in router.compile_counts().items():
+        receipts.update({f"replica{i}_rung{b}": c for b, c in per.items()})
+    violations = (
+        check_audit_log(log)
+        + check_step_monotonic(ctx["steps"],
+                               [r["to_step"] for r in rolled])
+        + check_no_request_lost(ctx["outcomes"])
+        + check_budget_one(receipts))
+    problems = []
+    if violations:
+        problems.append(f"violations {[v.record() for v in violations]}")
+    if sorted(r["step"] for r in gated) != written:
+        problems.append(f"gated {[r['step'] for r in gated]} of the "
+                        f"written {written}")
+    if nan_step is None or [r["step"] for r in rejected
+                            if "non-finite" in r["reasons"][0]] != [nan_step]:
+        problems.append(f"NaN candidate {nan_step} not rejected as "
+                        f"non-finite: {rejected}")
+    if nan_step in pipeline.promoter.published_steps() or nan_step in served:
+        problems.append(f"NaN candidate {nan_step} published or served")
+    if len(promoted) < 3 or promoted != sorted(set(promoted)):
+        problems.append(f"promotions {promoted}: want 3 or more, strictly "
+                        "ascending")
+    if len(rolled) != 1 or rolled[0]["to_step"] not in promoted[:-1]:
+        problems.append(f"rollbacks {rolled}: want one, to a promoted step")
+    if len([s for s in served if s in promoted]) < 2:
+        problems.append(f"served steps {served}: want 2 or more promotions "
+                        "served")
+    if pipeline.gate.program.compile_count != 1:
+        problems.append(f"gate builds {pipeline.gate.program.compile_count}")
+    tiled = [t["knn_tiled"] for t in (launches, *owned.values())]
+    if (counts["trainer"] != want_trainer or reset != 1
+            or counts["gate"] != want_gate
+            or counts["knn_fused"] != want_trainer + want_gate or any(tiled)):
+        problems.append(
+            f"launches {launches}: the trainer's thread "
+            f"{owned['trainer']}, the gate {owned['gate']}, this thread "
+            f"{owned['main']}; want trainer {want_trainer} (its reset 1 on "
+            f"this thread outside the gate), gate {want_gate}, all of them "
+            "and no other")
+    ok = [o for o in ctx["outcomes"] if o["ok"]]
+    if not ok or report.get("train_error") or report["pipeline_errors"]:
+        problems.append(f"{len(ok)} client requests served; train error "
+                        f"{report.get('train_error')}; pipeline errors "
+                        f"{report['pipeline_errors']}")
+    if problems:
+        raise AssertionError("always100: " + "; ".join(problems))
+    phase_ms = [(e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2]))
+                for e in ctx["events"]]
+    steady = phase_ms[WARM_ITERATIONS[True]:]
+    s_iter = mean(a + b for a, b in steady) / 1e3
+    gate_cfg = pipeline.gate.config
+    print(f"[always] always100 on cuda:0 ({iterations} iterations of "
+          f"gnn100's command at fused_chunk=5, gate {gate_cfg.scenarios} x "
+          f"{gate_cfg.severities} at M={gate_cfg.eval_formations}, fleet "
+          "R=2, 2 clients): "
+          f"{wall:.1f} s; {len(gated)} candidates gated (written {written}, "
+          f"the NaN one {nan_step} rejected as non-finite, never published "
+          f"or served); promoted {promoted}; rolled back "
+          f"{rolled[0]['from_step']} -> {rolled[0]['to_step']} through "
+          f"reload_pinned; served steps {served}; gate builds 1 across "
+          f"{len(gated)} candidates; check_audit_log, check_step_monotonic, "
+          f"check_no_request_lost and check_budget_one: nothing; "
+          f"{len(ok)} of {len(ctx['outcomes'])} client requests served")
+    print(f"[always] promotion_latency_s p50 "
+          f"{report['promotion_latency_s_p50']} p95 "
+          f"{report['promotion_latency_s_p95']}; gate_eval_steps_per_sec "
+          f"{report['gate_eval_steps_per_sec']}; stage p50s "
+          f"{report['promotion_span_breakdown']}; the trainer {s_iter:.4f} "
+          f"s/iteration beside gnn100's {gnn100['s_iter']:.4f} alone "
+          f"({s_iter / gnn100['s_iter']:.2f}x, the cost of sharing the "
+          f"card); the fleet attached {ctx['fleet_at'][0]:.1f} s into the "
+          f"run, at the trainer's iteration {ctx['fleet_at'][1]}; busy "
+          "share of the profiled window (the fleet after the training) "
+          + (f"{ctx['share']:.1f}%" if ctx["share"] is not None
+             else "not measured")
+          + f"; knn_fused launches {counts['knn_fused']}, counted by "
+          f"replay: the trainer {counts['trainer']} (its reset {reset} + "
+          f"its thread {owned['trainer']['knn_fused']}; want 1 + "
+          f"{iterations} x {trainer.ppo.n_steps}), the gate "
+          f"{counts['gate']} (want {pipeline.gate.cells_evaluated} cells x "
+          f"{T + 1}), none elsewhere")
+    return counts
+
+
+def pursuit_rows(m=1024):
+    """Request rows for ``chase100``'s lane: pursuit-evasion at N=100,
+    k=4, reset, observations through ``knn_fused``. Returns ``(rows (m,
+    100, 20) numpy, knn_fused launches)``."""
+    import numpy as np
+    import torch
+
+    from marl_distributedformation_tpu_torch.envs import (
+        PursuitParams,
+        spec_for_params,
+    )
+    from marl_distributedformation_tpu_torch.ops import knn_cuda
+
+    params = PursuitParams(num_agents=100, obs_mode="knn", knn_k=4)
+    spec = spec_for_params(params)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    knn_cuda.reset_launches()
+    state = spec.reset_batch(params, m, gen, torch.device("cuda"))
+    rows = spec.obs(state, params).cpu().numpy()
+    launches = knn_cuda.LAUNCHES["knn_fused"]
+    if launches != 1 or not np.isfinite(rows).all():
+        raise AssertionError(f"pursuit rows: {launches} knn_fused launches, "
+                             "want 1, and finite observations")
+    return rows, launches
+
+
+def tenants100(gnn100_ckpt, scen100_ckpt, chase100_ckpt, rows):
+    """``tenants100``: a ``TenantFleet`` at R=1 on ``cuda:0`` over the lanes
+    ``formation-a`` (``gnn100``'s checkpoint), ``formation-b``
+    (``scen100``'s), ``pursuit`` (``chase100``'s) and ``ring-mlp`` (the
+    committed MLP checkpoint, another architecture): one capture a (arch,
+    rung); each lane's deterministic actions, each request served alone,
+    equal a single engine's bitwise; a batch storm on ``formation-a`` with
+    a swap of ``formation-a`` in it leaves ``formation-b`` admitted with
+    no 429 and every lane's step monotonic. Returns the request rows'
+    ``knn_fused`` launches."""
+    import shutil
+
+    import numpy as np
+
+    from marl_distributedformation_tpu_torch import serve as serve_cli
+    from marl_distributedformation_tpu_torch.compat.policy import LoadedPolicy
+    from marl_distributedformation_tpu_torch.serving import (
+        BucketedPolicyEngine,
+    )
+    from marl_distributedformation_tpu_torch.serving.tenancy import (
+        TenantDirectory,
+        run_tenant_smoke,
+        tenant_fleet_from_directory,
+    )
+    from marl_distributedformation_tpu_torch.utils.checkpoint import (
+        checkpoint_step,
+    )
+
+    p_rows, p_launches = pursuit_rows()
+    lanes = {"formation-a": (gnn100_ckpt, rows),
+             "formation-b": (scen100_ckpt, rows),
+             "pursuit": (chase100_ckpt, p_rows),
+             "ring-mlp": (CKPT, ring_rows())}
+    base = ROOT / "logs" / "smoke_tenants100"
+    shutil.rmtree(base, ignore_errors=True)
+    specs = []
+    for mid, (ckpt, _) in lanes.items():
+        promoted = base / mid / "promoted"
+        promoted.mkdir(parents=True)
+        shutil.copy(ckpt, promoted / Path(ckpt).name)
+        config = Path(ckpt).parent / "config.json"
+        if config.exists():  # the run's env params, as serve reads them
+            shutil.copy(config, base / mid / "config.json")
+        specs.append(serve_cli._lane_spec(mid, str(promoted), None))
+    directory = TenantDirectory(specs)
+    fleet = tenant_fleet_from_directory(
+        directory, device="cuda", num_replicas=1, buckets=SERVE_BUCKETS)
+    t0 = time.perf_counter()
+    fleet.warmup()
+    capture_s = time.perf_counter() - t0
+    groups = directory.arch_groups()
+    census = fleet.shared_rung_compiles()
+    want = {f"{arch}:rung{b}": 1 for arch in groups for b in SERVE_BUCKETS}
+    if census != want:
+        raise AssertionError(f"tenants100: census {census}, want {want}")
+    swap_src = scen100_ckpt
+    swap_step = max(checkpoint_step(c) for c, _ in lanes.values()) + 1
+    coord = fleet.coordinators["formation-a"]
+    swapped = {}
+
+    def mid_storm():
+        target = (directory.get("formation-a").promoted_dir
+                  / f"rl_model_{swap_step}_steps.msgpack")
+        shutil.copy(swap_src, target.parent / ".incoming.tmp")
+        (target.parent / ".incoming.tmp").replace(target)
+        swapped["ok"] = coord.refresh()
+
+    with fleet:
+        # Each request alone (one sequential client): a lane's actions
+        # against a single engine of its own checkpoint, rung by rung.
+        for mid, (ckpt, pool) in lanes.items():
+            spec = directory.get(mid)
+            engine = BucketedPolicyEngine(
+                LoadedPolicy.from_checkpoint(
+                    ckpt, env_params=spec.env_params(), device="cuda"),
+                buckets=SERVE_BUCKETS)
+            for b in SERVE_BUCKETS:
+                got = fleet.submit(pool[:b], model_id=mid).result(
+                    timeout=60).actions
+                if not np.array_equal(got, engine.act(pool[:b])):
+                    raise AssertionError(f"tenants100: lane {mid} rung {b} "
+                                         "differs from a single engine")
+        report = run_tenant_smoke(
+            fleet, sizes=(1, 3, 8, 9, 40, 100), duration_s=TENANT_DURATION_S,
+            clients_per_lane=2, storm_lane="formation-a", storm_clients=3,
+            mid_storm=mid_storm, mid_storm_at_s=TENANT_DURATION_S / 4,
+            warmup=False, row_pools={m: pool for m, (_, pool) in
+                                     lanes.items()})
+    problems = []
+    if not swapped.get("ok"):
+        problems.append(f"no swap: {list(coord.load_errors)}")
+    for mid in lanes:
+        if (report[f"model_{mid}__requests_ok"] == 0
+                or report[f"model_{mid}__step_monotonic_violations"]
+                or report[f"model_{mid}__failed"]
+                or report[f"model_{mid}__timed_out"]):
+            problems.append(f"lane {mid}: {report}")
+    if report["model_formation-b__rejected"]:
+        problems.append("formation-b saw 429s under formation-a's storm")
+    if report["model_formation-a__step_max"] != swap_step:
+        problems.append(f"formation-a ended at step "
+                        f"{report['model_formation-a__step_max']}")
+    if fleet.shared_rung_compiles() != want:
+        problems.append(f"captures after traffic {fleet.shared_rung_compiles()}")
+    if problems:
+        raise AssertionError("tenants100: " + "; ".join(problems))
+    print(f"[tenants] tenants100 on cuda:0, R=1, {len(lanes)} lanes in "
+          f"{len(groups)} arch groups ("
+          + "; ".join(f"{arch}: {', '.join(s.model_id for s in specs)}"
+                      for arch, specs in groups.items())
+          + f"): one capture a (arch, rung) ({capture_s:.2f} s); each lane's "
+          f"deterministic actions == a single engine's bitwise at rungs "
+          f"{SERVE_BUCKETS}, each request alone; a {TENANT_DURATION_S} s "
+          f"storm (2 interactive clients a lane, 3 batch clients on "
+          f"formation-a from the second half) with formation-a swapped to "
+          f"step {swap_step} in it: formation-b rejected 0, every lane's "
+          f"step monotonic, isolation p95 ratio "
+          f"{report['tenant_isolation_p95_ratio']:.3f}")
+    print("[tenants] requests/s and p95 ms by lane: " + "; ".join(
+        f"{mid} {report[f'model_{mid}__requests_per_sec']:.1f}, "
+        f"{report[f'model_{mid}__latency_p95_ms']:.3f}" for mid in lanes))
+    return p_launches
+
+
+def pipeline_phase(gnn100, scen100_ckpt):
+    """Phase 14: ``always100`` and ``tenants100``. Returns the launches of
+    each path."""
+    from marl_distributedformation_tpu_torch.utils.checkpoint import (
+        latest_checkpoint,
+    )
+
+    rows, row_launches = serve_rows()
+    always = always100(gnn100, rows)
+    elapsed("always100")
+    chase100_ckpt = latest_checkpoint(ROOT / "logs" / "smoke_chase100")
+    tenant_launches = tenants100(gnn100["ckpt"], scen100_ckpt,
+                                 chase100_ckpt, rows)
+    elapsed("tenants100")
+    return {"always": always, "rows": row_launches + tenant_launches}
+
+
 def main() -> int:
     import torch
 
@@ -4075,7 +4633,8 @@ def main() -> int:
                        "matrix": (256, 100, 4),
                        "adversary": (25 * ADVERSARY_M, 100, 4),
                        "population61": (61 * ADVERSARY_M, 100, 4),
-                       "playback": (1, 100, 4)}),
+                       "playback": (1, 100, 4),
+                       "gate": (ALWAYS_GATE_M, 100, 4)}),
         "knn_tiled": (knn_cuda.knn_tiled, 50,
                       {"train": (8, 1024, 4), "eval": (512, 1024, 4),
                        "population": (16, 1024, 4),
@@ -4166,6 +4725,11 @@ def main() -> int:
     fleet_launches = fleet_phase(gnn100["ckpt"], scen100_ckpt, serve_smoke)
     elapsed("phase 13, fleet, watchdog, guards")
 
+    # Phase 14: the always-learning pipeline and tenant lanes, this
+    # slice's main paths.
+    pipeline_launches = pipeline_phase(gnn100, scen100_ckpt)
+    elapsed("phase 14, always-learning pipeline, tenant lanes")
+
     replaces = {
         "knn_fused": "marl_distributedformation_tpu/ops/knn_pallas.py:117",
         "knn_tiled": "marl_distributedformation_tpu/ops/knn_pallas.py:155",
@@ -4244,6 +4808,17 @@ def main() -> int:
     kernels[0]["fleet"] = {"path": "fleet100 request rows",
                            "launches": fleet_launches,
                            "shape": stats["knn_fused"]["train"]["shape"]}
+    # Phase 14: always100's trainer at the train shape and its gate at
+    # (64,100,4) (timed above), and the lanes' request rows at the train
+    # shape (the served GNNs launch no kernel).
+    always = pipeline_launches["always"]
+    kernels[0]["always"] = {
+        "path": "always100 trainer and gate", "launches": always["knn_fused"],
+        "trainer_launches": always["trainer"],
+        "gate_launches": always["gate"], **stats["knn_fused"]["gate"]}
+    kernels[0]["tenants"] = {"path": "tenants100 request rows",
+                             "launches": pipeline_launches["rows"],
+                             "shape": stats["knn_fused"]["train"]["shape"]}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

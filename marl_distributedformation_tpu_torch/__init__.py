@@ -11,9 +11,10 @@ The slices ported so far: policy evaluation on the k-NN swarm; PPO training
 (single runs, populations, CTDE and the curriculum over padded formations,
 captured as CUDA graphs, the Anakin and Sebulba lanes); the env-spec layer
 and the disturbance scenarios; the robustness matrix, the falsifier search
-and pursuit-evasion; the serving stack; the training observability plane;
-and the reference's own user surface (the single-formation API, the SB3
-VecEnv and Gymnasium adapters, SB3 import and the tools):
+and pursuit-evasion; the serving stack, its fleet and tenant lanes; the
+training observability plane; the reference's own user surface (the
+single-formation API, the SB3 VecEnv and Gymnasium adapters, SB3 import and
+the tools); and the always-learning pipeline:
 
 - ``env``       — the formation environment, batched over ``(M, N, 2)``
                   and one formation at a time (``reset``, ``step``)
@@ -26,7 +27,11 @@ VecEnv and Gymnasium adapters, SB3 import and the tools):
 - ``models``    — MLP, CTDE and GNN actor-critics as ``nn.Module``s
 - ``algo``      — rollout, GAE, the PPO loss and update, optax's clipped Adam
 - ``train``     — the trainers; ``python -m ...train`` is their CLI
-- ``serving``   — the micro-batching policy server; ``serve`` is its CLI
+- ``serving``   — the micro-batching policy server, its fleet and tenant
+                  lanes; ``serve`` is its CLI
+- ``pipeline``  — train -> gate -> promote -> fleet -> rollback in one
+                  process; ``always_learning`` is its CLI
+- ``chaos``     — fault seams, invariant checkers, the lane watchdog
 - ``obs``       — tracer, flight recorder, metrics registry, program ledger
 - ``compat``    — ``FormationVecEnv`` (the reference's SB3 VecEnv contract),
                   the Gymnasium adapters, the renderer, SB3 checkpoint

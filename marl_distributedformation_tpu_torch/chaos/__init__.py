@@ -8,15 +8,16 @@ Counterpart of the JAX package's ``chaos/``:
   seeded :class:`FaultSchedule` arms faults at them;
 - :mod:`.invariants` — pure checkers over a campaign's artifacts (step
   monotonicity, no request lost, budget-1 receipts, checkpoint-directory
-  consistency, the train and Sebulba lanes' contracts) and the
-  ``chaos_violation`` flight-recorder alarm; ``check_audit_log`` reads
-  the pipeline's audit log and waits for the pipeline (ROADMAP A13);
+  consistency, the train and Sebulba lanes' contracts, the pipeline's
+  audit log) and the ``chaos_violation`` flight-recorder alarm;
 - :mod:`.watchdog` — heartbeat-driven lane supervision with
-  capped-backoff restarts (the fleet's workers, Sebulba's lanes).
+  capped-backoff restarts (the fleet's workers, Sebulba's lanes, the
+  pipeline's loop).
 """
 
 from marl_distributedformation_tpu_torch.chaos.invariants import (
     Violation,
+    check_audit_log,
     check_bounded_staleness,
     check_budget_one,
     check_checkpoint_dir,
@@ -62,6 +63,7 @@ __all__ = [
     "LaneWatchdog",
     "SimulatedCrash",
     "Violation",
+    "check_audit_log",
     "check_bounded_staleness",
     "check_budget_one",
     "check_checkpoint_dir",

@@ -1,9 +1,8 @@
 """Invariant checkers: what must still be true after a chaos campaign.
 
-Counterpart of the JAX package's ``chaos/invariants.py``, the same
-checkers over the port's artifacts, but for ``check_audit_log``: it reads
-the pipeline's ``promotions.jsonl`` and waits for the pipeline (ROADMAP
-A13).
+Counterpart of the JAX package's ``chaos/invariants.py``: the same
+checkers over the port's artifacts (``check_audit_log`` reads the
+pipeline's ``promotions.jsonl``, which both packages write alike).
 
 Each checker is a pure function over campaign artifacts (served-step
 samples, probe outcomes, compile receipts, ``promotions.jsonl``, a
@@ -15,9 +14,8 @@ recent span history plus the armed/fired fault schedule as structured
 context, so a failing campaign is diagnosable from its artifacts alone
 (no re-run, no debugger).
 
-The invariants are the ones PRs 4-11 individually earned, restated so
-one campaign exercises them all (ROADMAP item 1 wants exactly this
-restating before the fleet crosses the host boundary):
+The invariants are the ones the subsystems individually earned, restated
+so one campaign exercises them all:
 
 - **step monotonicity** — ``model_step`` never goes backward in
   response order, except across an audited rollback;
@@ -119,6 +117,83 @@ def check_budget_one(compiles: Dict[str, int]) -> List[Violation]:
                     {"program": name, "compiles": int(count)},
                 )
             )
+    return violations
+
+
+# Events that terminate a candidate's journey vs. annotate it.
+_AUDIT_EVENTS = frozenset({
+    "promoted", "rejected", "rolled_back", "rollback_failed",
+    "promotion_deferred", "promotion_superseded", "curriculum_updated",
+    "curriculum_update_failed", "candidate_vanished",
+})
+
+
+def check_audit_log(path: str | Path) -> List[Violation]:
+    """``promotions.jsonl`` must read back as a consistent state
+    machine: known events, promoted steps strictly ascending, every
+    rollback demoting to a step that actually served (a previously
+    promoted step), and no superseded candidate later claimed as
+    promoted."""
+    from marl_distributedformation_tpu_torch.pipeline.promote import PromotionLog
+
+    violations: List[Violation] = []
+    try:
+        records = PromotionLog.read(path)
+    except Exception as e:  # noqa: BLE001 — unparseable log IS the trip
+        return [
+            Violation(
+                "audit_log", f"promotions.jsonl unreadable: {e!r}",
+                {"path": str(path)},
+            )
+        ]
+    promoted_steps: List[int] = []
+    superseded: set = set()
+    for i, rec in enumerate(records):
+        event = rec.get("event")
+        if event not in _AUDIT_EVENTS:
+            violations.append(
+                Violation(
+                    "audit_log",
+                    f"line {i}: unknown event {event!r}",
+                    {"line": i},
+                )
+            )
+            continue
+        step = rec.get("step")
+        if event == "promoted":
+            if step in superseded:
+                violations.append(
+                    Violation(
+                        "audit_log",
+                        f"line {i}: step {step} promoted AFTER being "
+                        "superseded — a never-served candidate became "
+                        "the baseline",
+                        {"line": i, "step": step},
+                    )
+                )
+            if promoted_steps and step <= promoted_steps[-1]:
+                violations.append(
+                    Violation(
+                        "audit_log",
+                        f"line {i}: promoted step {step} does not ascend "
+                        f"past {promoted_steps[-1]}",
+                        {"line": i, "step": step},
+                    )
+                )
+            promoted_steps.append(step)
+        elif event == "promotion_superseded":
+            superseded.add(step)
+        elif event == "rolled_back":
+            to_step = rec.get("to_step")
+            if to_step not in promoted_steps:
+                violations.append(
+                    Violation(
+                        "audit_log",
+                        f"line {i}: rolled back to step {to_step}, which "
+                        "was never promoted",
+                        {"line": i, "to_step": to_step},
+                    )
+                )
     return violations
 
 

@@ -1,8 +1,7 @@
 """LaneWatchdog: self-healing supervision for long-lived host lanes.
 
-Counterpart of the JAX package's ``chaos/watchdog.py``, the same code. The
-pipeline it names below is not ported yet (ROADMAP A13):
-:meth:`LaneWatchdog.watch_pipeline` raises naming it; the fleet's workers
+Counterpart of the JAX package's ``chaos/watchdog.py``, the same code: the
+pipeline's loop (:meth:`LaneWatchdog.watch_pipeline`), the fleet's workers
 (:meth:`LaneWatchdog.watch_fleet`), Sebulba's lanes
 (``SebulbaDriver.attach_watchdog``) and any lane registered by hand are
 supervised.
@@ -126,11 +125,14 @@ class LaneWatchdog:
         return lane
 
     def watch_pipeline(self, pipeline: Any) -> Lane:
-        """Supervise an ``AlwaysLearningPipeline``'s run loop. The
-        pipeline is not ported yet: raises naming ROADMAP A13."""
-        raise NotImplementedError(
-            "the always-learning pipeline is not ported yet (ROADMAP A13: "
-            "pipeline/); register its lane with register() once it is"
+        """Supervise an ``AlwaysLearningPipeline``'s run loop (the lane
+        the storm wedges): heartbeat from the loop body, restart via
+        ``restart_loop`` (abandon-and-replace)."""
+        return self.register(
+            "pipeline_loop",
+            pipeline.heartbeat,
+            pipeline.loop_alive,
+            pipeline.restart_loop,
         )
 
     def watch_fleet(self, router: Any) -> List[Lane]:

@@ -13,8 +13,10 @@ fallback.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Dict, Optional, Tuple
+import threading
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -34,19 +36,63 @@ FUSED_SMEM_MAX_N = (
 )
 
 # Launch counts, one plain integer per kernel; callers reset them to 0.
+# Several threads launch at once in one process (a trainer, the gate and
+# the serving replicas), so every addition takes the lock.
 LAUNCHES: Dict[str, int] = {"knn_fused": 0, "knn_tiled": 0}
+_COUNT_LOCK = threading.Lock()
+# A capture launches nothing: what a thread's capture records goes to that
+# thread's tally (``train/capture.py``), never to ``LAUNCHES``.
+_CAPTURE = threading.local()
+# The owners' counts a thread's launches also go to (``counted_for``).
+_OWNERS = threading.local()
+
+
+def _add(name: str, count: int) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[name] += count
+        for tally in getattr(_OWNERS, "tallies", ()):
+            tally[name] += count
+
+
+@contextlib.contextmanager
+def counted_for(tally: Dict[str, int]) -> Iterator[Dict[str, int]]:
+    """Within the block, each launch the calling thread makes, eagerly or
+    by a replay (``count_replay``), is also added to ``tally``: one
+    owner's own count where several owners launch in one process (a
+    trainer and the gate). Blocks nest; each tally gets its launches."""
+    for name in LAUNCHES:
+        tally.setdefault(name, 0)
+    outer = getattr(_OWNERS, "tallies", ())
+    _OWNERS.tallies = (*outer, tally)
+    try:
+        yield tally
+    finally:
+        _OWNERS.tallies = outer
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def count_replay(launches: Dict[str, int]) -> None:
     """A replay of a captured CUDA graph launches each kernel the graph
     holds again: add the graph's ``launches`` (``train/capture.py``)."""
     for name, count in launches.items():
-        LAUNCHES[name] += count
+        _add(name, count)
+
+
+def begin_capture_tally() -> None:
+    """From here the calling thread's launches on a capturing stream are
+    recorded into its tally (``end_capture_tally``)."""
+    _CAPTURE.tally = dict.fromkeys(LAUNCHES, 0)
+
+
+def end_capture_tally() -> Dict[str, int]:
+    """The kernels the calling thread's capture recorded, by name."""
+    tally, _CAPTURE.tally = getattr(_CAPTURE, "tally", None), None
+    return tally or dict.fromkeys(LAUNCHES, 0)
 
 
 _typed_lib: Optional[ctypes.CDLL] = None
@@ -134,7 +180,11 @@ def _launch(
         )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
-    LAUNCHES[name] += 1
+    tally = getattr(_CAPTURE, "tally", None)
+    if tally is not None and torch.cuda.is_current_stream_capturing():
+        tally[name] += 1
+    else:
+        _add(name, 1)
     return idx, off, dist
 
 

@@ -69,7 +69,10 @@ from marl_distributedformation_tpu_torch.scenarios.params import (
 from marl_distributedformation_tpu_torch.scenarios.registry import (
     get_scenario,
 )
-from marl_distributedformation_tpu_torch.train.capture import PhaseGraph
+from marl_distributedformation_tpu_torch.train.capture import (
+    PhaseGraph,
+    own_stream,
+)
 
 Tensor = torch.Tensor
 
@@ -192,6 +195,9 @@ class EpisodeProgram:
         self.reset_gen = torch.Generator(device=dev)
         self.act_gen = torch.Generator(device=dev)
         self.scenario_gen = torch.Generator(device=dev)
+        # The step captures and replays on the program's own stream
+        # (train/capture.py: C6).
+        self.stream = own_stream(self, dev)
         self._built_for: Optional[Tuple] = None
 
     # -- the build ---------------------------------------------------------
@@ -233,6 +239,7 @@ class EpisodeProgram:
             signature=(self._weights, copies),
             subsystem=getattr(self.guard, "subsystem", None),
             program=getattr(self.guard, "name", None),
+            stream=self.stream,
         )
 
     def _streams(self) -> ScenarioStreams:

@@ -19,6 +19,11 @@ Counterpart of the single-engine modes of the repository's
     python -m marl_distributedformation_tpu_torch.serve logs/run1 \\
         --fleet --replicas 2 --port 8100
 
+    # named model lanes over one fleet (serving/tenancy/): each lane serves
+    # the newest checkpoint of its directory and hot-reloads from it
+    python -m marl_distributedformation_tpu_torch.serve --fleet \\
+        --tenants formation-a=logs/a/promoted,formation-b=logs/b/promoted
+
 The server is the in-process stack of ``serving/`` (the bucketed engine,
 one CUDA graph a rung on the card; the micro-batching scheduler; the
 hot-reload registry), or with ``--fleet`` the fleet of ``serving/fleet/``
@@ -31,11 +36,15 @@ pass both. A GNN checkpoint reads its ``knn_k`` and ``goal_in_obs`` from
 the run's ``config.json`` beside the checkpoints, which the port's trainer
 writes.
 
-Tenant lanes, the sharded and bf16 rungs, the trace recorder and the
-serving benches (``--tenants``, ``--sharded``, ``--bf16``,
-``--mesh-devices``, ``--record-trace``, ``--slo-bench``,
-``--elastic-bench`` and their knobs) are not ported yet: each exits naming
-ROADMAP A13.
+``--tenants NAME=DIR,...`` (with ``--fleet``) serves named lanes: each
+lane's architecture is read from its newest checkpoint, so same-arch lanes
+share one router group and its captured rungs, and a GNN lane reads its
+env params from the ``config.json`` of its run (the directory or its
+parent). Without ``--port`` or ``--watch`` it prints the tenant smoke's one
+JSON line. The sharded and bf16 rungs, the trace recorder and the serving
+benches (``--sharded``, ``--bf16``, ``--mesh-devices``,
+``--record-trace``, ``--slo-bench``, ``--elastic-bench`` and their knobs)
+are not ported yet: each exits naming ROADMAP A13.
 """
 
 from __future__ import annotations
@@ -49,7 +58,6 @@ from pathlib import Path
 # serve_policy.py flags the port does not serve yet, each refused naming
 # the ROADMAP item.
 UNPORTED_FLAGS = {
-    "--tenants": str,
     "--sharded": "store_true",
     "--bf16": "store_true",
     "--mesh-devices": int,
@@ -133,6 +141,12 @@ def _parser() -> argparse.ArgumentParser:
         "--port", type=int,
         help="with --fleet: serve HTTP on this port (0: ephemeral)",
     )
+    parser.add_argument(
+        "--tenants", action="append",
+        help="with --fleet: named model lanes as NAME=DIR pairs "
+        "(comma-joined or repeated); each lane serves DIR's newest "
+        "checkpoint and hot-reloads from DIR",
+    )
     for flag, kind in UNPORTED_FLAGS.items():
         if kind == "store_true":
             parser.add_argument(flag, action="store_true",
@@ -147,9 +161,9 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         value = getattr(args, flag.lstrip("-").replace("-", "_"))
         if value is not None and value is not False:
             raise SystemExit(
-                f"{flag} is not ported yet (ROADMAP A13: tenancy, the "
-                "sharded and bf16 rungs, the trace recorder and the serving "
-                "benches); serve without it"
+                f"{flag} is not ported yet (ROADMAP A13: the sharded and "
+                "bf16 rungs, the trace recorder and the serving benches); "
+                "serve without it"
             )
 
 
@@ -324,9 +338,191 @@ def _run_fleet(args, device) -> int:
     return 0
 
 
+def _parse_tenants(chunks) -> list:
+    """``NAME=DIR`` pairs from repeated or comma-joined --tenants values."""
+    lanes = []
+    seen = set()
+    for chunk in chunks:
+        for item in chunk.split(","):
+            item = item.strip()
+            if not item:
+                continue
+            name, sep, directory = item.partition("=")
+            if not sep or not name or not directory:
+                raise SystemExit(
+                    f"--tenants wants NAME=DIR pairs, got {item!r}"
+                )
+            if name in seen:
+                raise SystemExit(f"--tenants declares {name!r} twice")
+            seen.add(name)
+            lanes.append((name, directory))
+    if not lanes:
+        raise SystemExit("--tenants got no NAME=DIR pairs")
+    return lanes
+
+
+def _lane_spec(name: str, lane_dir: str, agents):
+    """The ``TenantSpec`` of one ``--tenants`` lane, its architecture read
+    from the directory's newest checkpoint and, where there is one, its
+    env params from its run's ``config.json`` (the directory's or its
+    parent's: a ``promoted/`` directory sits inside its run's)."""
+    from marl_distributedformation_tpu_torch.compat.policy import (
+        infer_hidden,
+        load_checkpoint_raw,
+    )
+    from marl_distributedformation_tpu_torch.envs import spec_for_params
+    from marl_distributedformation_tpu_torch.serving.tenancy import (
+        TenantSpec,
+    )
+    from marl_distributedformation_tpu_torch.utils.checkpoint import (
+        latest_checkpoint,
+    )
+
+    path = latest_checkpoint(Path(lane_dir))
+    if path is None:
+        raise SystemExit(
+            f"--tenants {name}={lane_dir}: no rl_model_*_steps"
+            ".msgpack checkpoint there to serve"
+        )
+    raw = load_checkpoint_raw(path)
+    policy_cls = raw.get("policy", "MLPActorCritic")
+    hidden = infer_hidden(raw["params"]["params"], policy_cls)
+    env, overrides = "formation", {}
+    run_params = (_run_env_params(Path(lane_dir))
+                  or _run_env_params(Path(lane_dir).parent))
+    if run_params is not None:
+        env = spec_for_params(run_params).name
+        overrides = {f: getattr(run_params, f)
+                     for f in ("obs_mode", "knn_k", "goal_in_obs")
+                     if hasattr(run_params, f)}
+        agents = agents or run_params.num_agents
+    try:
+        return TenantSpec(
+            model_id=name,
+            env=env,
+            policy=policy_cls,
+            hidden=tuple(hidden) if hidden else (64, 64),
+            promoted_dir=str(lane_dir),
+            num_agents=agents,
+            env_overrides=overrides,
+        )
+    except ValueError as e:
+        raise SystemExit(f"--tenants {name}: {e}") from e
+
+
+def _run_tenants(args, device) -> int:
+    """The --tenants serving path: named model lanes over ONE fleet
+    (``serving/tenancy/``). Same-arch lanes land in one router group
+    (shared captured rungs) and distinct archs get their own: the smoke's
+    ``shared_rung_compiles`` census is the receipt."""
+    from marl_distributedformation_tpu_torch.serving.fleet import (
+        FleetFrontend,
+    )
+    from marl_distributedformation_tpu_torch.serving.tenancy import (
+        TenantDirectory,
+        run_tenant_smoke,
+        tenant_fleet_from_directory,
+    )
+
+    pairs = _parse_tenants(args.tenants)
+    buckets = tuple(int(b) for b in args.buckets.split(","))
+    directory = TenantDirectory(
+        _lane_spec(name, lane_dir, args.agents) for name, lane_dir in pairs)
+    fleet = tenant_fleet_from_directory(
+        directory,
+        poll_interval_s=args.poll_s,
+        device=device,
+        num_replicas=args.replicas,
+        devices=None if args.device in (None, "cuda") else [device],
+        buckets=buckets,
+        window_ms=args.window_ms,
+        max_queue=args.queue,
+        watch=True,
+    )
+    groups = directory.arch_groups()
+    print(
+        f"[serve] tenant fleet: {len(directory)} lanes in "
+        f"{len(groups)} arch group(s) — "
+        + "; ".join(
+            f"{arch}: {', '.join(s.model_id for s in specs)}"
+            for arch, specs in groups.items()
+        ),
+        file=sys.stderr,
+    )
+    frontend = None
+    try:
+        # Every rung of every group built (captured on the card) before
+        # any traffic.
+        fleet.warmup()
+        fleet.start()
+        if args.port is not None:
+            # The frontend speaks the tenant fleet's surface: submits
+            # carry model_id, /v1/metrics reports per-lane gauges.
+            frontend = FleetFrontend(fleet, port=args.port).start()
+            print(f"[serve] tenant frontend listening on {frontend.url}",
+                  file=sys.stderr)
+        if args.smoke or (args.port is None and not args.watch):
+            report = run_tenant_smoke(
+                fleet,
+                duration_s=args.duration,
+                clients_per_lane=max(1, args.clients // len(pairs)),
+                deterministic=not args.stochastic,
+                warmup=False,
+            )
+            report["buckets"] = ",".join(str(b) for b in buckets)
+            report["device"] = str(device)
+            print(json.dumps(report), flush=True)
+            starved = [name for name, _ in pairs
+                       if report[f"model_{name}__requests_ok"] == 0]
+            wiggled = [name for name, _ in pairs
+                       if report[f"model_{name}__step_monotonic_violations"]
+                       > 0]
+            if starved or wiggled:
+                print(
+                    f"[serve] tenant smoke failing — lanes served 0: "
+                    f"{starved}; lanes non-monotonic: {wiggled}",
+                    file=sys.stderr,
+                )
+                return 1
+        else:
+            print("[serve] tenant fleet serving; Ctrl-C to stop",
+                  file=sys.stderr)
+            while True:
+                time.sleep(10.0)
+                steps = fleet.lane_steps()
+                print(
+                    "[serve] "
+                    + " ".join(f"{mid}@{step}"
+                               for mid, step in sorted(steps.items()))
+                    + f" healthy={fleet.healthy_replicas}/"
+                    f"{len(fleet.replicas)}",
+                    file=sys.stderr,
+                )
+    except KeyboardInterrupt:
+        print("[serve] interrupted; shutting down", file=sys.stderr)
+    finally:
+        if frontend is not None:
+            frontend.stop()
+        fleet.stop()
+    return 0
+
+
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     _refuse_unported(args)
+    if args.tenants:
+        if not args.fleet:
+            raise SystemExit("--tenants requires --fleet")
+        if args.log_dir or args.init_policy:
+            raise SystemExit(
+                "--tenants names each lane's checkpoint dir itself; drop "
+                "the positional log_dir / --init-policy"
+            )
+        if args.scenario:
+            raise SystemExit(
+                "--tenants does not combine with --scenario (each lane "
+                "serves its own env's rows)"
+            )
     if (args.port is not None or args.replicas is not None) \
             and not args.fleet:
         raise SystemExit("--port/--replicas require --fleet")
@@ -352,6 +548,8 @@ def main(argv=None) -> int:
         except ValueError as e:
             raise SystemExit(str(e)) from e
     device = resolve_device(args.device)
+    if args.tenants:
+        return _run_tenants(args, device)
     if args.fleet:
         return _run_fleet(args, device)
 

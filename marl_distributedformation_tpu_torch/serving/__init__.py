@@ -21,9 +21,15 @@
   ``FleetReloadCoordinator`` (poll-once batch-barrier swap, globally
   step-monotonic), ``FleetFrontend`` (stdlib HTTP/JSON), ``FleetMetrics``,
   ``run_fleet_smoke``.
+- ``serving.tenancy`` — named model lanes over one fleet:
+  ``TenantDirectory`` declares lanes (env, architecture, SLO class,
+  promoted dir), ``TenantFleet`` serves them — same-arch lanes share each
+  replica's captured rungs, per-lane admission queues, per-lane reload
+  coordinators with per-model step monotonicity, ``run_tenant_smoke`` for
+  the isolation evidence.
 
-The sharded engine, tenancy, elastic capacity and the mesh are not ported
-yet (ROADMAP A13).
+The sharded engine, elastic capacity and the mesh are not ported yet
+(ROADMAP A13).
 """
 
 from marl_distributedformation_tpu_torch.serving.autotune import (

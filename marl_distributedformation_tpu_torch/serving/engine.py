@@ -53,7 +53,6 @@ from __future__ import annotations
 
 import copy
 import threading
-import weakref
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -61,35 +60,15 @@ import torch
 
 from marl_distributedformation_tpu_torch.analysis.guards import RetraceGuard
 from marl_distributedformation_tpu_torch.models import distributions
-from marl_distributedformation_tpu_torch.train.capture import PhaseGraph
+from marl_distributedformation_tpu_torch.train.capture import (
+    PhaseGraph,
+    own_stream,
+)
 
 # Powers-of-8-ish ladder: adjacent rungs are 8x apart, so padding waste is
 # bounded (worst-case occupancy 1/8 just above a rung) while the build count
 # stays at 4.
 DEFAULT_BUCKETS = (1, 8, 64, 512)
-
-# The CUDA stream each live engine holds, by its handle: no two engines on
-# a card share one (PyTorch hands streams out of a small pool, round
-# robin).
-_ENGINE_STREAMS: "weakref.WeakValueDictionary[int, Any]" = (
-    weakref.WeakValueDictionary())
-_STREAMS_LOCK = threading.Lock()
-
-
-def _own_stream(engine: "BucketedPolicyEngine") -> torch.cuda.Stream:
-    """A stream no other live engine holds. The engine's rungs are captured
-    and replayed on it, so each engine's captured GEMMs write a cuBLAS
-    workspace of their own: fleet replicas on one card replay at once, and
-    two graphs replaying at once over one workspace can corrupt each
-    other's GEMMs or wait on each other forever."""
-    with _STREAMS_LOCK:
-        for _ in range(256):
-            stream = torch.cuda.Stream(engine.device)
-            if stream.cuda_stream not in _ENGINE_STREAMS:
-                _ENGINE_STREAMS[stream.cuda_stream] = engine
-                return stream
-    raise RuntimeError("no CUDA stream free of another serving engine")
-
 
 class _Rung:
     """One rung: a static input of ``bucket`` rows and the act that reads
@@ -183,8 +162,11 @@ class BucketedPolicyEngine:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._det = torch.ones((), dtype=torch.bool, device=self.device)
         self._rungs: Dict[int, _Rung] = {}
-        self._stream = (_own_stream(self)
-                        if self.device.type == "cuda" else None)
+        # The rungs capture and replay on a stream no other live graph
+        # owner holds (train/capture.py): fleet replicas on one card replay
+        # at once, and graphs replaying at once over one cuBLAS workspace
+        # can corrupt each other's GEMMs or wait on each other forever.
+        self._stream = own_stream(self, self.device)
         self._stage_in: Optional[torch.Tensor] = None
         self._stage_out: Optional[torch.Tensor] = None
         self._lock = threading.Lock()

@@ -38,5 +38,6 @@ from marl_distributedformation_tpu_torch.train.sebulba import (  # noqa: F401
     SebulbaDriver,
     TransferItem,
     TransferQueue,
+    assign_gate_device,
     partition_devices,
 )

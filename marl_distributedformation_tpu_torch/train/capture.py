@@ -19,13 +19,38 @@ k-NN kernel's module, cuBLAS's workspace, the env's device constants). Its
 second call captures it and replays it, and every later call replays. The
 warm-up is a real call of the phase, so training is the same as with every
 call replayed, and a kernel's launch count stays what the run launched: a
-capture launches nothing, so the counts it adds are taken back, and every
-replay adds the launches the graph holds (``ops/knn_cuda.count_replay``).
+capture launches nothing, so what it records goes to the capturing
+thread's tally (``ops/knn_cuda.begin_capture_tally``), and every replay
+adds the launches the graph holds (``ops/knn_cuda.count_replay``).
 
 A failed capture or replay raises; nothing falls back to eager launches.
 The generators a phase draws from are registered with its graph, so that
 each replay draws the next numbers of their streams, as the eager calls
 would.
+
+Every owner of graphs (a trainer, a population, each Sebulba lane, the
+matrix program, each serving engine) captures them on a stream of its own,
+from ``own_stream``: a captured GEMM writes the cuBLAS workspace of the
+stream it was captured on, so two owners whose graphs replay at once (an
+always-learning process replays the trainer's, the gate's and every
+replica's together) must not share PyTorch's one capture stream. A graph
+replays on its owner's stream, which first waits for the caller's stream;
+the caller's stream then waits for it, so the caller reads the graph's
+outputs in order.
+
+A capture does not enter ``torch.cuda.graph``, whose start synchronizes
+the device and empties the allocator's cache: in a process of several
+owners that waits for every other owner's queued work (the gate's and the
+fleet's captures waited seconds behind a trainer's queued chunks). The
+capture stream waits for the caller's stream instead. The cache is emptied, after a synchronize, only when it holds
+more than the device has free: a graph's private pool grows only into
+free memory, so then the cache holds most of what the capture could use
+(a process that built many graphs ran out of memory when it was never
+emptied); otherwise emptying it would at most double the room, at the
+price of that wait (a capture failed with ``CUBLAS_STATUS_EXECUTION_FAILED``
+when the cache was emptied without it). Captures take one lock, one at a
+time in the process, so the cache is never emptied under another
+thread's capture.
 
 A phase named with a ``subsystem`` and a ``program`` is a program of the
 ledger (``obs/ledger.py``): it registers at its build (the capture, with
@@ -37,8 +62,10 @@ dispatch. None of this happens inside the captured region.
 from __future__ import annotations
 
 import ctypes
+import threading
 import time
-from typing import Callable, Dict, Optional, Sequence
+import weakref
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -49,6 +76,36 @@ from marl_distributedformation_tpu_torch.analysis.guards import (
 )
 from marl_distributedformation_tpu_torch.obs.ledger import get_ledger
 from marl_distributedformation_tpu_torch.ops import knn_cuda
+
+
+# The capture stream each live graph owner holds, by its handle: no two
+# owners on a card share one (PyTorch hands streams out of a pool of 32 a
+# priority, round robin).
+_OWNED_STREAMS: "weakref.WeakValueDictionary[int, Any]" = (
+    weakref.WeakValueDictionary())
+_STREAMS_LOCK = threading.Lock()
+# One capture at a time in the process (see the module docstring).
+_CAPTURE_LOCK = threading.Lock()
+
+
+def own_stream(owner: Any, device: Any) -> Optional[torch.cuda.Stream]:
+    """A CUDA stream on ``device`` that no other live owner holds, held
+    for ``owner`` until it is garbage collected (an owner may take several,
+    one a lane); None off the card. See the module docstring. The streams
+    come from PyTorch's pool, so at most 32 owners' streams on a device
+    are alive at once; one more raises."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    with _STREAMS_LOCK:
+        for _ in range(256):
+            stream = torch.cuda.Stream(device)
+            if stream.cuda_stream not in _OWNED_STREAMS:
+                _OWNED_STREAMS[stream.cuda_stream] = owner
+                return stream
+    raise RuntimeError(
+        f"no CUDA stream on {device} free of another graph owner: "
+        f"{len(_OWNED_STREAMS)} live owners' streams hold PyTorch's pool")
 
 
 def graph_nodes(graph: "torch.cuda.CUDAGraph") -> int:
@@ -72,10 +129,9 @@ class PhaseGraph:
     counts the capture as a build of the program, for ``signature``.
     ``subsystem`` and ``program`` name it in the ledger (see the module
     docstring); without them it registers nothing. ``stream`` is the
-    stream the capture runs on (default PyTorch's one capture stream): the
-    cuBLAS workspace a captured GEMM writes is the capture stream's, so
-    graphs that replay concurrently on different streams are captured on
-    streams of their own."""
+    owner's stream (``own_stream``), which the graph is captured and
+    replayed on (see the module docstring); a phase that captures needs
+    one."""
 
     def __init__(
         self,
@@ -89,6 +145,9 @@ class PhaseGraph:
         program: Optional[str] = None,
         stream: Optional[torch.cuda.Stream] = None,
     ) -> None:
+        if capture and stream is None:
+            raise ValueError(f"phase {name!r} captures, and needs its "
+                             "owner's stream (own_stream)")
         self.name = name
         self.stream = stream
         self.fn = fn
@@ -143,13 +202,11 @@ class PhaseGraph:
             if self.guard is not None:
                 self.guard.record(*self.signature)
             self._capture()
-            self.graph.replay()
-            knn_cuda.count_replay(self.launches)
+            self._replay()
             self._register(compile_seconds=self.capture_s)
         else:
             t0 = time.perf_counter()
-            self.graph.replay()
-            knn_cuda.count_replay(self.launches)
+            self._replay()
             if ledger is not None:
                 ledger.dispatch(self._dispatch_key, time.perf_counter() - t0)
         self.calls += 1
@@ -193,22 +250,44 @@ class PhaseGraph:
             side.synchronize()
             self.warm_up_s = time.perf_counter() - t0
 
+    def _replay(self) -> None:
+        """The graph on its owner's stream, ordered after the caller's
+        work and before the caller's next."""
+        caller = torch.cuda.current_stream()
+        self.stream.wait_stream(caller)
+        with torch.cuda.stream(self.stream):
+            self.graph.replay()
+        caller.wait_stream(self.stream)
+        knn_cuda.count_replay(self.launches)
+
     def _capture(self) -> None:
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         # A registered generator keeps its state through the capture; each
         # replay then draws from where the generator stands and moves it on.
         for gen in self.generators:
             graph.register_generator_state(gen)
-        counted = dict(knn_cuda.LAUNCHES)
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, stream=self.stream,
-                              capture_error_mode="thread_local"):
-            self.fn()
-        self.capture_s = time.perf_counter() - t0
-        self.launches = {
-            k: knn_cuda.LAUNCHES[k] - counted[k] for k in counted
-        }
-        knn_cuda.LAUNCHES.update(counted)
+        with _CAPTURE_LOCK:
+            knn_cuda.begin_capture_tally()
+            t0 = time.perf_counter()
+            # The cache, and the capture's order (see the module docstring).
+            dev = self.stream.device
+            free, _ = torch.cuda.mem_get_info(dev)
+            cached = (torch.cuda.memory_reserved(dev)
+                      - torch.cuda.memory_allocated(dev))
+            if cached > free:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            self.stream.wait_stream(torch.cuda.current_stream())
+            try:
+                with torch.cuda.stream(self.stream):
+                    graph.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        self.fn()
+                    finally:
+                        graph.capture_end()
+            finally:
+                self.launches = knn_cuda.end_capture_tally()
+            self.capture_s = time.perf_counter() - t0
         self.nodes = graph_nodes(graph)
         graph.instantiate()
         self.graph = graph

@@ -10,6 +10,7 @@ update phases, and host-side plumbing (:class:`TransferQueue`,
 
 from marl_distributedformation_tpu_torch.train.sebulba.driver import (
     SebulbaDriver,
+    assign_gate_device,
     partition_devices,
 )
 from marl_distributedformation_tpu_torch.train.sebulba.queues import (
@@ -23,5 +24,6 @@ __all__ = [
     "SebulbaDriver",
     "TransferItem",
     "TransferQueue",
+    "assign_gate_device",
     "partition_devices",
 ]

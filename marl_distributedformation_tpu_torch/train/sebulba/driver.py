@@ -77,7 +77,10 @@ from marl_distributedformation_tpu_torch.scenarios import (
     ScenarioStreams,
     broadcast_params,
 )
-from marl_distributedformation_tpu_torch.train.capture import PhaseGraph
+from marl_distributedformation_tpu_torch.train.capture import (
+    PhaseGraph,
+    own_stream,
+)
 from marl_distributedformation_tpu_torch.train.iteration import (
     PhasedIteration,
 )
@@ -117,6 +120,25 @@ def partition_devices(
                     for i in range(torch.cuda.device_count()))
     n = max(1, min(int(actor_devices), len(devices) - 1))
     return devices[:n], devices[n:]
+
+
+def assign_gate_device(
+    actor_devices: int = 1, device: DeviceLike = None
+) -> torch.device:
+    """The promotion gate's own device under the Sebulba partition: a
+    device neither the actor slice nor the learner's first device (the one
+    its chunk dispatches on) holds, so gate evals never contend with
+    either lane; on a pool too small to spare one, the last device of the
+    learner slice. With one card that is the learner's own device: an
+    honest time-share, which the supervisor records as ``gate_device``."""
+    actor_slice, learner_slice = partition_devices(actor_devices, device)
+    busy = set(actor_slice) | {learner_slice[0]}
+    dev = torch.device("cuda" if device is None else device)
+    pool = ([torch.device("cuda", i)
+             for i in range(torch.cuda.device_count())]
+            if dev.type == "cuda" else [dev])
+    free = [d for d in pool if d not in busy]
+    return free[-1] if free else learner_slice[-1]
 
 
 def _event(device: torch.device) -> Optional[torch.cuda.Event]:
@@ -161,10 +183,6 @@ class _Snapshot:
         self.tensors = [torch.empty_like(p, device=device) for p in params]
         self.written = _event(device)
         self.read = _event(device)
-
-
-def _stream_of(device: torch.device):
-    return (torch.cuda.Stream(device) if device.type == "cuda" else None)
 
 
 def _on(stream):
@@ -252,20 +270,24 @@ class SebulbaDriver(Trainer):
         self.learner_guard = RetraceGuard("sebulba_learner",
                                           max_traces=budget,
                                           subsystem="sebulba")
+        # Each lane captures and replays its graphs on its own stream, one
+        # no other graph owner holds (train/capture.py: C6): the actor's
+        # and the learner's graphs replay at once.
+        self._actor_stream = own_stream(self, self.actor_device)
+        self._learner_stream = own_stream(self, self.device)
         self._actor_phase = PhaseGraph(
             "actor_rollout", self._actor_step, self._actor_generators,
             self.capture, subsystem="sebulba",
-            program="sebulba_actor_rollout",
+            program="sebulba_actor_rollout", stream=self._actor_stream,
         )
         # The learner draws nothing: its permutations came with the rows.
         self._learner_phases = tuple(
             PhaseGraph(f"learner_{name}", fn, (), self.capture,
-                       subsystem="sebulba", program=f"sebulba_learner_{name}")
+                       subsystem="sebulba", program=f"sebulba_learner_{name}",
+                       stream=self._learner_stream)
             for name, fn in (("minibatch", learner.minibatch),
                              ("end", learner.end))
         )
-        self._actor_stream = _stream_of(self.actor_device)
-        self._learner_stream = _stream_of(self.device)
         self._queue = TransferQueue(config.transfer_queue_depth)
         self._bus = ParamBus()
         self._slots: List[_Slot] = []

@@ -68,7 +68,10 @@ from marl_distributedformation_tpu_torch.envs import spec_for_params
 from marl_distributedformation_tpu_torch.models.population import (
     PopulationModel,
 )
-from marl_distributedformation_tpu_torch.train.capture import PhaseGraph
+from marl_distributedformation_tpu_torch.train.capture import (
+    PhaseGraph,
+    own_stream,
+)
 from marl_distributedformation_tpu_torch.train.iteration import (
     ENV_FIELDS,
     PopulationIteration,
@@ -185,10 +188,13 @@ class SweepTrainer:
         ), config)
         self.capture = capture and self.device.type == "cuda"
         it = self._iteration
+        # The population's own capture stream (train/capture.py: C6).
+        self.capture_stream = own_stream(self, self.device)
         self._phases = tuple(
             PhaseGraph(name, fn, self.generators, self.capture,
                        subsystem=self.ledger_subsystem,
-                       program=f"{self.ledger_subsystem}_{name}")
+                       program=f"{self.ledger_subsystem}_{name}",
+                       stream=self.capture_stream)
             for name, fn in (("rollout", it.rollout),
                              ("minibatch", it.minibatch), ("end", it.end))
         )

@@ -105,7 +105,10 @@ from marl_distributedformation_tpu_torch.scenarios import (
 from marl_distributedformation_tpu_torch.scenarios.params import (
     stack_params,
 )
-from marl_distributedformation_tpu_torch.train.capture import PhaseGraph
+from marl_distributedformation_tpu_torch.train.capture import (
+    PhaseGraph,
+    own_stream,
+)
 from marl_distributedformation_tpu_torch.train.iteration import (
     ENV_FIELDS,
     PhasedIteration,
@@ -403,9 +406,13 @@ class Trainer:
         ), config)
         self.capture = capture and self.device.type == "cuda"
         it = self._iteration
+        # The three phases capture and replay on the trainer's own stream
+        # (train/capture.py: C6).
+        self.capture_stream = own_stream(self, self.device)
         self._phases = tuple(
             PhaseGraph(name, fn, generators, self.capture,
-                       subsystem="trainer", program=f"train_{name}")
+                       subsystem="trainer", program=f"train_{name}",
+                       stream=self.capture_stream)
             for name, fn in (("rollout", it.rollout),
                              ("minibatch", it.minibatch), ("end", it.end))
         )
@@ -437,6 +444,11 @@ class Trainer:
         self.recovery_ladder: Optional[RecoveryLadder] = None
         self._recovery_verdict: Optional[str] = None
         self._last_good_ckpt: Optional[Path] = None
+        # The checkpoint-durability hook (the always-learning pipeline sets
+        # it to nudge its CheckpointStream): called with the path AFTER the
+        # atomic rename lands; for an async write that is on the writer
+        # thread, when the file is discoverable, not at submit time.
+        self.on_checkpoint: Optional[Callable[[Any], None]] = None
         self._rollback_anchor: Optional[Dict[str, Any]] = None
         if config.recovery:
             self.recovery_ladder = RecoveryLadder(
@@ -1246,6 +1258,8 @@ class Trainer:
         if self.config.keep_last_n > 0:
             prune_checkpoints(self.log_dir, self.config.keep_last_n,
                               protect=self._protected_paths())
+        if self.on_checkpoint is not None:
+            self.on_checkpoint(path)
         return str(path)
 
     def save_async(self, writer: AsyncCheckpointWriter) -> str:
@@ -1254,9 +1268,14 @@ class Trainer:
         to the host and written by ``writer``'s thread. The same bytes as
         ``save``."""
         path = checkpoint_path(self.log_dir, self.num_timesteps)
+        on_checkpoint = self.on_checkpoint
 
         def on_done(p: Path) -> None:
+            # On the writer thread, after the rename: the file passed the
+            # non-finite gate and is discoverable.
             self._last_good_ckpt = Path(p)
+            if on_checkpoint is not None:
+                on_checkpoint(p)
 
         writer.submit(
             path,

@@ -340,8 +340,16 @@ def test_watchdog_restarts_a_wedged_then_a_dead_lane(registry, tracer):
     assert registry.snapshot()["pipeline_restarts_total"] == 2.0
     assert any("lane_restart" in p.name for p in tracer.flightrec.dumps())
     lane.generation += 1  # retire the lane's thread
-    with pytest.raises(NotImplementedError, match="A13"):
-        watchdog.watch_pipeline(object())
+    # The pipeline's loop registers as a lane of its own (it raised naming
+    # A13 until the pipeline was ported; test_torch_pipeline.py restarts a
+    # real one).
+    stub = type("Loop", (), {"heartbeat": chaos.Heartbeat("pipeline_loop"),
+                             "loop_alive": lambda self: True,
+                             "restart_loop": lambda self: None})()
+    registered = watchdog.watch_pipeline(stub)
+    assert registered.name == "pipeline_loop"
+    assert registered.heartbeat is stub.heartbeat
+    assert watchdog.lanes["pipeline_loop"] is registered
 
 
 def test_watchdog_restarts_a_fleet_worker_killed_by_the_seeded_seam(plane):

@@ -386,7 +386,10 @@ def test_rollout_graph_equals_eager_plain_rollout(cuda):
         compute_obs,
         reset_batch,
     )
-    from marl_distributedformation_tpu_torch.train.capture import PhaseGraph
+    from marl_distributedformation_tpu_torch.train.capture import (
+        PhaseGraph,
+        own_stream,
+    )
 
     base = EnvParams(num_agents=100, obs_mode="knn", knn_k=4, max_steps=4)
     model = _gnn(base).to(cuda)
@@ -403,7 +406,8 @@ def test_rollout_graph_equals_eager_plain_rollout(cuda):
             out[:] = collect_rollout(model, state, obs, gen, params, 10)
 
         if impl == "auto":
-            graph = PhaseGraph("rollout", rollout, [gen])
+            graph = PhaseGraph("rollout", rollout, [gen],
+                               stream=own_stream(rollout, cuda))
             graph()
             gen.set_state(start)
             graph()
@@ -517,7 +521,10 @@ def test_population_rollout_graph_follows_every_generator(cuda):
     from marl_distributedformation_tpu_torch.models.population import (
         PopulationModel,
     )
-    from marl_distributedformation_tpu_torch.train.capture import PhaseGraph
+    from marl_distributedformation_tpu_torch.train.capture import (
+        PhaseGraph,
+        own_stream,
+    )
 
     params = EnvParams(num_agents=100, obs_mode="knn", knn_k=4, max_steps=4)
     pop = PopulationModel([
@@ -535,7 +542,8 @@ def test_population_rollout_graph_follows_every_generator(cuda):
         out[:] = collect_rollout(pop, state, obs, gens, params, 10,
                                  forward=PopulationModel.rollout_forward)
 
-    graph = PhaseGraph("rollout", rollout, gens)
+    graph = PhaseGraph("rollout", rollout, gens,
+                       stream=own_stream(rollout, cuda))
     graph()  # the warm-up, eager
     for g, s in zip(gens, start):
         g.set_state(s)
@@ -1169,14 +1177,18 @@ def test_census_from_a_captured_phase(cuda, tmp_path):
         load_census,
         set_ledger,
     )
-    from marl_distributedformation_tpu_torch.train.capture import PhaseGraph
+    from marl_distributedformation_tpu_torch.train.capture import (
+        PhaseGraph,
+        own_stream,
+    )
 
     previous = set_ledger(ProgramLedger())
     try:
         x = torch.randn((256, 256), device=cuda)
         y = torch.empty_like(x)
         phase = PhaseGraph("mm", lambda: torch.mm(x, x, out=y),
-                           subsystem="test", program="mm")
+                           subsystem="test", program="mm",
+                           stream=own_stream(x, cuda))
         for _ in range(4):
             phase()
         from marl_distributedformation_tpu_torch.obs.ledger import (
@@ -1313,3 +1325,57 @@ def test_guard_transfers_raises_on_an_item_in_a_guarded_dispatch(
     assert torch.cuda.get_sync_debug_mode() == 0
     trainer.run_iteration()
     assert trainer.retrace_guard.count == 1
+
+
+def test_graph_owners_alive_at_once_hold_distinct_capture_streams(
+        cuda, tmp_path):
+    """C6: a trainer, a matrix program and two serving engines alive at
+    once capture on four distinct streams (each owner's captured GEMMs
+    write a cuBLAS workspace of their own), their graphs are captured on
+    them, and each still gives its eager result after the others
+    replayed."""
+    import copy
+
+    import numpy as np
+
+    from marl_distributedformation_tpu_torch.compat.policy import (
+        LoadedPolicy,
+    )
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.models import MLPActorCritic
+    from marl_distributedformation_tpu_torch.scenarios import MatrixProgram
+    from marl_distributedformation_tpu_torch.serving import (
+        BucketedPolicyEngine,
+    )
+
+    params = EnvParams(num_agents=3, max_steps=8)
+    model = MLPActorCritic(params.obs_dim,
+                           generator=torch.Generator().manual_seed(0))
+    trainer = _trainer(tmp_path, params, 8, model)
+    for _ in range(3):  # warm-up, capture, a replay
+        trainer.run_iteration()
+    # The others hold a copy: the trainer's model moves on as it trains.
+    frozen = copy.deepcopy(trainer.model).eval()
+    weights = frozen.state_dict()
+    program = MatrixProgram(frozen, params, num_formations=4, device=cuda)
+    clean = program.evaluate_clean(weights)
+    policy = LoadedPolicy(frozen)
+    engines = [BucketedPolicyEngine(policy, buckets=(1, 8), seed=i)
+               for i in range(2)]
+    obs = np.random.default_rng(0).standard_normal(
+        (5, params.obs_dim)).astype(np.float32)
+    acts = [e.act(obs) for e in engines]
+    streams = [trainer.capture_stream, program.run.__self__.stream,
+               engines[0]._stream, engines[1]._stream]
+    assert all(s is not None for s in streams)
+    assert len({s.cuda_stream for s in streams}) == 4
+    assert all(p.stream is trainer.capture_stream for p in trainer._phases)
+    assert program.run.__self__._step.stream is streams[1]
+    for engine, stream in zip(engines, streams[2:]):
+        assert engine.rung(8).graph.stream is stream
+    # Interleaved replays keep every owner's results.
+    trainer.run_iteration()
+    assert program.evaluate_clean(weights) == clean
+    for engine, want in zip(engines, acts):
+        np.testing.assert_array_equal(engine.act(obs), want)
+    assert program.compile_count == 1

@@ -87,7 +87,12 @@ def test_sources_found():
             "chaos/invariants.py", "serving/fleet/__init__.py",
             "serving/fleet/metrics.py", "serving/fleet/reload.py",
             "serving/fleet/router.py", "serving/fleet/frontend.py",
-            "serving/fleet/smoke.py"} <= rel
+            "serving/fleet/smoke.py", "serving/tenancy/__init__.py",
+            "serving/tenancy/directory.py", "serving/tenancy/fleet.py",
+            "serving/tenancy/smoke.py", "pipeline/__init__.py",
+            "pipeline/stream.py", "pipeline/promote.py", "pipeline/gate.py",
+            "pipeline/rollback.py", "pipeline/supervisor.py",
+            "always_learning.py"} <= rel
     assert (PORT / "csrc" / "knn.cu").exists()
 
 
@@ -160,13 +165,10 @@ JAX = ROOT / "marl_distributedformation_tpu"
 # the port) or the open ROADMAP item that ports it.
 NOT_EXPORTED = {
     "parallel": "A12",
-    "pipeline": "A13",
     # The static linter.
     "analysis": dict.fromkeys((
         "GraftlintConfig", "Violation", "lint_paths", "lint_source",
         "load_config"), "A14"),
-    # It reads the pipeline's audit log.
-    "chaos": {"check_audit_log": "A13"},
     "compat": {"sb3_state_dict_to_flax": "compat.sb3_state_dict_to_torch"},
     "env": {"tree_select": "env.formation._where"},
     "obs": dict.fromkeys((
@@ -176,7 +178,6 @@ NOT_EXPORTED = {
         "CapacityController", "CapacityDecision", "ShardedPolicyEngine",
         "ShardedSpec"), "A13"),
     "train": {
-        "assign_gate_device": "A13",
         "fold_recovery_key": "train.fold_recovery_generator",
         "make_fused_chunk": "train.capture.PhaseGraph",
     },
@@ -292,9 +293,6 @@ for build, needs in ((lambda: FormationRenderer(EnvParams()), "matplotlib"),
 # Injection points the port declares but no port code calls yet: the
 # module that calls each one is still to port, under its ROADMAP item.
 UNCALLED_SEAMS = {
-    "stream.poll": "A13",  # pipeline/stream.py
-    "gate.eval": "A13",  # pipeline/gate.py
-    "pipeline.poll": "A13",  # pipeline/supervisor.py
     "mesh.rpc": "A13",  # serving/mesh/
     "mesh.heartbeat": "A13",
     "mesh.prepare": "A13",
@@ -337,3 +335,96 @@ def test_every_injection_point_has_a_caller_or_an_open_item():
             assert re.search(rf"\*\*{item}\b", open_items), (point, item)
         else:
             assert point in called, f"{point} has no fault_point caller"
+
+
+# ---------------------------------------------------------------------------
+# C6: every graph owner captures on a stream of its own
+# ---------------------------------------------------------------------------
+
+
+def _phase_graph_calls():
+    """``(path, line, keywords)`` of every ``PhaseGraph(...)`` call in the
+    port's package, in ``chip_smoke.py`` and in the port's tests (this
+    file's refused calls aside); a keyword given as the literal ``None``
+    is left out of its call's keywords. A call with ``capture=False``
+    captures nothing and needs no stream."""
+    tests = [path for path in sorted((ROOT / "tests").glob("test_torch_*.py"))
+             if path.name != Path(__file__).name]
+    for path in [*sorted(PORT.rglob("*.py")), ROOT / "chip_smoke.py",
+                 *tests]:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Call)
+                    and getattr(node.func, "id",
+                                getattr(node.func, "attr", None))
+                    == "PhaseGraph"):
+                keywords = {
+                    k.arg for k in node.keywords
+                    if not (isinstance(k.value, ast.Constant)
+                            and k.value.value is None)}
+                eager = any(k.arg == "capture"
+                            and isinstance(k.value, ast.Constant)
+                            and k.value.value is False
+                            for k in node.keywords)
+                if not eager:
+                    yield path, node.lineno, keywords
+
+
+def test_every_phase_graph_passes_its_owners_stream():
+    """A graph captured on PyTorch's one process-wide capture stream shares
+    that stream's cuBLAS workspace with every other graph captured there;
+    graphs of different owners replay at once in one process (the trainer,
+    the gate's matrix, the fleet's replicas), so each owner passes a stream
+    of its own (``train.capture.own_stream``), never a literal None."""
+    calls = list(_phase_graph_calls())
+    owners = {path.relative_to(ROOT).as_posix() for path, _, _ in calls}
+    assert {f"{PORT.name}/{owner}" for owner in (
+        "train/trainer.py", "train/sweep.py", "train/sebulba/driver.py",
+        "scenarios/matrix.py", "serving/engine.py")} <= owners, owners
+    assert "chip_smoke.py" in owners, owners
+    missing = [f"{path.relative_to(ROOT)}:{line}"
+               for path, line, kw in calls if "stream" not in kw]
+    assert not missing, f"PhaseGraph without stream=: {missing}"
+
+
+def test_a_capturing_phase_graph_needs_its_owners_stream():
+    """A phase that captures is refused without a stream, when it is built:
+    there is no second way to get one (C6); an eager phase needs none."""
+    from marl_distributedformation_tpu_torch.train.capture import PhaseGraph
+
+    with pytest.raises(ValueError, match="own_stream"):
+        PhaseGraph("rollout", lambda: None)
+    eager = PhaseGraph("rollout", lambda: None, capture=False)
+    eager()
+    assert eager.calls == 1 and eager.stream is None
+
+
+def test_launch_counts_go_to_each_owner_on_its_thread(monkeypatch):
+    """``knn_cuda.counted_for``: a launch (here a replay's) counts in the
+    process's total and in every owner's tally open on the launching
+    thread, nested ones too, and in no other thread's."""
+    import threading
+
+    from marl_distributedformation_tpu_torch.ops import knn_cuda
+
+    monkeypatch.setattr(knn_cuda, "LAUNCHES",
+                        dict.fromkeys(knn_cuda.LAUNCHES, 0))
+    outer, gate, other = {}, {}, {}
+
+    def trainer():
+        with knn_cuda.counted_for(other):
+            for _ in range(5):
+                knn_cuda.count_replay({"knn_fused": 10, "knn_tiled": 0})
+
+    with knn_cuda.counted_for(outer):
+        knn_cuda.count_replay({"knn_fused": 1})
+        thread = threading.Thread(target=trainer)
+        thread.start()
+        with knn_cuda.counted_for(gate):
+            knn_cuda.count_replay({"knn_fused": 7, "knn_tiled": 2})
+        thread.join()
+    knn_cuda.count_replay({"knn_fused": 100})
+    assert other == {"knn_fused": 50, "knn_tiled": 0}
+    assert gate == {"knn_fused": 7, "knn_tiled": 2}
+    assert outer == {"knn_fused": 8, "knn_tiled": 2}
+    assert knn_cuda.LAUNCHES == {"knn_fused": 158, "knn_tiled": 2}

@@ -914,9 +914,10 @@ def test_serve_cli_needs_a_gpu_unless_cpu_is_asked_for(monkeypatch):
 
 @pytest.mark.parametrize("argv", [
     # The first and fourth cases were --fleet, --replicas and --port until
-    # the fleet was ported (test_serve_cli_serves_a_fleet below).
+    # the fleet was ported (test_serve_cli_serves_a_fleet below); the third
+    # was --tenants until tenancy was ported (test_torch_tenancy.py).
     ["--slo-iterations", "3"], ["--slo-passes", "2"],
-    ["--tenants", "a=logs/a"], ["--big-rung", "64"], ["--sharded"],
+    ["--sharded", "--bf16"], ["--big-rung", "64"], ["--sharded"],
     ["--bf16"], ["--mesh-devices", "2"], ["--slo-bench"],
     ["--elastic-bench"], ["--record-trace", "t.jsonl"],
     ["--slo-p95-ms", "20"], ["--load-rps", "10"],
