@@ -1,18 +1,28 @@
 #!/usr/bin/env python3
-"""Times ``gnn100``'s training on one NVIDIA GPU in several trees of this
-repo, to compare two versions of the port on one card:
+"""Times one cell of ``chip_smoke.py`` on one NVIDIA GPU in several trees
+of this repo, to compare two versions of the port on one card:
 
     python3 chip_ab.py TREE [TREE ...]
+    python3 chip_ab.py --cell always100 TREE [TREE ...]
 
 Each tree runs in a process of its own, in the order given (put the two
-versions as A, B, B, A to see the card drift): the tree's own
-``chip_smoke.train_run`` runs ``chip_smoke.GNN100`` (N=100, M=1024, k=4,
-``preset=tpu``) for ``--iterations`` iterations with the iteration
-captured, and its steady seconds an iteration (CUDA events around the
-phases, the warm-up and capture iterations left out) is printed. The last
-line is one JSON object: the card's name and power limit (``nvidia-smi``)
-and, per run, the tree, the steady s/iteration, its rollout and update
-parts and the run's wall. The logs go under each tree's ``logs/``.
+versions as A, B, B, A to see the card drift), through the tree's own
+``chip_smoke.py``:
+
+- ``gnn100`` (the default): ``chip_smoke.train_run`` runs
+  ``chip_smoke.GNN100`` (N=100, M=1024, k=4, ``preset=tpu``) for
+  ``--iterations`` iterations with the iteration captured, and its steady
+  seconds an iteration (CUDA events around the phases, the warm-up and
+  capture iterations left out) is printed;
+- ``always100``: ``chip_smoke.always100`` runs the always-learning
+  pipeline (its trainer, the gate's matrix program, the R=2 fleet under
+  two clients), and the pipeline's promotion latency p50 and p95, the
+  p50 of its gate stage (``gate_eval_s``) and ``gate_eval_steps_per_sec``
+  are printed.
+
+The last line is one JSON object: the card's name and power limit
+(``nvidia-smi``) and, per run, the tree and its numbers. The logs go under
+each tree's ``logs/``.
 """
 
 from __future__ import annotations
@@ -41,6 +51,30 @@ print(json.dumps({
     "iterations": len(trainer.smoke_phase_ms), "wall_s": wall,
     "launches": launches}))
 """
+ALWAYS_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as smoke
+from marl_distributedformation_tpu_torch import always_learning
+main = always_learning.main
+got = {}
+def run(*args, **kwargs):
+    got["report"] = main(*args, **kwargs)
+    return got["report"]
+always_learning.main = run
+rows, _ = smoke.serve_rows()
+t0 = time.perf_counter()
+# always100 reads gnn100's s/iteration only for its printed ratio.
+smoke.always100({"s_iter": float("nan"), "ckpt": None}, rows)
+wall = time.perf_counter() - t0
+report = got["report"]
+print(json.dumps({
+    "promotion_latency_s_p50": report["promotion_latency_s_p50"],
+    "promotion_latency_s_p95": report["promotion_latency_s_p95"],
+    "gate_eval_s_p50": report["promotion_span_breakdown"].get("gate_eval_s"),
+    "gate_eval_steps_per_sec": report["gate_eval_steps_per_sec"],
+    "promotions": report["promotions"], "wall_s": wall}))
+"""
 
 
 def card_line() -> str:
@@ -54,7 +88,11 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("trees", nargs="+", type=Path)
     parser.add_argument("--iterations", type=int, default=20)
+    parser.add_argument("--cell", choices=("gnn100", "always100"),
+                        default="gnn100")
     args = parser.parse_args()
+    child = ([CHILD, str(args.iterations)] if args.cell == "gnn100"
+             else [ALWAYS_CHILD])
     card = card_line()
     print(card)
     runs = []
@@ -64,7 +102,7 @@ def main() -> int:
             print(f"chip_ab: no chip_smoke.py in {tree}", file=sys.stderr)
             return 2
         out = subprocess.run(
-            [sys.executable, "-c", CHILD, str(tree), str(args.iterations)],
+            [sys.executable, "-c", child[0], str(tree), *child[1:]],
             cwd=tree, capture_output=True, text=True, timeout=900)
         sys.stderr.write(out.stderr[-4000:])
         if out.returncode != 0:
@@ -73,11 +111,21 @@ def main() -> int:
                   file=sys.stderr)
             return 1
         lines = out.stdout.strip().splitlines()
-        print("\n".join(line for line in lines if line.startswith("[train]")))
-        run = {"tree": str(tree), **json.loads(lines[-1])}
-        print(f"[ab] {tree.name}: {run['s_iter']:.4f} s/iteration (rollout "
-              f"{run['rollout_s']:.4f} + update {run['update_s']:.4f}), "
-              f"{run['iterations']} iterations in {run['wall_s']:.1f} s")
+        print("\n".join(line for line in lines
+                        if line.startswith(("[train]", "[always]"))))
+        run = {"tree": str(tree), "cell": args.cell, **json.loads(lines[-1])}
+        if args.cell == "gnn100":
+            print(f"[ab] {tree.name}: {run['s_iter']:.4f} s/iteration "
+                  f"(rollout {run['rollout_s']:.4f} + update "
+                  f"{run['update_s']:.4f}), {run['iterations']} iterations "
+                  f"in {run['wall_s']:.1f} s")
+        else:
+            print(f"[ab] {tree.name}: always100 promotion p50 "
+                  f"{run['promotion_latency_s_p50']} s, p95 "
+                  f"{run['promotion_latency_s_p95']} s, gate stage p50 "
+                  f"{run['gate_eval_s_p50']} s, gate "
+                  f"{run['gate_eval_steps_per_sec']} formation-steps/s, "
+                  f"{run['promotions']} promotions, in {run['wall_s']:.1f} s")
         runs.append(run)
     print(json.dumps({"card": card, "runs": runs}))
     return 0

@@ -10,7 +10,8 @@ Phases (any failure exits non-zero):
 2. Hold each k-NN kernel against its plain PyTorch version on the card, at
    the shapes each path gives it — fused: training (M=1024, N=100, k=4),
    eval and populations (M=4096), the matrix (M=256), the falsifier
-   search (M=1600 and 3904), playback (M=1), the promotion gate (M=64);
+   search (M=1600 and 3904), playback (M=1), the promotion gate (M=64),
+   the storm's gate (M=8);
    tiled: training (M=8, N=1024, k=4), eval
    (M=512), populations (M=16) and the matrix (M=32) — and on lattice, duplicate and edge-clipped points (exact ties) and
    masks with fewer than k valid points: ``idx`` and offsets bitwise,
@@ -131,17 +132,17 @@ Phases (any failure exits non-zero):
 9. The robustness matrix, the falsifier search and pursuit-evasion
    (``scenarios/matrix.py``, ``scenarios/adversary.py``, ``envs/pursuit.py``):
    - ``matrix100``: the robustness-matrix CLI in-process on ``gnn100``'s
-     and ``scen100``'s checkpoints, ``clean``, ``wind``, ``storm``,
-     ``sensor_noise``, ``comm_dropout`` x severities 0, 0.5, 1.0 at M=256,
-     full episodes (30 cells): one build (the eval step captured once),
-     ``knn_fused`` 30 x 1003 launches by replay, every severity-0 cell
+     and ``scen100``'s checkpoints, ``clean``, ``wind``, ``storm`` x
+     severities 0, 0.5, 1.0 at M=256, full episodes (18 cells): one build
+     (the eval step captured once), ``knn_fused`` 18 x 1003 launches by
+     replay, every severity-0 cell
      bitwise its checkpoint's clean cell, the ``wind`` 0.5 cell against
      the eager ``eval.evaluate_scenario`` within rtol 1e-5; s a cell
      captured beside the eager evaluation's; ``storm`` 1.0 of both.
    - ``matrix1024``: the same on ``gnn1024``'s checkpoint (``clean``,
      ``storm`` x 0, 1.0 at M=32) through ``knn_tiled``, 4 x 1003 launches.
    - ``adversary100``: the falsifier-search CLI on both checkpoints (4
-     families, grid 6, 4 generations, M=64: P=25, 1600 formations), one
+     families, grid 6, 2 generations, M=64: P=25, 1600 formations), one
      build across both; every falsifier and the highest safe probe below
      it re-evaluated through ``AdversarySearch.evaluate_cells`` (drop
      above the tolerance, and at most it); candidates/s. Then one
@@ -199,11 +200,11 @@ Phases (any failure exits non-zero):
      ``profile=true`` with the actor lane beside them.
    - ``sebulba1024``: ``gnn1024``'s command through Sebulba, 4
      iterations: ``knn_tiled`` launches by replay, the same checks.
-   - ``gnn100``'s command for 14 host-loop iterations, twice from one
+   - ``gnn100``'s command for 8 host-loop iterations, twice from one
      seed: the default run (``GET /metrics`` scraped during it must hold
      the JAX trainer's metric names; its census holds the three phase
      graphs with ``graph_stats()``'s capture seconds and nodes; its last
-     12 iterations turn telemetry and the ledger on and off in turn, for
+     6 iterations turn telemetry and the ledger on and off in turn, for
      their overheads) and ``telemetry=false ledger=false``: the same
      parameters bitwise (C4).
    - ``profile=true profile_iterations=3`` at N=100, M=64: the trace holds
@@ -227,7 +228,7 @@ Phases (any failure exits non-zero):
      formation-steps/s and the host copies' share of the wall time,
      beside phase 3's eval rate. At N=1024, M=8 on ``gnn1024``'s
      checkpoint, 101 steps (``max_steps=99``): ``knn_tiled`` steps + 1.
-   - the ``visualize_policy`` tool headless for 1003 steps on
+   - the ``visualize_policy`` tool headless for 302 steps on
      ``gnn100``'s run (``knn_fused`` at (1,100,4) once a step and once
      for the reset) and for 300 on the committed MLP checkpoint.
    - the committed checkpoint exported to SB3 naming, packed as a
@@ -290,7 +291,29 @@ Phases (any failure exits non-zero):
      ``formation-a`` with a swap of ``formation-a`` in it leaves
      ``formation-b`` without a 429 and every lane's step monotonic.
      Prints each lane's requests/s and p95.
-15. Print the kernels' JSON line (launches and timings at the training
+15. The chaos storm (``chaos_storm.py``) on ``cuda:0``, each campaign's
+   exception failing the run:
+   - ``storm100``: ``run_campaign(seed=7, faults=25)`` over ``gnn100``'s
+     command (the train leg cut to ``STORM_ITERATIONS``; a wedge of 1.2 s
+     and a gate deadline of 0.9 s): zero violations, 25 fired, 0
+     unfired, ``resume_ok``, 0 < MTTR < 60 s, the disabled plane's
+     overhead under 5%, one build of the gate's matrix and of each
+     replica's rungs, the deterministic section equal to
+     ``build_schedule(7, 25)``, a gate timeout, every healthy gate eval
+     under the deadline, and ``knn_fused``'s launches equal the
+     trainer's iterations x 10 plus the gate's cells x 23 plus the
+     trainer's reset and the probe's formation, each owner counted on
+     its threads.
+   - ``storm_train100``: ``run_train_campaign(seed=2, faults=10)`` at
+     N=100, k=4, GNN, M=64, with JAX's test's assertions.
+   - ``storm_sebulba100``: ``run_sebulba_campaign(seed=0, faults=12)``
+     at the same width: zero violations, every fault fired, a duplicate
+     absorbed whenever a dequeue raise fired, one build a lane.
+   Prints each campaign's MTTR, probes, promotions, rejections, gate
+   timeouts, restarts, recoveries, dropped and absorbed batches,
+   staleness p95 and wall seconds, and each owner's ``knn_fused``
+   launches.
+16. Print the kernels' JSON line (launches and timings at the training
    paths' shapes, those of the eval paths under ``eval``, the population
    paths' under ``population``, ``ctde_knn``'s launches under
    ``ctde_knn``, ``scen100``'s under ``scenario``, phase 9's under
@@ -300,7 +323,8 @@ Phases (any failure exits non-zero):
    under ``playback`` and its per-formation k-NN step, (1,100,4), under
    ``single_step``, phase 13's request rows under ``fleet``, phase 14's
    trainer and gate under ``always`` at the gate's (64,100,4), its lanes'
-   request rows under ``tenants``), the card
+   request rows under ``tenants``, phase 15's storms under
+   ``chaos_storm``), the card
    line, and the last line ``{"ok": true,
    "device": {...}}``.
 
@@ -1901,12 +1925,12 @@ def scenario_evals(scen100, gnn100):
               f"{ret['baseline']:.2f}, zero {ret['zero']:.2f}; gnn100's "
               f"checkpoint (clean-trained) {plain:.2f} (not gated)")
     # Eval throughput under storm against clean: the learned policy, 302
-    # steps each, alternating clean, storm, storm, clean.
+    # steps each, one run each (two before phase 15 was paid for).
     short = params.replace(max_steps=300)
     act = policy_act_fn(scen100.model, short)
     storm = scenario_params_for("storm", 0.5)
     rates = {"clean": [], "storm": []}
-    for which in ("clean", "storm", "storm", "clean"):
+    for which in ("clean", "storm"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         evaluate(act, short, 4096, seed=1234, device="cuda",
@@ -1916,7 +1940,7 @@ def scenario_evals(scen100, gnn100):
                             / (time.perf_counter() - t0))
     clean_r, storm_r = mean(rates["clean"]), mean(rates["storm"])
     print(f"[scenario-eval] eval formation-steps/s at M=4096 N=100 "
-          f"(302 steps, two runs each): clean {clean_r:.1f} "
+          f"(302 steps, one run each): clean {clean_r:.1f} "
           f"{[round(x, 1) for x in rates['clean']]}, storm {storm_r:.1f} "
           f"{[round(x, 1) for x in rates['storm']]}; scenario overhead "
           f"{100 * (clean_r / storm_r - 1):.1f}% (time under storm over "
@@ -2036,13 +2060,15 @@ def scenario_phase(gnn100):
 
 
 # Phase 9: the robustness matrix, the falsifier search and pursuit-evasion.
-MATRIX_SCENARIOS = ("clean", "wind", "storm", "sensor_noise", "comm_dropout")
+# 3 scenarios (5 before phase 15 was paid for: sensor_noise and
+# comm_dropout, which phase 8's severity-0 identity still covers).
+MATRIX_SCENARIOS = ("clean", "wind", "storm")
 MATRIX_SEVERITIES = (0.0, 0.5, 1.0)
 MATRIX1024_SCENARIOS = ("clean", "storm")
 MATRIX1024_SEVERITIES = (0.0, 1.0)
 MATRIX_RTOL = 1e-5  # a captured cell against the eager evaluate_scenario
 ADVERSARY = ("scenarios=[wind,storm,actuator_fault,sensor_noise]",
-             "search_grid=6", "search_generations=4", "eval_formations=64")
+             "search_grid=6", "search_generations=2", "eval_formations=64")
 ADVERSARY_M = 64
 # gnn100's command on pursuit-evasion, 20 iterations.
 CHASE100 = GNN100[:-1] + ("env=pursuit_evasion", "total_timesteps=20480000",
@@ -2189,7 +2215,7 @@ def matrix1024(ckpt):
 
 def adversary100(gnn100, scen100_ckpt):
     """``adversary100``: the falsifier-search CLI on ``gnn100``'s and
-    ``scen100``'s checkpoints (4 families, grid 6, 4 generations, M=64:
+    ``scen100``'s checkpoints (4 families, grid 6, 2 generations, M=64:
     P=25, 1600 formations), one build across both; each falsifier and the
     highest safe probe below it re-evaluated through the search's
     ``evaluate_cells``: drop above the tolerance, and at most it. Then one
@@ -2793,9 +2819,10 @@ SEBULBA100_K1 = GNN100 + ("architecture=sebulba", "profile=true",
                           "profile_iterations=2")
 # gnn1024's command, its 12 iterations: 10 steady ones give a spread.
 SEBULBA1024 = GNN1024 + ("architecture=sebulba",)
-# The observability runs: gnn100's command, 14 host-loop iterations (the
-# default run's last 12 rotate telemetry and the ledger on and off).
-OBS100 = GNN100[:-1] + ("total_timesteps=14336000",)
+# The observability runs: gnn100's command, 8 host-loop iterations (the
+# default run's last 6 rotate telemetry and the ledger on and off; 14 and
+# 12 before phase 15 was paid for).
+OBS100 = GNN100[:-1] + ("total_timesteps=8192000",)
 # The profile check: N=100 at M=64 (30 minibatch steps an iteration, not
 # 620), 5 iterations, 3 of them traced.
 PROFILE64 = ("policy=gnn", "obs_mode=knn", "num_agents_per_formation=100",
@@ -3156,9 +3183,9 @@ def lockstep_equals_anakin(kind):
 
 
 def observability_phase():
-    """gnn100's command for 14 host-loop iterations twice from one seed:
+    """gnn100's command for 8 host-loop iterations twice from one seed:
     the default run (``GET /metrics`` served and scraped during it, the
-    census checked; its last 12 iterations turn the registry and the
+    census checked; its last 6 iterations turn the registry and the
     ledger on and off in turn, for the telemetry and ledger overheads
     inside one run) and ``telemetry=false ledger=false``; both end on the
     same parameters bitwise (C4, and observability changes nothing on the
@@ -3195,7 +3222,7 @@ def observability_phase():
     try:
         default, _, _, s_default, _ = cli_run(
             "smoke_obs_default", OBS100 + (f"telemetry_port={port}",),
-            "gnn100 14 iterations, telemetry and ledger on (the last 12 "
+            "gnn100 8 iterations, telemetry and ledger on (the last 6 "
             "rotating)", rotate=True)
     finally:
         done.set()
@@ -3212,7 +3239,7 @@ def observability_phase():
         "trainer_train_minibatch": "minibatch", "trainer_train_end": "end"})
     bare, *_, s_bare, _ = cli_run(
         "smoke_obs_bare", OBS100 + ("telemetry=false", "ledger=false"),
-        "gnn100 14 iterations, telemetry and ledger off")
+        "gnn100 8 iterations, telemetry and ledger off")
     if (Path(bare.log_dir) / "program_ledger.json").exists():
         raise AssertionError("ledger=false wrote a census")
     for p, q in zip(default.model.parameters(), bare.model.parameters()):
@@ -3220,18 +3247,18 @@ def observability_phase():
             raise AssertionError("C4: gnn100 with telemetry=false "
                                  "ledger=false ends on other parameters than "
                                  "the default run")
-    print(f"[c4] gnn100 14 iterations from one seed, two runs (telemetry "
+    print(f"[c4] gnn100 8 iterations from one seed, two runs (telemetry "
           f"and the ledger on, and off): parameters bitwise equal "
           f"({default.step} optimizer steps)")
     modes = default.smoke_modes
-    print(f"[overhead] gnn100 s/iteration inside the default run, 4 "
+    print(f"[overhead] gnn100 s/iteration inside the default run, 2 "
           f"iterations each: both on {modes['both on']:.4f}, telemetry off "
           f"{modes['telemetry off']:.4f}, both off {modes['both off']:.4f}: "
           f"telemetry_overhead_pct "
           f"{100 * (modes['both on'] / modes['telemetry off'] - 1):+.2f}, "
           f"ledger_overhead_pct "
           f"{100 * (modes['telemetry off'] / modes['both off'] - 1):+.2f}; "
-          f"across the two runs (12 steady iterations each): default "
+          f"across the two runs (6 steady iterations each): default "
           f"{s_default:.4f}, both off {s_bare:.4f} "
           f"({100 * (s_default / s_bare - 1):+.2f}%)")
 
@@ -3277,6 +3304,7 @@ def sebulba_phase(gnn100):
 CONFIG1_STEPS = 1100  # crosses the first auto-reset (episodes of 1002)
 CONFIG1_DEFAULT_STEPS = 300  # depth cut of the N=10 demo (1000) for time
 VECENV_STEPS = 1003  # one full episode of 1002 steps and one more
+PLAYBACK_STEPS = 302  # playback100's depth (1003 before phase 15)
 MLP_PLAYBACK_STEPS = 300  # depth cut of the MLP playback for time
 
 
@@ -3563,10 +3591,10 @@ def surface_phase(gnn100):
     gnn_run = Path(gnn100["ckpt"]).parent.relative_to(ROOT / "logs")
     got = playback(str(gnn_run), ("obs_mode=knn",
                                   "num_agents_per_formation=100"),
-                   VECENV_STEPS)
-    if got != {"knn_fused": VECENV_STEPS + 1, "knn_tiled": 0}:
+                   PLAYBACK_STEPS)
+    if got != {"knn_fused": PLAYBACK_STEPS + 1, "knn_tiled": 0}:
         raise AssertionError(f"playback100 launches {got}, want knn_fused "
-                             f"{VECENV_STEPS + 1}")
+                             f"{PLAYBACK_STEPS + 1}")
     mlp_dir = ROOT / "logs" / "smoke_playback_mlp"
     shutil.rmtree(mlp_dir, ignore_errors=True)
     mlp_dir.mkdir(parents=True)
@@ -4594,6 +4622,229 @@ def pipeline_phase(gnn100, scen100_ckpt):
     return {"always": always, "rows": row_launches + tenant_launches}
 
 
+# Phase 15: the chaos storm. storm100 is gnn100's command (its
+# total_timesteps aside: the campaign sets its own), the train and Sebulba
+# campaigns run it at M=64.
+STORM100 = GNN100[:-1]
+STORM64 = tuple("num_formation=64" if o.startswith("num_formation=") else o
+                for o in STORM100)
+STORM_ITERATIONS = 10  # storm100's train leg (JAX's default: 16)
+# The wedge and the gate's deadline: the deadline above the healthy gate
+# evals measured on the card (0.09-0.52 s: PERF.md §6), the wedge (JAX's
+# test's) above the deadline and the pipeline watchdog's 1 s, so wedges
+# still time out and restart (JAX's test's deadline: 0.6 s).
+STORM_WEDGE_S, STORM_GATE_TIMEOUT_S = 1.2, 0.9
+STORM_STEPS = 10  # gnn100's n_steps: the trainer's launches an iteration
+STORM_GATE_M = 8  # the storm's gate: JAX's eval_formations
+STORM_CELL_LAUNCHES = 23  # a gate cell's knn_fused launches: T + 1, T = 22
+
+
+def storm_line(label, report, keys):
+    print(f"[storm] {label}: " + ", ".join(
+        f"{k} {report.get(k)}" for k in keys))
+
+
+def storm100(work):
+    """``run_campaign(seed=7, faults=25)`` over ``gnn100``'s command; the
+    trainer's and the gate's ``knn_fused`` launches each counted on the
+    threads that make them (``knn_cuda.counted_for``)."""
+    from marl_distributedformation_tpu_torch import chaos_storm
+    from marl_distributedformation_tpu_torch.ops import knn_cuda
+    from marl_distributedformation_tpu_torch.pipeline.gate import (
+        PromotionGate,
+    )
+    from marl_distributedformation_tpu_torch.train import Trainer
+
+    owned = {"trainer": {}, "gate": {}}
+    patched = {(Trainer, "train"): owned["trainer"],
+               (PromotionGate, "_evaluate_inner"): owned["gate"]}
+    originals = {key: getattr(*key) for key in patched}
+
+    def counted(fn, tally):
+        def run(*args, **kwargs):
+            with knn_cuda.counted_for(tally):
+                return fn(*args, **kwargs)
+        return run
+
+    for (cls, name), tally in patched.items():
+        setattr(cls, name, counted(originals[(cls, name)], tally))
+    knn_cuda.reset_launches()
+    try:
+        report = chaos_storm.run_campaign(
+            seed=7, faults=25, workdir=str(work / "storm100"),
+            train_iterations=STORM_ITERATIONS, wedge_s=STORM_WEDGE_S,
+            gate_timeout_s=STORM_GATE_TIMEOUT_S, device="cuda",
+            overrides=STORM100)
+    finally:
+        for (cls, name), fn in originals.items():
+            setattr(cls, name, fn)
+    total = knn_cuda.LAUNCHES["knn_fused"]
+    counts = {k: v["knn_fused"] for k, v in owned.items()}
+    storm_line("storm100", report, (
+        "chaos_invariant_violations", "chaos_faults_fired",
+        "chaos_faults_unfired", "chaos_mttr_p50_s", "chaos_mttr_s",
+        "chaos_disruptions", "probes_total", "probes_ok", "promotions",
+        "rejections", "gate_timeouts", "gate_timeout_s", "gate_eval_s_max",
+        "pipeline_restarts", "train_writes_skipped",
+        "checkpoints_quarantined", "resume_step",
+        "fault_plane_overhead_pct", "compile_receipts",
+        "campaign_seconds"))
+    if report["chaos_invariant_violations"] != 0:
+        raise AssertionError(f"storm100 violations: "
+                             f"{report.get('chaos_violations')}")
+    expected = chaos_storm.build_schedule(7, 25, wedge_s=STORM_WEDGE_S)
+    checks = {
+        "25 fired": report["chaos_faults_fired"] == 25,
+        "0 unfired": report["chaos_faults_unfired"] == 0,
+        "resume_ok": report["resume_ok"],
+        "0 < MTTR < 60 s": 0.0 < report.get("chaos_mttr_s", 0.0) < 60.0,
+        "overhead < 5%": report["fault_plane_overhead_pct"] < 5.0,
+        "probes served": report["probes_ok"] > 0,
+        "deterministic section": report["deterministic"] == {
+            "chaos_seed": 7, "chaos_faults_armed": 25,
+            "schedule": expected.record()},
+        "one build a program": (
+            report["compile_receipts"]["gate_matrix"] == 1
+            and set(report["compile_receipts"].values()) == {1}
+            and len(report["compile_receipts"]) == 5),
+        "a wedge timed out": report["gate_timeouts"] >= 1,
+        "healthy evals under the deadline": (
+            report["gate_eval_s_max"] is not None
+            and report["gate_eval_s_max"] < STORM_GATE_TIMEOUT_S),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"storm100 fails {failed}: {report}")
+    # The trainer's iterations x n_steps on its thread; the gate's T + 1 a
+    # cell on whichever thread evaluates (T = 22, the storm's max_steps of
+    # 20 + 2, as 1,002 for 1,000); besides, the trainer's reset and the
+    # probe's formation on this thread (which also runs the bootstrap
+    # eval, counted with the gate's).
+    want = {"trainer": STORM_ITERATIONS * STORM_STEPS,
+            "gate": STORM_CELL_LAUNCHES * report["gate_cells_evaluated"]}
+    rest = total - counts["trainer"] - counts["gate"]
+    print(f"[storm] storm100 knn_fused launches: {total} in all, trainer "
+          f"{counts['trainer']} (want {want['trainer']}), gate "
+          f"{counts['gate']} (want {want['gate']}, "
+          f"{report['gate_cells_evaluated']} cells x "
+          f"{STORM_CELL_LAUNCHES}), the rest {rest} (want 2)")
+    if (counts["trainer"] != want["trainer"] or counts["gate"] != want["gate"]
+            or rest != 2):
+        raise AssertionError(f"storm100 launches {counts}, total {total}, "
+                             f"want {want} and 2 more")
+    return report, {"knn_fused": total, **counts}
+
+
+def storm_train100(work):
+    """``run_train_campaign(seed=2, faults=10)`` at N=100, k=4, GNN, M=64
+    with JAX's test's assertions."""
+    from marl_distributedformation_tpu_torch import chaos_storm
+    from marl_distributedformation_tpu_torch.ops import knn_cuda
+
+    knn_cuda.reset_launches()
+    report = chaos_storm.run_train_campaign(
+        seed=2, faults=10, workdir=str(work / "storm_train100"),
+        device="cuda", overrides=STORM64)
+    storm_line("storm_train100", report, (
+        "chaos_invariant_violations", "chaos_faults_fired",
+        "chaos_faults_unfired", "recovery_mttr_p50_s", "recovery_mttr_s",
+        "train_recoveries", "train_divergence_events",
+        "train_skipped_updates", "train_halted", "train_writes_skipped",
+        "checkpoints_nonfinite_skipped", "checkpoints_quarantined",
+        "train_compiles", "final_timesteps", "campaign_seconds"))
+    expected = chaos_storm.build_schedule(
+        2, 10,
+        point_names=chaos_storm.TRAIN_LANE_POINTS + chaos_storm.TRAIN_POINTS)
+    checks = {
+        "0 violations": report["chaos_invariant_violations"] == 0,
+        "10 fired": report["chaos_faults_fired"] == 10,
+        "0 unfired": report["chaos_faults_unfired"] == 0,
+        "not halted": not report["train_halted"],
+        "a recovery": report["train_recoveries"] >= 1,
+        "0 < MTTR < 60 s": 0.0 < report.get("recovery_mttr_s", 0.0) < 60.0,
+        "deterministic section": report["deterministic"] == {
+            "chaos_seed": 2, "chaos_faults_armed": 10,
+            "schedule": expected.record()},
+        "one build": report["train_compiles"] == 1,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"storm_train100 fails {failed}: {report}")
+    launches = knn_cuda.LAUNCHES["knn_fused"]
+    print(f"[storm] storm_train100 knn_fused launches: {launches}")
+    if launches <= 0:
+        raise AssertionError("storm_train100 launched no knn_fused")
+    return report, {"knn_fused": launches}
+
+
+def storm_sebulba100(work):
+    """``run_sebulba_campaign(seed=0, faults=12)`` at N=100, k=4, GNN,
+    M=64."""
+    from marl_distributedformation_tpu_torch import chaos_storm
+    from marl_distributedformation_tpu_torch.ops import knn_cuda
+
+    knn_cuda.reset_launches()
+    report = chaos_storm.run_sebulba_campaign(
+        seed=0, faults=12, workdir=str(work / "storm_sebulba100"),
+        device="cuda", overrides=STORM64)
+    storm_line("storm_sebulba100", report, (
+        "chaos_invariant_violations", "chaos_faults_fired",
+        "chaos_faults_unfired", "sebulba_batches_enqueued",
+        "sebulba_batches_dropped", "sebulba_duplicates_absorbed",
+        "sebulba_dequeue_raises_fired", "sebulba_publishes_dropped",
+        "sebulba_stale_dropped", "sebulba_batches_consumed",
+        "transfer_queue_occupancy_p95", "param_staleness_p95_updates",
+        "sebulba_actor_compiles", "sebulba_learner_compiles",
+        "final_timesteps", "campaign_seconds"))
+    checks = {
+        "0 violations": report["chaos_invariant_violations"] == 0,
+        "12 fired": report["chaos_faults_fired"] == 12,
+        "0 unfired": report["chaos_faults_unfired"] == 0,
+        "a duplicate absorbed": (report["sebulba_dequeue_raises_fired"] == 0
+                                 or report["sebulba_duplicates_absorbed"]
+                                 >= 1),
+        "one build a lane": (report["sebulba_actor_compiles"] == 1
+                             and report["sebulba_learner_compiles"] == 1),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"storm_sebulba100 fails {failed}: {report}")
+    launches = knn_cuda.LAUNCHES["knn_fused"]
+    print(f"[storm] storm_sebulba100 knn_fused launches: {launches}")
+    if launches <= 0:
+        raise AssertionError("storm_sebulba100 launched no knn_fused")
+    return report, {"knn_fused": launches}
+
+
+def storm_phase():
+    """Phase 15: the three campaigns in turn, each with a fresh metrics
+    registry and ledger. Returns each one's ``knn_fused`` launches."""
+    import tempfile
+
+    from marl_distributedformation_tpu_torch.obs import (
+        MetricsRegistry,
+        ProgramLedger,
+        set_ledger,
+        set_registry,
+    )
+
+    work = Path(tempfile.mkdtemp(prefix="chaos_storm_"))
+    launches = {}
+    for label, run in (("storm100", storm100),
+                       ("storm_train100", storm_train100),
+                       ("storm_sebulba100", storm_sebulba100)):
+        previous = set_registry(MetricsRegistry()), set_ledger(
+            ProgramLedger(enabled=True))
+        t0 = time.perf_counter()
+        try:
+            _, launches[label] = run(work)
+        finally:
+            set_registry(previous[0])
+            set_ledger(previous[1])
+        print(f"[storm] {label} wall {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4634,7 +4885,8 @@ def main() -> int:
                        "adversary": (25 * ADVERSARY_M, 100, 4),
                        "population61": (61 * ADVERSARY_M, 100, 4),
                        "playback": (1, 100, 4),
-                       "gate": (ALWAYS_GATE_M, 100, 4)}),
+                       "gate": (ALWAYS_GATE_M, 100, 4),
+                       "storm_gate": (STORM_GATE_M, 100, 4)}),
         "knn_tiled": (knn_cuda.knn_tiled, 50,
                       {"train": (8, 1024, 4), "eval": (512, 1024, 4),
                        "population": (16, 1024, 4),
@@ -4730,6 +4982,10 @@ def main() -> int:
     pipeline_launches = pipeline_phase(gnn100, scen100_ckpt)
     elapsed("phase 14, always-learning pipeline, tenant lanes")
 
+    # Phase 15: the chaos storm, this slice's main path.
+    storm_launches = storm_phase()
+    elapsed("phase 15, chaos storm")
+
     replaces = {
         "knn_fused": "marl_distributedformation_tpu/ops/knn_pallas.py:117",
         "knn_tiled": "marl_distributedformation_tpu/ops/knn_pallas.py:155",
@@ -4819,6 +5075,24 @@ def main() -> int:
     kernels[0]["tenants"] = {"path": "tenants100 request rows",
                              "launches": pipeline_launches["rows"],
                              "shape": stats["knn_fused"]["train"]["shape"]}
+    # Phase 15: storm100's trainer at the train shape, (1024,100,4), its
+    # gate at (8,100,4) and its probe's formation at (1,100,4); the train
+    # and Sebulba campaigns at (64,100,4), timed above as the gate's shape.
+    kernels[0]["chaos_storm"] = {
+        "path": "storm100, storm_train100, storm_sebulba100",
+        "launches": sum(v["knn_fused"] for v in storm_launches.values()),
+        "storm100": {
+            "launches": storm_launches["storm100"]["knn_fused"],
+            "trainer_launches": storm_launches["storm100"]["trainer"],
+            "gate_launches": storm_launches["storm100"]["gate"],
+            "train_shape": stats["knn_fused"]["train"]["shape"],
+            "gate": stats["knn_fused"]["storm_gate"]},
+        "storm_train100": {
+            "launches": storm_launches["storm_train100"]["knn_fused"],
+            **stats["knn_fused"]["gate"]},
+        "storm_sebulba100": {
+            "launches": storm_launches["storm_sebulba100"]["knn_fused"],
+            **stats["knn_fused"]["gate"]}}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,6 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-from torch.func import vmap
 
 from marl_distributedformation_tpu_torch.algo.optim import (
     AdamState,
@@ -450,7 +449,8 @@ class PopulationUpdate(PPOUpdate):
     ``step_count[i]`` (``(K,)``: a member that the health guard holds
     back keeps its own). The schedules and the ``log_std`` ceiling follow
     each member's step. The layers run once for all members
-    (``torch.func.vmap``), and one ``autograd.grad`` of the members'
+    (``PopulationModel.map``: ``torch.func.vmap``, or a population of
+    one's single-run calls), and one ``autograd.grad`` of the members'
     summed losses gives every member its own gradients. A metrics row is
     ``(K, len(names))``.
     """
@@ -535,12 +535,12 @@ class PopulationUpdate(PPOUpdate):
             return ppo_loss(functools.partial(call, params),
                             MinibatchData(**rows), config, coef)
 
+        members = self.model.map(member_loss)
         if "ent_coef" in values:
-            loss, metrics = vmap(member_loss)(
-                self.model.params, rows, values["ent_coef"]
-            )
+            loss, metrics = members(self.model.params, rows,
+                                    values["ent_coef"])
         else:
-            loss, metrics = vmap(member_loss)(self.model.params, rows)
+            loss, metrics = members(self.model.params, rows)
         # Contiguous, as one run's: a batched backward may hand a weight's
         # gradient back transposed, and a norm's sum order follows layout.
         grads = [g.contiguous() for g in

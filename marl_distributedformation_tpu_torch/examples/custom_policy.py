@@ -18,8 +18,9 @@ contract the built-in models follow (``models/mlp.py``):
 This example defines a residual LayerNorm actor-critic, which the built-in
 models do not include, trains it briefly and compares it with the scripted
 baseline controller on held-out formations. ``EXAMPLE_TOTAL_TIMESTEPS``
-(default 320000) and ``EXAMPLE_LOG_DIR`` (default
-``logs/example_custom_policy``) set the budget and the metrics' directory.
+(default 320000), ``EXAMPLE_LOG_DIR`` (default
+``logs/example_custom_policy``) and ``EXAMPLE_EVAL_FORMATIONS`` (default
+256) set the budget, the metrics' directory and the held-out formations.
 """
 
 from __future__ import annotations
@@ -118,10 +119,11 @@ def main(argv=None) -> Dict[str, float]:
     print(f"final training reward: {last['reward']:.2f}")
 
     model.eval()
+    held_out = int(os.environ.get("EXAMPLE_EVAL_FORMATIONS", 256))
     with torch.no_grad():
-        ours = evaluate(policy_act_fn(model, env), env, num_formations=256,
-                        device=trainer.device)
-        base = evaluate(baseline_act_fn(env), env, num_formations=256,
+        ours = evaluate(policy_act_fn(model, env), env,
+                        num_formations=held_out, device=trainer.device)
+        base = evaluate(baseline_act_fn(env), env, num_formations=held_out,
                         device=trainer.device)
     print(
         f"episode return/agent: custom policy "

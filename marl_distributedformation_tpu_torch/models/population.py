@@ -19,19 +19,24 @@ cuBLAS runs on a few dozen CTAs without splitting the reduction.
 gradient, and computes each member's weight gradient as its own GEMM, as
 the single run does, so that cuBLAS splits its reduction.
 The forward runs each layer once for all K members; for K > 1 that rounds
-differently from a member's single run in the last bit (K = 1 is bitwise
-the same on the CPU).
+differently from a member's single run in the last bit. A population of
+one runs no ``vmap``: ``PopulationModel.map`` calls the member's function
+on member 0's slices of the stacked tensors, through the architecture's
+own layers, so every op is the single run's call at the single run's
+shapes and the run is the single run bitwise on any CPU (a batched call
+at K = 1 reaches other MKL and ATen kernels on some CPUs: ROADMAP C9).
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Dict, Iterator, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call, stack_module_state, vmap
+from torch.utils._pytree import tree_map
 
 Tensor = torch.Tensor
 
@@ -149,9 +154,10 @@ class PopulationModel:
         params, _ = stack_module_state(models)
         self.params: Dict[str, Tensor] = dict(params)
         # The architecture without storage: functional_call supplies the
-        # parameters.
-        self.template = _member_template(models[0])
+        # parameters. A population of one keeps the plain layers (``map``).
         self.num_members = len(models)
+        self.template = (_member_template(models[0]) if self.num_members > 1
+                         else copy.deepcopy(models[0]).to("meta"))
         self.per_formation = bool(models[0].per_formation)
         self.policy = type(models[0]).__name__
 
@@ -167,14 +173,30 @@ class PopulationModel:
         return self
 
     def member_call(self, params: Dict[str, Tensor], *args):
-        """One member's forward with its ``params`` (inside ``vmap``)."""
+        """One member's forward with its ``params`` (inside ``map``)."""
         return functional_call(self.template, params, args)
+
+    def map(self, fn: Callable[..., Any]) -> Callable[..., Any]:
+        """``fn`` of one member over the member axis of its arguments and
+        results: ``vmap(fn)``, or, for a population of one, ``fn`` itself
+        on each tensor's slice 0 with its results' axis put back (see the
+        module docstring)."""
+        if self.num_members > 1:
+            return vmap(fn)
+
+        def one(*args):
+            out = fn(*tree_map(lambda t: t[0] if isinstance(t, Tensor)
+                               else t, args))
+            return tree_map(lambda t: t.unsqueeze(0)
+                            if isinstance(t, Tensor) else t, out)
+
+        return one
 
     def __call__(self, obs: Tensor, *args) -> Tuple[Tensor, Tensor, Tensor]:
         """Every member on its own inputs: ``obs (K, ...)`` and any
         further per-member inputs -> ``(mean (K, ...), log_std (K,
         act_dim), value (K, ...))``."""
-        return vmap(self.member_call)(self.params, obs, *args)
+        return self.map(self.member_call)(self.params, obs, *args)
 
     def rollout_forward(
         self, obs: Tensor, mask: Optional[Tensor] = None
@@ -200,6 +222,11 @@ class PopulationModel:
             x = x.reshape(k, m * n, d)
         mean, log_std, value = self(x, *args)
         a = mean.shape[-1]
+        if k == 1:
+            # The single run's shapes (``policy_forward``), so that the
+            # rollout's draws and densities make its calls (C9).
+            return (mean.reshape(km, n, a), log_std[0],
+                    value.reshape(km, n))
         log_std = log_std[:, None, None, :].expand(k, m, 1, a)
         return (mean.reshape(km, n, a), log_std.reshape(km, 1, a),
                 value.reshape(km, n))

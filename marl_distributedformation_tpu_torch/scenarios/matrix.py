@@ -24,6 +24,7 @@ marl_distributedformation_tpu_torch.robustness_matrix`` wraps it.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -75,6 +76,12 @@ from marl_distributedformation_tpu_torch.train.capture import (
 )
 
 Tensor = torch.Tensor
+
+
+def _on(stream: Optional["torch.cuda.Stream"]):
+    """``stream`` as the current stream; no change without one."""
+    return (contextlib.nullcontext() if stream is None
+            else torch.cuda.stream(stream))
 
 
 def _weights(params) -> Dict[str, Tensor]:
@@ -337,7 +344,14 @@ class EpisodeProgram:
             build(params, copies)
             self._built_for = signature
         weights = _weights(params)
-        with torch.no_grad():
+        # The episode runs on the program's stream, ordered once after the
+        # caller's work and once before its next (C8): the step replays
+        # then need no waits of their own (``PhaseGraph._replay``).
+        caller = own = None
+        if self.capture and self.stream is not None:
+            caller, own = torch.cuda.current_stream(), self.stream
+            own.wait_stream(caller)
+        with torch.no_grad(), _on(own):
             for name, buf in self._weights.items():
                 buf.copy_(weights[name])
             self.sp.copy_(self._scenario_buffers(scenario_params, copies))
@@ -346,10 +360,12 @@ class EpisodeProgram:
                 getattr(self.state, f).copy_(getattr(state, f))
             self.obs.copy_(obs)
             self.t.zero_()
-        for _ in range(self.T):
-            self._step()
-        # Copies: a metric may be a view of the rows, which the next run
-        # overwrites.
+            for _ in range(self.T):
+                self._step()
+        if caller is not None:
+            caller.wait_stream(own)
+        # Copies, on the caller's stream: a metric may be a view of the
+        # rows, which the next run overwrites.
         return {k: v.clone()
                 for k, v in episode_summary(self.rows, self.T).items()}
 

@@ -36,7 +36,9 @@ always-learning process replays the trainer's, the gate's and every
 replica's together) must not share PyTorch's one capture stream. A graph
 replays on its owner's stream, which first waits for the caller's stream;
 the caller's stream then waits for it, so the caller reads the graph's
-outputs in order.
+outputs in order. An owner that runs many replays in a row (the matrix
+program's episode of T steps) enters its stream once around them, and
+a replay called on the owner's stream waits for nothing (C8).
 
 A capture does not enter ``torch.cuda.graph``, whose start synchronizes
 the device and empties the allocator's cache: in a process of several
@@ -167,12 +169,13 @@ class PhaseGraph:
         self.warm_up_s: Optional[float] = None
         self._facts: tuple = ({}, "unavailable", None)
 
-    def builds_next(self) -> bool:
-        """Whether the next call builds the program: captures it (the
-        card), or runs the eager step for the first time."""
+    def builds_next(self, calls: int = 1) -> bool:
+        """Whether the next ``calls`` calls build the program: capture it
+        (the card: the second call), or run the eager step for the first
+        time."""
         if self.capture:
-            return self.calls == 1 and self.graph is None
-        return self.calls == 0
+            return self.graph is None and self.calls <= 1 < self.calls + calls
+        return self.calls == 0 and calls > 0
 
     def drop(self) -> None:
         """Forget the build: the next call builds the program again (a
@@ -252,12 +255,16 @@ class PhaseGraph:
 
     def _replay(self) -> None:
         """The graph on its owner's stream, ordered after the caller's
-        work and before the caller's next."""
+        work and before the caller's next; a caller already on the owner's
+        stream (the matrix program's episode) needs neither wait."""
         caller = torch.cuda.current_stream()
-        self.stream.wait_stream(caller)
-        with torch.cuda.stream(self.stream):
+        if caller == self.stream:
             self.graph.replay()
-        caller.wait_stream(self.stream)
+        else:
+            self.stream.wait_stream(caller)
+            with torch.cuda.stream(self.stream):
+                self.graph.replay()
+            caller.wait_stream(self.stream)
         knn_cuda.count_replay(self.launches)
 
     def _capture(self) -> None:

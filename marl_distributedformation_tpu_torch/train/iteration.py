@@ -469,4 +469,7 @@ class PopulationIteration(PhasedIteration):
         )
 
     def _reduce(self, x: Tensor, op: str) -> Tensor:
+        if self.members == 1:
+            # The single run's reduction (C9: models/population.py).
+            return getattr(x, op)().reshape(1)
         return getattr(self._by_member(x).reshape(self.members, -1), op)(-1)

@@ -691,7 +691,9 @@ class Trainer:
             rows, severities = self._load_scenario_rows(rollouts)
             self._last_severities = severities
         warm = all(p.calls > 0 and not p.builds_next() for p in self._phases)
-        if any(phase.builds_next() for phase in self._phases):
+        # The dispatch's iterations may both warm a phase up and capture it
+        # (a fused chunk's first two).
+        if any(phase.builds_next(rollouts) for phase in self._phases):
             self.retrace_guard.record(self._iteration.env.agents,
                                       self._iteration.obs)
         start = self._nan_guard_start() if self.config.guard_nans else None

@@ -1,8 +1,8 @@
 """The port's fused dispatch on the CPU: ``fused_chunk`` and
 ``iters_per_dispatch`` against the host loop and against the JAX trainer,
-the burst reduction against JAX's ``make_fused_chunk``, the permutation
-draw, and scenario training (a stage change inside a chunk, severity 0
-against the clean run, a resume mid-schedule).
+the burst reduction against JAX's ``make_fused_chunk`` and the permutation
+draw (scenario training under fused dispatch is in
+``test_torch_fused_scenarios.py``).
 
 On the CPU the iteration's phases run eagerly (nothing is captured), so
 the dispatch modes are pinned here and the graphs on the card
@@ -56,8 +56,8 @@ def _trainer(tmp_path, kind, name, scenario_schedule=None, **cfg):
     config = dict(num_formations=M, total_timesteps=ITERATIONS * per_iter,
                   seed=7, log_dir=str(tmp_path / name))
     config.update(cfg)
-    return Trainer(params, PPOConfig(n_epochs=2, batch_size=80 if kind ==
-                                     "mlp" else 16),
+    # The GNN's minibatch is 10 whole formations of 8 (4 an epoch).
+    return Trainer(params, PPOConfig(n_epochs=2, batch_size=80),
                    TrainConfig(**config), model=model, device="cpu",
                    scenario_schedule=scenario_schedule)
 
@@ -179,142 +179,25 @@ def test_fused_chunk_and_iters_per_dispatch_exclude_each_other(tmp_path):
         _trainer(tmp_path, "mlp", "ladder", recovery=True)
 
 
-# ---------------------------------------------------------------------------
-# Scenario training
-# ---------------------------------------------------------------------------
+def test_a_dispatch_that_warms_up_and_captures_counts_one_build():
+    """The build receipt of a captured phase: a dispatch of two or more
+    calls from the first both warms it up and captures it (a fused
+    chunk's first two iterations), so it builds; one call from the first
+    warms up only, and the second builds. On the CPU a phase builds at its
+    first call."""
+    from marl_distributedformation_tpu_torch.train.capture import PhaseGraph
 
-# Stage 0 ramps over 3 rollouts, so with fused_chunk=2 the change to stage
-# 1 falls inside the second chunk (iterations 3 | 4).
-SCHEDULE = ("[{rollouts: 3, scenarios: [storm, comm_dropout, moving_goal], "
-            "severity: 1.0, severity_start: 0.2}, {rollouts: 2, scenarios: "
-            "[actuator_fault, sensor_noise, wind], severity: 0.7}]")
+    card = PhaseGraph("rollout", lambda: None, capture=True, stream=object())
+    assert not card.builds_next() and card.builds_next(2)
+    card.calls = 1
+    assert card.builds_next() and card.builds_next(10)
+    card.graph = object()
+    assert not card.builds_next(10)
+    card.drop()  # a forced rebuild
+    assert card.builds_next()
+    cpu = PhaseGraph("rollout", lambda: None, capture=False)
+    assert cpu.builds_next() and cpu.builds_next(2)
+    assert not cpu.builds_next(0)
+    cpu.calls = 1
+    assert not cpu.builds_next(2)
 
-
-def _schedule(text=SCHEDULE):
-    from marl_distributedformation_tpu_torch.scenarios import (
-        schedule_from_cfg,
-    )
-
-    return schedule_from_cfg(text)
-
-
-def _carry(trainer):
-    """The trainer's state by name: learner, env carry (with the episode
-    draws under scenarios), observation and generators."""
-    it = trainer._iteration
-    out = {f"learner {i}": t.clone()
-           for i, t in enumerate(it.learner_tensors())}
-    out.update({f: getattr(it.env, f).clone() for f in it.env_fields})
-    out["obs"] = it.obs.clone()
-    out["generator"] = trainer.generator.get_state()
-    if trainer._scenario_schedule is not None:
-        out["scenario generator"] = trainer.scenario_generator.get_state()
-    return out
-
-
-def _same_carry(a, b):
-    a, b = _carry(a), _carry(b)
-    for key in set(a) & set(b):
-        assert torch.equal(a[key], b[key]), key
-    return a, b
-
-
-def test_scenario_fused_equals_the_host_loop_across_a_stage_change(
-        tmp_path):
-    """fused_chunk=2 against the host loop, the stage change inside the
-    second chunk: records (scenario_severity included), checkpoint bytes
-    and the carry bitwise; the severities are the schedule's. (The MLP:
-    the mixes' dispatch does not depend on the model, and the GNN's
-    dispatch modes are pinned above; the knn scenario path trains in
-    ``test_scenario_resume_mid_schedule_is_bitwise``.)"""
-    kind = "mlp"
-    host = _trainer(tmp_path, kind, "host", _schedule())
-    host.train()
-    fused = _trainer(tmp_path, kind, "fused", _schedule(), fused_chunk=2)
-    fused.train()
-    want, got = _records(host), _records(fused)
-    assert got == want and len(got) == ITERATIONS
-    assert [r["scenario_severity"] for r in got] == [
-        float(np.float32(_schedule().severity_at(i)))
-        for i in range(ITERATIONS)]
-    a, b = _same_carry(host, fused)
-    assert set(a) == set(b) and "fault_u" in a
-    host_files, fused_files = _files(host), _files(fused)
-    assert fused_files and set(fused_files) <= set(host_files)
-    for name, data in fused_files.items():
-        assert data == host_files[name], name
-    assert fused.graph_count() == 0  # eager on the CPU
-
-
-@pytest.mark.parametrize("kind", sorted(KINDS))
-def test_scenario_severity_zero_trains_as_the_clean_run(tmp_path, kind):
-    """Every layer at severity 0 (a mix of every scenario, ``fused_chunk``
-    dispatch): the learner, env carry, generator and records equal the
-    clean trainer's bitwise."""
-    names = ", ".join(n for n in ("wind", "storm", "sensor_noise",
-                                  "actuator_fault", "comm_dropout",
-                                  "goal_switch", "moving_goal",
-                                  "actuator_noise"))
-    zero = _schedule(f"[{{rollouts: 4, scenarios: [{names}], severity: 0.0,"
-                     " severity_start: 0.0}]")
-    clean = _trainer(tmp_path, kind, "clean", fused_chunk=2)
-    clean.train()
-    scen = _trainer(tmp_path, kind, "zero", zero, fused_chunk=2)
-    scen.train()
-    got = _records(scen)
-    assert {r.pop("scenario_severity") for r in got} == {0.0}
-    assert got == _records(clean)
-    a, b = _same_carry(clean, scen)
-    assert set(a) < set(b)
-
-
-def test_scenario_resume_mid_schedule_is_bitwise(tmp_path):
-    """Two iterations, a checkpoint, and a resumed run of two more (into
-    stage 1) equal four uninterrupted iterations bitwise: the schedule is
-    re-entered at num_timesteps // (n_steps * M * N), the layers'
-    generator and episode draws come back from the checkpoint."""
-    full = _trainer(tmp_path, "gnn", "full", _schedule())
-    full.train()
-    per_iter = 10 * M * KINDS["gnn"].num_agents
-    part = _trainer(tmp_path, "gnn", "part", _schedule(),
-                    total_timesteps=2 * per_iter, save_freq=10)
-    part.train()
-    resumed = _trainer(tmp_path, "gnn", "part", _schedule(), resume=True)
-    assert resumed._scenario_rollouts == resumed._scenario_draws == 2
-    assert resumed.scenario_severity == _schedule().severity_at(2)
-    resumed.train()
-    a, b = _same_carry(full, resumed)
-    assert set(a) == set(b)
-    assert _records(resumed)[-2:] == _records(full)[-2:]
-
-
-def test_scenario_mixes_are_a_pure_function_of_the_draw(tmp_path):
-    """Draw d's mix repeats for the same (seed, d) and differs across d; a
-    schedule swap restarts the schedule but not the draw counter."""
-    trainer = _trainer(tmp_path, "mlp", "swap", _schedule())
-    a, _ = trainer._scenario_rows(0, 5, 2)
-    b, _ = trainer._scenario_rows(0, 5, 2)
-    c, _ = trainer._scenario_rows(0, 6, 2)
-    assert torch.equal(a.act_noise_sigma, b.act_noise_sigma)
-    assert not torch.equal(a.fault_prob[1], c.fault_prob[0]) or not \
-        torch.equal(a.obs_noise_sigma[1], c.obs_noise_sigma[0]) or \
-        torch.equal(a.act_noise_sigma[1], c.act_noise_sigma[0])
-    trainer.run_iteration()
-    trainer.update_scenario_schedule(_schedule("[wind]"))
-    assert trainer._scenario_rollouts == 0 and trainer._scenario_draws == 1
-    trainer.request_scenario_schedule(_schedule("[storm]"))
-    with pytest.raises(ValueError, match="unknown scenario"):
-        from marl_distributedformation_tpu_torch.scenarios import (
-            ScenarioSchedule,
-            ScenarioStage,
-        )
-        trainer.request_scenario_schedule(ScenarioSchedule(
-            (ScenarioStage(1, ("wnd",)),)))
-    trainer.run_iteration()
-    assert trainer._scenario_schedule.names == ("storm",)
-    assert trainer._scenario_draws == 2
-    assert float(trainer.scenario_params.act_noise_sigma[0]) == np.float32(
-        2.0 * np.float32(0.5))
-    clean = _trainer(tmp_path, "mlp", "plain")
-    with pytest.raises(ValueError, match="built without scenario training"):
-        clean.update_scenario_schedule(_schedule("[wind]"))

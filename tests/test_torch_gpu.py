@@ -1327,6 +1327,30 @@ def test_guard_transfers_raises_on_an_item_in_a_guarded_dispatch(
     assert trainer.retrace_guard.count == 1
 
 
+def test_a_fused_chunk_receipts_one_build(cuda, tmp_path):
+    """A fused chunk's first dispatch warms the phases up and captures
+    them: the trainer's build receipt is 1, not 0, and stays 1."""
+    from marl_distributedformation_tpu_torch.algo import PPOConfig
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.models import MLPActorCritic
+    from marl_distributedformation_tpu_torch.train import (
+        TrainConfig,
+        Trainer,
+    )
+
+    params = EnvParams(num_agents=3)
+    trainer = Trainer(
+        params, PPOConfig(n_steps=4, batch_size=24, n_epochs=2),
+        TrainConfig(num_formations=4, log_dir=str(tmp_path),
+                    checkpoint=False, fused_chunk=2,
+                    total_timesteps=6 * 4 * 4 * 3),
+        model=MLPActorCritic(params.obs_dim,
+                             generator=torch.Generator().manual_seed(0)),
+        device="cuda")
+    trainer.train()
+    assert trainer.graph_count() == 3
+    assert trainer.retrace_guard.count == 1
+
 def test_graph_owners_alive_at_once_hold_distinct_capture_streams(
         cuda, tmp_path):
     """C6: a trainer, a matrix program and two serving engines alive at

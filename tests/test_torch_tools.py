@@ -186,6 +186,7 @@ def test_custom_policy_example_runs(tmp_path, monkeypatch, capsys):
 
     monkeypatch.setenv("EXAMPLE_TOTAL_TIMESTEPS", "3200")
     monkeypatch.setenv("EXAMPLE_LOG_DIR", str(tmp_path / "logs"))
+    monkeypatch.setenv("EXAMPLE_EVAL_FORMATIONS", "16")
     got = custom_policy.main(["device=cpu"])
     line = [ln for ln in capsys.readouterr().out.splitlines()
             if "episode return/agent" in ln][0]
