@@ -112,14 +112,15 @@ Phases (any failure exits non-zero):
      (states, observations, rewards), the obstacle scenarios also with 4
      obstacles; at severity 1 every scenario but ``clean`` differs (the
      obstacle ones with obstacles, and are bitwise clean without).
-   - ``scen100``: ``gnn100``'s command (30 iterations, ``fused_chunk=10``)
-     under a 3-stage schedule (12 clean, 12 of wind / sensor noise /
-     actuator faults at 0.5, 6 of storm ramping 0.5 to 1.0), the stage
-     changes at iterations 12 and 24 inside chunks: the records'
+   - ``scen100``: ``gnn100``'s command (20 iterations since phase 16,
+     ``fused_chunk=10``) under a 3-stage schedule (12 clean, 5 of wind /
+     sensor noise / actuator faults at 0.5, 3 of storm ramping 0.5 to 1.0;
+     12, 12 and 6 before), the stage changes at iterations 12 and 17
+     inside a chunk: the records'
      ``scenario_severity`` is the schedule's every iteration; the 3
      captured graphs hold across both changes; iteration 1's reward equals
      ``gnn100``'s to the last digit (same seed, clean stage); iterations
-     10-12 beat the first 3 by 20; ``knn_fused`` 1 + 30 x 10 launches by
+     10-12 beat the first 3 by 20; ``knn_fused`` 1 + 20 x 10 launches by
      replay; s/iteration per stage beside ``gnn100``'s.
    - evaluation under ``wind`` and ``storm`` at 0.5 (M=1024, N=100, full
      episodes) through the evaluate CLI on ``scen100``'s checkpoint:
@@ -142,7 +143,8 @@ Phases (any failure exits non-zero):
    - ``matrix1024``: the same on ``gnn1024``'s checkpoint (``clean``,
      ``storm`` x 0, 1.0 at M=32) through ``knn_tiled``, 4 x 1003 launches.
    - ``adversary100``: the falsifier-search CLI on both checkpoints (4
-     families, grid 6, 2 generations, M=64: P=25, 1600 formations), one
+     families, grid 6, 1 generation since phase 16 (2 before), M=64: P=25,
+     1600 formations), one
      build across both; every falsifier and the highest safe probe below
      it re-evaluated through ``AdversarySearch.evaluate_cells`` (drop
      above the tolerance, and at most it); candidates/s. Then one
@@ -313,7 +315,27 @@ Phases (any failure exits non-zero):
    timeouts, restarts, recoveries, dropped and absorbed batches,
    staleness p95 and wall seconds, and each owner's ``knn_fused``
    launches.
-16. Print the kernels' JSON line (launches and timings at the training
+16. Data parallelism over formations and the agent-axis ring
+   (``parallel/``) on one card, gnn100's command:
+   - ``dp100x1``: ``mesh={dp: 1}`` through the ``train`` CLI in a one-rank
+     NCCL group in this process, 3 iterations: the parameters equal
+     phase 5's ``gnn100`` after 3 iterations bitwise (one rank keeps the
+     single run's reductions); ``knn_fused`` 31 launches.
+   - ``dp100x2``: ``mesh={dp: 2}``, two ranks on ``cuda:0`` started by
+     ``parallel.launch`` (gloo on the card's tensors; its all-reduce,
+     all-gather and broadcast checked), each with its (512,100,2) block:
+     iteration 1's reward within ``ITER1_RTOL`` of ``gnn100``'s, the
+     parameters after 2 iterations within JAX's rtol 1e-4 atol 1e-6, but
+     the policy's own leaves (``log_std``, ``actor.*``) within 2e-4
+     absolute (``DP_POLICY_ATOL``), both ranks' parameters equal; 3 more
+     iterations
+     timed (two processes time-sharing one card, not a scaling figure);
+     ``knn_fused`` 51 launches a rank at (512,100,4).
+   - ``ring100x2``: ``make_ring_step`` at N=100, k=4, M=64, sp=2 on the
+     same two ranks, 8 steps through auto-resets against ``step_batch``:
+     observations within rtol 1e-5 atol 1e-6, ``done`` bitwise, rewards
+     and metrics within 1e-4.
+17. Print the kernels' JSON line (launches and timings at the training
    paths' shapes, those of the eval paths under ``eval``, the population
    paths' under ``population``, ``ctde_knn``'s launches under
    ``ctde_knn``, ``scen100``'s under ``scenario``, phase 9's under
@@ -324,7 +346,8 @@ Phases (any failure exits non-zero):
    ``single_step``, phase 13's request rows under ``fleet``, phase 14's
    trainer and gate under ``always`` at the gate's (64,100,4), its lanes'
    request rows under ``tenants``, phase 15's storms under
-   ``chaos_storm``), the card
+   ``chaos_storm``, phase 16's ranks under ``dp`` at (512,100,4)), the
+   card
    line, and the last line ``{"ok": true,
    "device": {...}}``.
 
@@ -697,6 +720,9 @@ GNN100 = ("policy=gnn", "obs_mode=knn", "num_agents_per_formation=100",
           "num_formation=1024", "preset=tpu", "total_timesteps=30720000")
 GNN1024 = ("policy=gnn", "obs_mode=knn", "num_agents_per_formation=1024",
            "num_formation=8", "preset=tpu", "total_timesteps=983040")
+# gnn100's command at 20 iterations (scen100's since phase 16 was paid
+# for).
+GNN100_20 = GNN100[:-1] + ("total_timesteps=20480000",)
 MLP_DEFAULT = ("total_timesteps=100000",)  # M=1000, N=5: 2 iterations
 TPU_GNN100_CURVE = {1: -37.56, 5: -25.94, 10: -9.49, 20: 7.74, 30: 8.71}
 LEARN_MARGIN = 20.0
@@ -1074,11 +1100,14 @@ def train_phase():
         latest_checkpoint,
     )
 
+    kept = {}
     trainer, rewards, got, captured_s = train_run(
         "smoke_gnn100", GNN100 + ("fused_chunk=10",),
-        "gnn100 M=1024 N=100 fused_chunk=10")
+        "gnn100 M=1024 N=100 fused_chunk=10",
+        before_train=lambda t: kept.update(params=keep_params(t, (1, 2, 3))))
+    # Phase 16 holds dp100x1 and dp100x2 against these.
     gnn100 = {"rewards": rewards, "s_iter": captured_s,
-              "model": trainer.model,
+              "model": trainer.model, "params_at": kept["params"],
               "ckpt": latest_checkpoint(trainer.log_dir)}
     want = 1 + len(rewards) * trainer.ppo.n_steps
     if got != {"knn_fused": want, "knn_tiled": 0}:
@@ -1686,11 +1715,14 @@ def curriculum_phase():
 # gnn100's command under a 3-stage scenario schedule; the changes at
 # iterations 12 and 24 fall inside the 10-iteration chunks.
 SCEN100_SCHEDULE = (
-    "scenarios=[{rollouts: 12, scenarios: [clean]}, {rollouts: 12, "
+    "scenarios=[{rollouts: 12, scenarios: [clean]}, {rollouts: 5, "
     "scenarios: [wind, sensor_noise, actuator_fault], severity: 0.5}, "
-    "{rollouts: 6, scenarios: [storm], severity: 1.0}]")
-SCEN100 = GNN100 + ("fused_chunk=10", SCEN100_SCHEDULE)
-SCEN100_STAGES = ((0, 12), (12, 24), (24, 30))
+    "{rollouts: 3, scenarios: [storm], severity: 1.0}]")
+# 20 iterations (30, stages of 12, 12 and 6, before phase 16 was paid for):
+# the learning gate reads the clean stage, which keeps its 12.
+SCEN100_ITERS = 20
+SCEN100 = GNN100_20 + ("fused_chunk=10", SCEN100_SCHEDULE)
+SCEN100_STAGES = ((0, 12), (12, 17), (17, 20))
 SCENARIO_EVALS = ("wind", "storm")
 IDENTITY_STEPS = 50
 
@@ -1827,25 +1859,27 @@ def scen100_run(gnn100):
         before_train=track)
     del trainer._iteration.run
     want = 1 + len(rewards) * trainer.ppo.n_steps
-    if len(rewards) != 30 or got != {"knn_fused": want, "knn_tiled": 0}:
+    if len(rewards) != SCEN100_ITERS or got != {"knn_fused": want,
+                                                "knn_tiled": 0}:
         raise AssertionError(f"scen100: {len(rewards)} iterations, launches "
-                             f"{got}, want 30 and fused {want}")
+                             f"{got}, want {SCEN100_ITERS} and fused {want}")
     schedule = schedule_from_cfg(SCEN100_SCHEDULE.split("=", 1)[1],
                                  default_severity=0.5)
     severities = [r["scenario_severity"] for r in trainer.smoke_records]
-    expect = [float(np.float32(schedule.severity_at(i))) for i in range(30)]
+    expect = [float(np.float32(schedule.severity_at(i)))
+              for i in range(SCEN100_ITERS)]
     if severities != expect:
         raise AssertionError(f"scen100 severities {severities} != the "
                              f"schedule's {expect}")
     final = (trainer.graph_count(), [id(p.graph) for p in trainer._phases])
-    at = {i: graphs[i][0] for i in (11, 12, 23, 24)}
+    at = {i: graphs[i][0] for i in (11, 12, 16, 17)}
     if not (set(at.values()) == {3} and final[0] == 3
             and graphs[2][1] == final[1]):
         raise AssertionError(f"scen100 graphs before/after iterations 12 "
-                             f"and 24: {at}, at the end {final[0]}; the same "
+                             f"and 17: {at}, at the end {final[0]}; the same "
                              f"graph objects: {graphs[2][1] == final[1]}")
     print(f"[graphs] scen100: captured graphs before and after the stage "
-          f"changes (iterations 12, 13, 24, 25): {list(at.values())}; at the "
+          f"changes (iterations 12, 13, 17, 18): {list(at.values())}; at the "
           f"end {final[0]}, the same graph objects as at iteration 3")
     if rewards[0] != gnn100["rewards"][0]:
         raise AssertionError(f"scen100 iteration 1 {rewards[0]!r} != "
@@ -2068,7 +2102,7 @@ MATRIX1024_SCENARIOS = ("clean", "storm")
 MATRIX1024_SEVERITIES = (0.0, 1.0)
 MATRIX_RTOL = 1e-5  # a captured cell against the eager evaluate_scenario
 ADVERSARY = ("scenarios=[wind,storm,actuator_fault,sensor_noise]",
-             "search_grid=6", "search_generations=2", "eval_formations=64")
+             "search_grid=6", "search_generations=1", "eval_formations=64")
 ADVERSARY_M = 64
 # gnn100's command on pursuit-evasion, 20 iterations.
 CHASE100 = GNN100[:-1] + ("env=pursuit_evasion", "total_timesteps=20480000",
@@ -2215,7 +2249,7 @@ def matrix1024(ckpt):
 
 def adversary100(gnn100, scen100_ckpt):
     """``adversary100``: the falsifier-search CLI on ``gnn100``'s and
-    ``scen100``'s checkpoints (4 families, grid 6, 2 generations, M=64:
+    ``scen100``'s checkpoints (4 families, grid 6, 1 generation, M=64:
     P=25, 1600 formations), one build across both; each falsifier and the
     highest safe probe below it re-evaluated through the search's
     ``evaluate_cells``: drop above the tolerance, and at most it. Then one
@@ -4845,6 +4879,449 @@ def storm_phase():
     return launches
 
 
+# Phase 16: data parallelism over formations and the agent-axis ring
+# (parallel/), on one card. dp100x1 is gnn100's command for 3 iterations,
+# mesh={dp: 1}, in a one-rank NCCL group in this process; dp100x2 the same
+# command at mesh={dp: 2}, two ranks on cuda:0 (gloo on the card's
+# tensors) started by parallel.launch, held against gnn100 after 2
+# iterations and timed over 3 more; ring100x2 make_ring_step at N=100,
+# k=4, M=64, sp=2 on the same two ranks against step_batch for 8 steps
+# (tests/test_parallel.py:99-135's tolerances).
+GNN100_ITERATION = 10 * 1024 * 100  # agent-transitions an iteration
+DP100 = GNN100[:-1]
+DP100X1 = DP100 + (f"total_timesteps={3 * GNN100_ITERATION}",
+                   "mesh={dp: 1}")
+DP100X2 = DP100 + (f"total_timesteps={5 * GNN100_ITERATION}",
+                   "mesh={dp: 2}")
+DP_COMPARE_AT, DP_TIMED = 2, 3
+# dp100x2's gate after 2 iterations: JAX's own tolerance for dp against the
+# single run (tests/test_parallel.py:45-66) on every leaf but the policy's
+# own (log_std, actor.*), which are held to DP_POLICY_ATOL absolute. Their
+# gradient is the clipped surrogate's alone. The ranks' forward passes run
+# on half the rows, so their rounding differs from the single run's, and
+# a row whose ratio lies within that rounding of 1 +- clip_range takes the
+# clipped branch in one run and not in the other: the row's term of a
+# 16384-row mean leaves or joins a gradient that is mostly noise, and Adam
+# carries it into the step. DP_POLICY_ATOL is 3.4x the largest such drift
+# measured on the card (5.817e-5 on log_std); with the clip out of reach
+# (clip_range=1e6) every leaf holds JAX's tolerance, and a rank's doubled
+# loss share or advantages normalised a rank fail the gate (PERF.md,
+# chip_ab.py --cell dp100x2).
+DP_RTOL, DP_ATOL = 1e-4, 1e-6
+DP_POLICY_ATOL = 2e-4
+RING100 = {"num_agents": 100, "knn_k": 4, "M": 64, "steps": 8}
+
+
+def keep_params(trainer, at):
+    """Device copies of ``trainer``'s parameters after each iteration in
+    ``at`` (queued behind it on the caller's stream, no sync), taken at
+    the "end" mark of ``trainer.phase_hook``; returns the dict they go
+    into."""
+    kept, count = {}, [0]
+    inner = trainer.phase_hook
+
+    def hook(phase):
+        if inner is not None:
+            inner(phase)
+        if phase == "end":
+            count[0] += 1
+            if count[0] in at:
+                kept[count[0]] = {k: p.detach().clone() for k, p in
+                                  trainer.model.named_parameters()}
+
+    trainer.phase_hook = hook
+    return kept
+
+
+def params_digest(named):
+    """A digest of a model's parameter bytes (ranks compare theirs)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, p in sorted(named.items()):
+        h.update(k.encode())
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def policy_leaf(name):
+    """Whether a parameter is the policy's own (its gradient is the
+    clipped surrogate's alone)."""
+    return name == "log_std" or name.startswith("actor.")
+
+
+def params_error(got, want, label=None):
+    """``(max abs error, elements beyond DP_RTOL/DP_ATOL, leaves beyond
+    dp100x2's gate)`` over every leaf; with ``label``, a line a leaf: its
+    max abs error, its largest value and its elements beyond JAX's
+    tolerance."""
+    err, beyond, failing = 0.0, 0, []
+    for k, w in want.items():
+        g, w = got[k].detach().to(w.device), w.detach()
+        diff = (g - w).abs()
+        top = float(diff.max())
+        err = max(err, top)
+        out = int((diff > DP_ATOL + DP_RTOL * w.abs()).sum())
+        beyond += out
+        if (not top <= DP_POLICY_ATOL) if policy_leaf(k) else out:
+            failing.append(f"{k} {top:.3e}")
+        if label is not None:
+            print(f"[dp] {label} {k} {tuple(w.shape)}: max abs {top:.3e}, "
+                  f"max |w| {float(w.abs().max()):.3e}, {out} of "
+                  f"{w.numel()} beyond rtol {DP_RTOL} atol {DP_ATOL}")
+    return err, beyond, failing
+
+
+def ring_check(mesh, dev):
+    """``ring100x2`` on this rank: ``make_ring_step`` on its slab against
+    its rows of ``step_batch``, 8 steps through auto-resets; returns the
+    max errors and whether each is within its tolerance."""
+    import torch
+
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.env.formation import (
+        reset_batch,
+        step_batch,
+    )
+    from marl_distributedformation_tpu_torch.parallel import (
+        make_ring_step,
+        place_ring_state,
+    )
+
+    params = EnvParams(num_agents=RING100["num_agents"], obs_mode="knn",
+                       knn_k=RING100["knn_k"], max_steps=3)
+    m = RING100["M"]
+    g_ref = torch.Generator(device=dev).manual_seed(7)
+    g_ring = torch.Generator(device=dev).manual_seed(7)
+    g_vel = torch.Generator(device=dev).manual_seed(11)
+    ref = reset_batch(params, m, g_ref, dev)
+    ring = place_ring_state(reset_batch(params, m, g_ring, dev), mesh)
+    step = make_ring_step(params, mesh)
+    tol = {"obs": (1e-5, 1e-6), "reward": (1e-4, 1e-4),
+           "metrics": (1e-4, 1e-4), "agents": (1e-5, 1e-5)}
+    err = dict.fromkeys(tol, 0.0)
+    ok = dict.fromkeys(tol, True)
+    done_equal = True
+
+    def note(key, got, want):
+        err[key] = max(err[key], float((got - want).abs().max()))
+        rtol, atol = tol[key]
+        ok[key] = ok[key] and bool(torch.allclose(got, want, rtol=rtol,
+                                                  atol=atol))
+
+    for _ in range(RING100["steps"]):
+        vel = 20 * torch.rand((m, params.num_agents, 2), generator=g_vel,
+                              device=dev) - 10
+        ref, tr_ref = step_batch(ref, vel, params, g_ref)
+        ring, tr = step(ring, mesh.take(vel), g_ring)
+        note("obs", tr.obs, mesh.take(tr_ref.obs))
+        note("reward", tr.reward, mesh.take(tr_ref.reward))
+        note("agents", ring.agents, mesh.take(ref.agents))
+        for k, v in tr_ref.metrics.items():
+            note("metrics", tr.metrics[k], v)
+        done_equal = done_equal and bool(torch.equal(tr.done, tr_ref.done))
+    return {"max_abs_err": err, "within": ok, "done_bitwise": done_equal,
+            "ok": all(ok.values()) and done_equal}
+
+
+def plant_fault(name):
+    """A deliberate fault in this rank's loss, to show that dp100x2's gate
+    can fail: ``share`` doubles rank 1's loss share, ``advnorm``
+    normalises the advantages over the rank's rows instead of the whole
+    minibatch."""
+    import dataclasses
+
+    from marl_distributedformation_tpu_torch.algo import ppo
+    from marl_distributedformation_tpu_torch.parallel import distributed
+
+    loss_fn = ppo.ppo_loss
+
+    def planted(model, mb, config, ent_coef=None, rows=None):
+        if name == "share":
+            loss, metrics = loss_fn(model, mb, config, ent_coef, rows)
+            return (2 * loss if distributed.process_index() == 1
+                    else loss), metrics
+        if rows is None:
+            return loss_fn(model, mb, config, ent_coef, rows)
+        start, count = rows
+        adv = mb.advantages.clone()
+        own = adv.narrow(0, start, count)
+        own.copy_((own - own.mean()) / (own.std() + 1e-8))
+        return loss_fn(model, dataclasses.replace(mb, advantages=adv),
+                       dataclasses.replace(config, normalize_advantage=False),
+                       ent_coef, rows)
+
+    ppo.ppo_loss = planted
+
+
+def collectives_check(dev):
+    """The port's all-reduce, all-gather and broadcast on the card's
+    tensors as they are, each result checked (raises when one is wrong)."""
+    import torch
+
+    from marl_distributedformation_tpu_torch.parallel import distributed
+
+    rank = distributed.process_index()
+    got = {
+        "all_reduce": distributed.all_reduce_sum(
+            torch.full((4,), rank + 1.0, device=dev)),
+        "all_gather": distributed.all_gather(
+            torch.full((4,), float(rank), device=dev)),
+        "broadcast": distributed.broadcast_(
+            torch.full((4,), rank + 7.0, device=dev)),
+    }
+    want = {"all_reduce": torch.full((4,), 3.0),
+            "all_gather": torch.tensor([[0.0] * 4, [1.0] * 4]),
+            "broadcast": torch.full((4,), 7.0)}
+    for k, v in got.items():
+        if not (v.is_cuda and torch.equal(v.cpu(), want[k])):
+            raise AssertionError(f"rank {rank}: gloo {k} on the card gave "
+                                 f"{v.tolist()}")
+    return sorted(got)
+
+
+def allreduce_ms(dev, numel, reps=100):
+    """Mean ms of one gloo all-reduce of ``numel`` float32 values on the
+    card, two ways in alternating blocks: the card's tensor as it is (the
+    port's path) and through a fresh pinned host copy (copied down, the
+    stream synchronized, reduced, copied back)."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.zeros(numel, device=dev)
+    ms = {"direct": 0.0, "staged": 0.0}
+    for block in range(4):
+        for way in sorted(ms, reverse=block % 2 == 1):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                if way == "direct":
+                    dist.all_reduce(t)
+                    continue
+                host = torch.empty(numel, pin_memory=True)
+                host.copy_(t, non_blocking=True)
+                torch.cuda.current_stream(dev).synchronize()
+                dist.all_reduce(host)
+                t.copy_(host, non_blocking=True)
+            torch.cuda.synchronize()
+            ms[way] += (time.perf_counter() - t0) * 1e3 / reps / 4
+    return ms
+
+
+def dp_worker(argv):
+    """One rank of ``dp100x2`` and ``ring100x2``, started by
+    ``parallel.launch`` (``python3 chip_smoke.py --dp-worker <dir>
+    [--plant NAME] [override ...]``): prints one ``DPWORKER {json}``
+    line."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from marl_distributedformation_tpu_torch.ops import _build, knn_cuda
+    from marl_distributedformation_tpu_torch.parallel import (
+        make_mesh,
+        shutdown_distributed,
+    )
+    from marl_distributedformation_tpu_torch.parallel import distributed
+    from marl_distributedformation_tpu_torch.train import cli
+
+    out_dir, extra = argv[0], list(argv[1:])
+    if extra[:1] == ["--plant"]:
+        plant_fault(extra[1])
+        extra = extra[2:]
+    _build.build([knn_cuda.SOURCE])  # built in phase 1: loads it
+    knn_cuda.reset_launches()
+    trainer = cli.build_trainer(["name=smoke_dp100x2", "device=cuda",
+                                 *DP100X2, *extra])
+    rank, dev = distributed.process_index(), trainer.device
+    block = tuple(trainer.env_state.agents.shape)
+    if block != (512, 100, 2):
+        raise AssertionError(f"rank {rank}: block {block}, want 512x100x2")
+    named = dict(trainer.model.named_parameters())
+    reward_1 = None
+    for i in range(1, DP_COMPARE_AT + 1):
+        metrics = trainer.run_iteration()
+        if reward_1 is None:
+            reward_1 = float(metrics["reward"])
+        if rank == 0:
+            torch.save({k: p.detach().cpu() for k, p in named.items()},
+                       Path(out_dir) / f"params_{i}.pt")
+    torch.cuda.synchronize()
+    digest = params_digest(named)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(DP_TIMED):
+        trainer.run_iteration()
+    end.record()
+    torch.cuda.synchronize()
+    s_iter = start.elapsed_time(end) / 1e3 / DP_TIMED
+    launches = dict(knn_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    collectives = collectives_check(dev)
+    numel = sum(p.numel() for p in trainer.model.parameters())
+    allreduce = allreduce_ms(dev, numel)
+    knn_cuda.reset_launches()
+    ring = ring_check(make_mesh({"dp": 1, "sp": 2}), dev)
+    print("DPWORKER " + json.dumps({
+        "rank": rank, "backend": distributed.backend(),
+        "block": list(block),
+        "launches": launches, "digest": digest, "s_iter": s_iter,
+        "peak_gib": peak, "collectives": collectives,
+        "allreduce_numel": numel, "allreduce_ms": allreduce,
+        "graphs": trainer.graph_count(), "ring": ring,
+        "reward_1": reward_1,
+        "steps_per_iteration": trainer.step // (DP_COMPARE_AT + DP_TIMED),
+    }), flush=True)
+    shutdown_distributed()
+    return 0
+
+
+def dp100x1(gnn100):
+    """``dp100x1``: gnn100's command at mesh={dp: 1} through the train CLI
+    in a one-rank NCCL group in this process, 3 iterations, against
+    gnn100's parameters after 3: bitwise (one rank keeps the single run's
+    reductions)."""
+    import os
+
+    from marl_distributedformation_tpu_torch.parallel import distributed
+    from marl_distributedformation_tpu_torch.parallel.launch import (
+        free_port,
+    )
+
+    os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+                      LOCAL_WORLD_SIZE="1", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(free_port()))
+    try:
+        trainer, _, launches, s_iter = train_run(
+            "smoke_dp100x1", DP100X1, "dp100x1 mesh={dp: 1} M=1024 N=100, "
+            "a one-rank NCCL group")
+        if distributed.backend() != "nccl":
+            raise AssertionError(f"dp100x1 backend {distributed.backend()}")
+        named = dict(trainer.model.named_parameters())
+        want = gnn100["params_at"][3]
+        equal = all(bool((named[k] == w).all()) for k, w in want.items())
+        err, _, _ = params_error(named, want)  # the gap when not equal
+        if not equal:
+            raise AssertionError(f"dp100x1 parameters differ from gnn100's "
+                                 f"after 3 iterations: max abs {err}")
+        if launches != {"knn_fused": 31, "knn_tiled": 0}:
+            raise AssertionError(f"dp100x1 launches {launches}, want 31")
+        print(f"[dp] dp100x1: parameters after 3 iterations equal gnn100's "
+              f"bitwise; {s_iter:.4f} s/iteration steady against gnn100's "
+              f"{gnn100['s_iter']:.4f} ({s_iter / gnn100['s_iter']:.3f}x), "
+              f"{trainer.graph_count()} graphs; knn_fused {launches} "
+              "launches at (1024,100,4)")
+        return launches["knn_fused"]
+    finally:
+        distributed.shutdown_distributed()
+        for key in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "LOCAL_WORLD_SIZE",
+                    "MASTER_ADDR", "MASTER_PORT"):
+            os.environ.pop(key, None)
+
+
+def dp100x2(gnn100, plant=None, extra=()):
+    """``dp100x2`` and ``ring100x2``: two ranks on cuda:0 started by
+    ``parallel.launch``, with ``plant_fault(plant)`` and the train
+    overrides ``extra`` when given; returns each rank's ``knn_fused``
+    launches and the slower rank's s/iteration."""
+    import shutil
+
+    import torch
+
+    from marl_distributedformation_tpu_torch.parallel.launch import launch
+
+    out_dir = ROOT / "logs" / "smoke_dp100x2"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    planted = ["--plant", plant] if plant else []
+    results = launch([str(ROOT / "chip_smoke.py"), "--dp-worker",
+                      str(out_dir), *planted, *extra], nprocs=2, timeout=240,
+                     cwd=str(ROOT))
+    wall = time.perf_counter() - t0
+    reports = []
+    for rank, (code, out) in enumerate(results):
+        lines = [ln for ln in out.splitlines() if ln.startswith("DPWORKER ")]
+        if code != 0 or not lines:
+            print(out[-4000:])
+            raise AssertionError(f"dp100x2 rank {rank} failed (exit {code})")
+        reports.append(json.loads(lines[-1][len("DPWORKER "):]))
+    errs = {}
+    for i in range(1, DP_COMPARE_AT + 1):
+        errs[i] = params_error(
+            torch.load(out_dir / f"params_{i}.pt"), gnn100["params_at"][i],
+            f"dp100x2 after {i} iteration(s):" if i == DP_COMPARE_AT
+            else None)
+    err, beyond, failing = errs[DP_COMPARE_AT]
+    if failing:
+        raise AssertionError(f"dp100x2 parameters after {DP_COMPARE_AT} "
+                             f"iterations beyond the gate (rtol {DP_RTOL} "
+                             f"atol {DP_ATOL}; the policy's leaves "
+                             f"{DP_POLICY_ATOL} absolute): {failing}")
+    # Before any update the rollouts differ only by the rounding of the
+    # GNN's matmuls on half the formations (as pop4's member 0, phase 6).
+    r1, want1 = reports[0]["reward_1"], gnn100["rewards"][0]
+    if not abs(r1 - want1) <= ITER1_RTOL * abs(want1):
+        raise AssertionError(f"dp100x2 iteration 1 reward {r1} != gnn100's "
+                             f"{want1} within rtol {ITER1_RTOL}")
+    digests = {r["digest"] for r in reports}
+    if len(digests) != 1:
+        raise AssertionError(f"dp100x2 ranks hold different parameters: "
+                             f"{digests}")
+    want = 1 + (DP_COMPARE_AT + DP_TIMED) * 10
+    for r in reports:
+        if r["launches"] != {"knn_fused": want, "knn_tiled": 0}:
+            raise AssertionError(f"dp100x2 rank {r['rank']} launches "
+                                 f"{r['launches']}, want {want}")
+        if not r["ring"]["ok"]:
+            raise AssertionError(f"ring100x2 rank {r['rank']}: {r['ring']}")
+    s_iter = max(r["s_iter"] for r in reports)
+    print(f"[dp] dp100x2: iteration 1 reward {r1:.6f} against gnn100's "
+          f"{want1:.6f}; parameters against gnn100's after 1 iteration max "
+          f"abs {errs[1][0]:.3e} ({errs[1][1]} elements beyond rtol "
+          f"{DP_RTOL} atol {DP_ATOL}), after {DP_COMPARE_AT} max abs "
+          f"{err:.3e} ({beyond} beyond; the policy's leaves within "
+          f"{DP_POLICY_ATOL} absolute, the others within JAX's tolerance); "
+          "both ranks' digests equal; backend "
+          f"{reports[0]['backend']} on the card's tensors "
+          f"({', '.join(reports[0]['collectives'])} checked); each rank's "
+          "block "
+          f"{reports[0]['block']}, knn_fused {want} launches a rank at "
+          f"(512,100,4); {reports[0]['graphs']} graphs a rank")
+    ar = reports[0]["allreduce_ms"]
+    print(f"[dp] dp100x2: one gloo all-reduce of the "
+          f"{reports[0]['allreduce_numel']} parameters' float32 on the card, "
+          f"rank 0: {ar['direct']:.4f} ms as they are (the port's path), "
+          f"{ar['staged']:.4f} ms through a fresh pinned host copy "
+          "(alternating blocks of 100)")
+    print(f"[dp] dp100x2: {s_iter:.4f} s/iteration over {DP_TIMED} "
+          f"iterations (the slower rank; ranks "
+          f"{[round(r['s_iter'], 4) for r in reports]}) beside gnn100's "
+          f"{gnn100['s_iter']:.4f}: two processes time-sharing one card, "
+          f"not a scaling figure; peak "
+          f"{[round(r['peak_gib'], 2) for r in reports]} GiB a rank; "
+          f"launch to exit {wall:.1f} s")
+    for r in reports:
+        ring = r["ring"]
+        print(f"[dp] ring100x2 rank {r['rank']} (N=100 k=4 M=64 sp=2, 8 "
+              f"steps): max abs obs {ring['max_abs_err']['obs']:.2e}, reward "
+              f"{ring['max_abs_err']['reward']:.2e}, metrics "
+              f"{ring['max_abs_err']['metrics']:.2e}, agents "
+              f"{ring['max_abs_err']['agents']:.2e}; done bitwise "
+              f"{ring['done_bitwise']}")
+    return [r["launches"]["knn_fused"] for r in reports], s_iter
+
+
+def parallel_phase(gnn100):
+    """Phase 16; returns ``dp100x1``'s launches and each ``dp100x2`` rank's,
+    and dp100x2's s/iteration."""
+    x1 = dp100x1(gnn100)
+    elapsed("dp100x1")
+    x2, s_iter = dp100x2(gnn100)
+    elapsed("dp100x2, ring100x2")
+    return {"dp100x1": x1, "dp100x2": x2, "s_iter": s_iter}
+
+
 def main() -> int:
     import torch
 
@@ -4886,7 +5363,8 @@ def main() -> int:
                        "population61": (61 * ADVERSARY_M, 100, 4),
                        "playback": (1, 100, 4),
                        "gate": (ALWAYS_GATE_M, 100, 4),
-                       "storm_gate": (STORM_GATE_M, 100, 4)}),
+                       "storm_gate": (STORM_GATE_M, 100, 4),
+                       "dp": (512, 100, 4)}),
         "knn_tiled": (knn_cuda.knn_tiled, 50,
                       {"train": (8, 1024, 4), "eval": (512, 1024, 4),
                        "population": (16, 1024, 4),
@@ -4985,6 +5463,11 @@ def main() -> int:
     # Phase 15: the chaos storm, this slice's main path.
     storm_launches = storm_phase()
     elapsed("phase 15, chaos storm")
+
+    # Phase 16: data parallelism and the agent-axis ring, this slice's
+    # main path.
+    dp = parallel_phase(gnn100)
+    elapsed("phase 16, dp and the ring")
 
     replaces = {
         "knn_fused": "marl_distributedformation_tpu/ops/knn_pallas.py:117",
@@ -5093,6 +5576,12 @@ def main() -> int:
         "storm_sebulba100": {
             "launches": storm_launches["storm_sebulba100"]["knn_fused"],
             **stats["knn_fused"]["gate"]}}
+    # Phase 16: each dp100x2 rank's block at (512,100,4) (timed above);
+    # dp100x1's one rank at the train shape.
+    kernels[0]["dp"] = {
+        "path": "train dp100x2, each rank's block",
+        "launches": dp["dp100x2"], "dp100x1_launches": dp["dp100x1"],
+        "dp100x2_s_iter": dp["s_iter"], **stats["knn_fused"]["dp"]}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -5103,4 +5592,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(sys.argv[2:]))
     sys.exit(main())

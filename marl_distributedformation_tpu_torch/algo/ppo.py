@@ -113,20 +113,22 @@ def ppo_loss(
     mb: MinibatchData,
     config: PPOConfig,
     ent_coef: Union[float, Tensor, None] = None,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Clipped-surrogate PPO loss on one minibatch (SB3 semantics) and its
     metrics (detached). ``ent_coef`` (a float or a 0-d tensor) overrides
     ``config.ent_coef`` when the entropy coefficient is scheduled. With
     ``mb.weights``, the policy and value losses, ``approx_kl`` and
     ``clip_fraction`` are weighted means and the advantages are normalised
-    over the weighted rows (at least 2, variance over ``n - 1``)."""
-    if mb.mask is not None:
-        mean, log_std, values = model(mb.obs, mb.mask)
-    else:
-        mean, log_std, values = model(mb.obs)
-    log_probs = distributions.log_prob(mb.actions, mean, log_std)
-    ent = distributions.entropy(log_std)
+    over the weighted rows (at least 2, variance over ``n - 1``).
 
+    ``rows`` ``(start, count)`` is one rank's contiguous share of the
+    minibatch (``DataParallelUpdate``): the advantages are normalised over
+    the whole minibatch, the model runs on the rows only, and the loss and
+    every metric are the rows' share of the whole minibatch's (sums over
+    the rows over the whole's count or weight; the entropy times
+    ``count / b``), so that the ranks' shares add up to the single
+    run's."""
     w = mb.weights
     advantages = mb.advantages
     if config.normalize_advantage:
@@ -144,13 +146,43 @@ def ppo_loss(
             advantages = (advantages - adv_mean) / (
                 torch.sqrt(adv_var) + 1e-8
             )
+    share = 1.0
+    if rows is None:
+        def mean(x: Tensor) -> Tensor:
+            return _wmean(x, w)
+    else:
+        start, count = rows
+        share = count / mb.obs.shape[0]
+        total = (float(mb.advantages.numel()) if w is None
+                 else torch.clamp_min(w.sum(), 1e-8))
+        mb = MinibatchData(**{
+            f.name: None if getattr(mb, f.name) is None
+            else getattr(mb, f.name).narrow(0, start, count)
+            for f in dataclasses.fields(mb)
+        })
+        advantages = advantages.narrow(0, start, count)
+        w = mb.weights
+
+        def mean(x: Tensor) -> Tensor:
+            if w is None:
+                return x.sum() / total
+            return (x * w.reshape(x.shape)).sum() / total
+
+    if mb.mask is not None:
+        out_mean, log_std, values = model(mb.obs, mb.mask)
+    else:
+        out_mean, log_std, values = model(mb.obs)
+    log_probs = distributions.log_prob(mb.actions, out_mean, log_std)
+    ent = distributions.entropy(log_std)
+    if rows is not None:
+        ent = ent * share
 
     ratio = torch.exp(log_probs - mb.old_log_probs)
     unclipped = advantages * ratio
     clipped = advantages * torch.clamp(
         ratio, 1.0 - config.clip_range, 1.0 + config.clip_range
     )
-    policy_loss = -_wmean(torch.minimum(unclipped, clipped), w)
+    policy_loss = -mean(torch.minimum(unclipped, clipped))
 
     if config.clip_range_vf is not None:
         # SB3's value clipping around the rollout-time values, recovered
@@ -159,7 +191,7 @@ def ppo_loss(
         values = old_values + torch.clamp(
             values - old_values, -config.clip_range_vf, config.clip_range_vf
         )
-    value_loss = _wmean((mb.returns - values) ** 2, w)
+    value_loss = mean((mb.returns - values) ** 2)
     entropy_loss = -ent
 
     coef = config.ent_coef if ent_coef is None else ent_coef
@@ -170,10 +202,9 @@ def ppo_loss(
             "policy_loss": policy_loss.detach(),
             "value_loss": value_loss.detach(),
             "entropy": ent.detach(),
-            "approx_kl": _wmean(mb.old_log_probs - log_probs, w),
-            "clip_fraction": _wmean(
-                ((ratio - 1.0).abs() > config.clip_range).to(torch.float32),
-                w,
+            "approx_kl": mean(mb.old_log_probs - log_probs),
+            "clip_fraction": mean(
+                ((ratio - 1.0).abs() > config.clip_range).to(torch.float32)
             ),
         }
     return loss, metrics
@@ -432,6 +463,119 @@ class PPOUpdate:
     def run(self) -> None:
         for _ in range(self.num_steps):
             self.step()
+
+
+ALIGN = 128  # float32 elements in 512 bytes
+
+
+def rank_rows(total: int, rank: int, world: int) -> Tuple[int, int]:
+    """``(start, count)``: rank ``rank``'s contiguous share of ``total``
+    rows split over ``world`` ranks (the first ``total % world`` ranks
+    take one more)."""
+    base, extra = divmod(total, world)
+    return rank * base + min(rank, extra), base + (rank < extra)
+
+
+class DataParallelUpdate(PPOUpdate):
+    """``PPOUpdate`` over the ranks of a data-parallel mesh: every rank
+    holds the whole rollout (gathered) and the same permutations, takes
+    its contiguous share of each global minibatch (``rank_rows``), and the
+    ranks' gradients are summed before optax's clip, so the update is the
+    single run's up to its rounding.
+
+    A minibatch step is three calls, so that the two around the sum can be
+    captured as CUDA graphs whatever the backend: ``grad_step`` (the
+    rows, the loss share of ``ppo_loss(rows=...)``, ``autograd.grad``, and
+    the gradients and metric shares into one flat buffer), ``reduce`` (the
+    buffer summed over the ranks by ``reduce_fn``, outside any graph), and
+    ``apply_step`` (the clip, Adam, the schedules' clock, the ``log_std``
+    ceiling and the metrics row). With one rank the loss is the single
+    run's, ``ppo_loss`` on the whole minibatch, and the step is the single
+    run's bitwise."""
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        opt_state: AdamState,
+        config: PPOConfig,
+        rows: int,
+        step_count: Tensor,
+        lr: Tensor,
+        rank: int = 0,
+        world: int = 1,
+        reduce_fn: Any = None,
+    ) -> None:
+        super().__init__(model, opt_state, config, rows, step_count, lr)
+        if self.batch_size < world:
+            raise ValueError(
+                f"a minibatch of {self.batch_size} rows does not split over "
+                f"{world} ranks"
+            )
+        self.rank_rows = (None if world == 1
+                          else rank_rows(self.batch_size, rank, world))
+        self.reduce_fn = reduce_fn
+        # Each gradient's slot starts on a 512-byte boundary, as a fresh
+        # allocation does: optax's global norm (``torch._foreach_norm``)
+        # may sum in another order on a less aligned view.
+        offsets, n = [], 0
+        for p in self._params:
+            offsets.append(n)
+            n += -(-p.numel() // ALIGN) * ALIGN
+        self.flat = torch.zeros(n + len(LOSS_METRICS), dtype=torch.float32,
+                                device=self.device)
+        self._grads = [self.flat[o:o + p.numel()].view_as(p)
+                       for o, p in zip(offsets, self._params)]
+        self._metric_shares = self.flat[n:]
+
+    def grad_step(self) -> None:
+        """The rank's loss share and gradients into ``flat``."""
+        at = self.counter.reshape(1)
+        idx = self.perms.index_select(0, at).reshape(-1)
+        mb = self.data.take(idx)
+        values = {} if self.schedules is None else self.schedules(
+            self.step_count
+        )
+        loss, metrics = ppo_loss(self.model, mb, self.config,
+                                 values.get("ent_coef"), self.rank_rows)
+        grads = torch.autograd.grad(loss, self._params)
+        with torch.no_grad():
+            for dst, src in zip(self._grads, grads):
+                dst.copy_(src)
+            self._metric_shares.copy_(
+                torch.stack([metrics[n] for n in LOSS_METRICS]))
+
+    def reduce(self) -> None:
+        """``flat`` summed over the ranks (the identity alone)."""
+        if self.reduce_fn is not None:
+            self.reduce_fn(self.flat)
+
+    def apply_step(self) -> None:
+        """The summed gradients through optax's clip and Adam, then the
+        clock, the ceiling and the metrics row."""
+        config = self.config
+        at = self.counter.reshape(1)
+        values = {} if self.schedules is None else self.schedules(
+            self.step_count
+        )
+        metrics = dict(zip(LOSS_METRICS, self._metric_shares.unbind(0)))
+        metrics["grad_norm"] = clipped_adam_step(
+            self._params, self._grads, self.opt_state, self.lr,
+            config.max_grad_norm, config.adam_eps,
+        )
+        metrics.update(values)
+        with torch.no_grad():
+            self.step_count.add_(1)
+            if "log_std_ceiling" in values:
+                for p in self._log_std:
+                    p.clamp_(max=values["log_std_ceiling"])
+            row = torch.stack([metrics[n] for n in self.names])
+            self.buf.index_copy_(0, at, row.reshape(1, -1))
+            self.counter.add_(1)
+
+    def step(self) -> None:
+        self.grad_step()
+        self.reduce()
+        self.apply_step()
 
 
 class PopulationUpdate(PPOUpdate):

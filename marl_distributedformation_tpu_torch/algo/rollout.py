@@ -13,7 +13,7 @@ agents.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -71,6 +71,7 @@ def collect_rollout(
     noise: Optional[Tensor] = None,
     forward: Optional[Callable[..., Tuple[Tensor, Tensor, Tensor]]] = None,
     mask: Optional[Tensor] = None,
+    block: Any = None,
 ) -> Tuple[FormationState, Tensor, RolloutBatch, Tensor]:
     """Roll ``n_steps`` steps of M formations under the current policy.
 
@@ -84,6 +85,10 @@ def collect_rollout(
     generators. ``mask (M, N)``, the agent mask of padded formations, goes
     to a per-formation model's every forward; it holds for the whole
     rollout, since an auto-reset keeps each formation's agent count.
+    ``block`` (a ``parallel.mesh.Mesh``) makes the formations a rank's
+    block of a mesh: each step draws the whole batch's action noise
+    (``block.whole_shape``) as the single run does and keeps the block's
+    (``block.take``); injected ``noise`` is the whole batch's too.
     Returns ``(env_state, last_obs, batch, last_value)``.
     """
     forward = forward or policy_forward
@@ -99,7 +104,12 @@ def collect_rollout(
     metrics: Dict[str, list] = {}
     for t in range(n_steps):
         mean, log_std, value = forward(model, obs, *masked)
-        if noise is None:
+        if block is not None:
+            eps = noise[t] if noise is not None else torch.randn(
+                block.whole_shape(mean.shape), generator=generator,
+                device=mean.device, dtype=mean.dtype)
+            action = mean + torch.exp(log_std) * block.take(eps)
+        elif noise is None:
             action = distributions.sample(generator, mean, log_std)
         else:
             action = mean + torch.exp(log_std) * noise[t]

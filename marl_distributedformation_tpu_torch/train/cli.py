@@ -78,7 +78,7 @@ from __future__ import annotations
 import json
 import sys
 from pathlib import Path
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -96,6 +96,17 @@ from marl_distributedformation_tpu_torch.obs import (
     configure_metrics,
     get_ledger,
 )
+from marl_distributedformation_tpu_torch.parallel import (
+    init_distributed,
+    is_coordinator,
+    make_hybrid_mesh,
+    make_shard_fn,
+    rank_device,
+)
+from marl_distributedformation_tpu_torch.parallel.distributed import (
+    process_index,
+    world_size,
+)
 from marl_distributedformation_tpu_torch.train.curriculum import (
     HeteroTrainer,
     curriculum_from_cfg,
@@ -105,7 +116,10 @@ from marl_distributedformation_tpu_torch.train.hetero_sweep import (
     HeteroSweepTrainer,
 )
 from marl_distributedformation_tpu_torch.train.sebulba import SebulbaDriver
-from marl_distributedformation_tpu_torch.train.sweep import SweepTrainer
+from marl_distributedformation_tpu_torch.train.sweep import (
+    SweepTrainer,
+    member_block,
+)
 from marl_distributedformation_tpu_torch.train.trainer import (
     TrainConfig,
     Trainer,
@@ -129,10 +143,9 @@ _UNLISTED_DEFAULTS = {
     "guard_retraces": 0, "guard_transfers": False, "guard_nans": False,
 }
 
-# Knobs of features not ported yet, and the ROADMAP item that ports each.
-UNPORTED = {
-    "mesh": "A12 (parallelism)",
-}
+# Knobs of features not ported yet, and the ROADMAP item that ports each
+# (none since A12 ported ``mesh``).
+UNPORTED: Dict[str, str] = {}
 
 
 def refuse_unported(cfg) -> None:
@@ -264,8 +277,17 @@ def snapshot_config(cfg, log_dir: str, device: torch.device) -> Path:
     return out
 
 
+def shard_fn_from_config(cfg):
+    """The ``mesh`` knob's ``shard_fn`` (``parallel.make_shard_fn`` over
+    ``make_hybrid_mesh``, a plain mesh of the world's ranks), or None;
+    the process group must be up (``parallel.init_distributed``)."""
+    if not cfg.get("mesh"):
+        return None
+    return make_shard_fn(mesh=make_hybrid_mesh(dict(cfg.mesh)))
+
+
 def build_hetero_trainer(
-    cfg, env_params, num_seeds: int, common: dict
+    cfg, env_params, num_seeds: int, common: dict, shard_fn=None
 ) -> Union[HeteroTrainer, HeteroSweepTrainer]:
     """The curriculum's trainer, as the root ``train.py``'s
     ``build_hetero_trainer``: formation env, ring observations, the MLP or
@@ -295,14 +317,16 @@ def build_hetero_trainer(
     curriculum = curriculum_from_cfg(cfg.curriculum)
     padded = padded_env_params(curriculum, env_params)
     if num_seeds > 1:
+        mesh = getattr(shard_fn, "mesh", None)
         return HeteroSweepTrainer(
             curriculum, env_params, num_seeds=num_seeds,
             models=[build_model(cfg, padded, policy, int(cfg.seed) + i)
-                    for i in range(num_seeds)],
-            **common,
+                    for i in member_block(num_seeds, mesh)],
+            mesh=mesh, **common,
         )
     return HeteroTrainer(curriculum, env_params,
-                         model=build_model(cfg, padded, policy), **common)
+                         model=build_model(cfg, padded, policy),
+                         shard_fn=shard_fn, **common)
 
 
 def build_trainer(
@@ -328,7 +352,14 @@ def build_trainer(
     refuse_unported(cfg)
     # At config time: an unknown scenario name exits naming the registry.
     scenario_schedule = scenario_schedule_from_config(cfg)
-    device = resolve_device(cfg.get("device"))
+    # The launcher's variables, when set, wire this process into its
+    # group (parallel/distributed.py); a mesh's rank has its own device.
+    if init_distributed(device=cfg.get("device")):
+        print(f"[train] multi-process: rank {process_index()} of "
+              f"{world_size()} on {rank_device(cfg.get('device'))}")
+    shard_fn = shard_fn_from_config(cfg)
+    device = (rank_device(cfg.get("device")) if shard_fn is not None
+              else resolve_device(cfg.get("device")))
     env_params = env_params_from_config(cfg)
     policy = cfg.get("policy", "mlp")
     train_cfg = train_config_from_config(cfg)
@@ -339,6 +370,12 @@ def build_trainer(
             "architecture=sebulba does not compose with curriculum "
             "training yet (the hetero stage machinery is Anakin-shaped); "
             "drop one of the two"
+        )
+    if train_cfg.architecture == "sebulba" and shard_fn is not None:
+        raise SystemExit(
+            "sebulba partitions WHOLE devices into actor/learner "
+            "slices; mesh sharding (shard_fn) is Anakin-only — drop "
+            "the mesh or use architecture=anakin"
         )
     if cfg.get("curriculum"):
         if num_seeds > 1 and learning_rates:
@@ -353,7 +390,8 @@ def build_trainer(
                 "(the hetero step is not scenario-wrapped); drop one of "
                 "the two"
             )
-        trainer = build_hetero_trainer(cfg, env_params, num_seeds, common)
+        trainer = build_hetero_trainer(cfg, env_params, num_seeds, common,
+                                       shard_fn)
         what = (f"{num_seeds} candidates x " if num_seeds > 1 else "") + (
             f"{trainer.curriculum.total_rollouts}-rollout curriculum of "
             f"{len(trainer.curriculum.stages)} stages, ")
@@ -391,24 +429,28 @@ def build_trainer(
                 "sweeps yet (the vmapped sweep iteration is not "
                 "scenario-wrapped); drop one of the two"
             )
+        mesh = getattr(shard_fn, "mesh", None)
         trainer = SweepTrainer(
             env_params, num_seeds=num_seeds,
             models=[build_model(cfg, env_params, policy, int(cfg.seed) + i)
-                    for i in range(num_seeds)],
-            learning_rates=learning_rates, **common,
+                    for i in member_block(num_seeds, mesh)],
+            learning_rates=learning_rates, mesh=mesh, **common,
         )
         what = f"{num_seeds} members x "
     else:
         trainer = Trainer(
             env_params, model=build_model(cfg, env_params, policy),
-            scenario_schedule=scenario_schedule, **common,
+            scenario_schedule=scenario_schedule, shard_fn=shard_fn, **common,
         )
         what = ""
         if scenario_schedule is not None:
             what = (f"{scenario_schedule.total_rollouts}-rollout scenario "
                     f"schedule of {len(scenario_schedule.stages)} stages "
                     f"over {', '.join(scenario_schedule.names)}, ")
-    snapshot_config(cfg, trainer.log_dir, device)
+    if shard_fn is not None:
+        what += f"mesh {shard_fn.mesh.shape} (rank {shard_fn.mesh.rank}), "
+    if is_coordinator():
+        snapshot_config(cfg, trainer.log_dir, device)
     print(
         f"[train] {cfg.name}: {what}M={cfg.num_formation} formations x "
         f"N={trainer.env_params.num_agents} agents, "
@@ -444,7 +486,7 @@ def main(argv=None) -> Union[Trainer, SweepTrainer]:
         if telemetry is not None:
             telemetry.stop()
         ledger = get_ledger()
-        if ledger.enabled and ledger.entries():
+        if ledger.enabled and ledger.entries() and is_coordinator():
             try:
                 path = ledger.write_census(
                     Path(trainer.log_dir) / "program_ledger.json")

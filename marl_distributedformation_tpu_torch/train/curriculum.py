@@ -33,6 +33,11 @@ Randomness: a stage draws its counts (``sample_stage_counts``) and then
 its reset from the run's device generator, which the iterations then draw
 from as a ``Trainer``'s do. Populations of the curriculum are
 ``train/hetero_sweep.py``'s.
+
+On a dp mesh (``shard_fn``) every rank draws the whole batch's counts and
+resets and keeps its formation block (``parallel.hetero_reset_batch_sharded``,
+the JAX package's sharded hetero reset); the loss weighs the gathered rows
+with the whole batch's layout. An 'sp' axis is refused.
 """
 
 from __future__ import annotations
@@ -55,6 +60,9 @@ from marl_distributedformation_tpu_torch.env.hetero import (
 from marl_distributedformation_tpu_torch.env.types import EnvParams
 from marl_distributedformation_tpu_torch.train.iteration import (
     PhasedIteration,
+)
+from marl_distributedformation_tpu_torch.parallel.distributed import (
+    hetero_reset_batch_sharded,
 )
 from marl_distributedformation_tpu_torch.train.trainer import (
     RESUME_KEYS,
@@ -238,7 +246,15 @@ class HeteroTrainer(Trainer):
         model: torch.nn.Module,
         device: DeviceLike = None,
         capture: bool = True,
+        shard_fn: Any = None,
     ) -> None:
+        mesh = getattr(shard_fn, "mesh", None)
+        if mesh is not None and mesh.axis_size("sp") > 1:
+            raise SystemExit(
+                "curriculum training shards formations over 'dp' only (the "
+                "padded formations' dynamic ring is not halo-exchanged); "
+                "drop 'sp' from the mesh"
+            )
         if int(config.iters_per_dispatch) > 1 or int(config.fused_chunk) > 0:
             raise SystemExit(
                 "iters_per_dispatch > 1 / fused_chunk do not compose with "
@@ -260,16 +276,26 @@ class HeteroTrainer(Trainer):
         self._active_agents = 0  # active agents of the stage's formations
         self.stage_index: Optional[int] = None
         super().__init__(env_params, ppo, config, model=model, device=device,
-                         capture=capture)
+                         capture=capture, shard_fn=shard_fn)
+
+    def _block_formations(self) -> int:
+        """This rank's formations (all of them without a mesh)."""
+        dp = 1 if self.mesh is None else self.mesh.axis_size("dp")
+        return self.config.num_formations // dp
 
     def _initial_env(self) -> Tuple[HeteroState, Tensor]:
-        return empty_hetero_state(self.env_params,
-                                  self.config.num_formations, self.device)
+        return empty_hetero_state(self.env_params, self._block_formations(),
+                                  self.device)
 
     def _iteration_options(self) -> Dict[str, Any]:
         return {"layout": HeteroLayout(self.env_params,
-                                       self.config.num_formations,
+                                       self._block_formations(),
                                        self.device)}
+
+    def _mesh_options(self) -> Dict[str, Any]:
+        # The whole batch's layout: the loss weights of the gathered rows.
+        return {"global_layout": HeteroLayout(
+            self.env_params, self.config.num_formations, self.device)}
 
     @property
     def layout(self) -> HeteroLayout:
@@ -290,8 +316,17 @@ class HeteroTrainer(Trainer):
         m = self.config.num_formations
         n_agents, n_obstacles = sample_stage_counts(
             self.generator, stage, m, self.device)
-        state = hetero_reset_batch(self.env_params, n_agents, n_obstacles,
-                                   self.generator, self.device)
+        if self.mesh is None:
+            state = hetero_reset_batch(self.env_params, n_agents,
+                                       n_obstacles, self.generator,
+                                       self.device)
+        else:
+            # The whole batch's counts and draws, this rank's block kept
+            # (parallel.hetero_reset_batch_sharded).
+            state = hetero_reset_batch_sharded(
+                self.generator, self.env_params, n_agents, n_obstacles,
+                self.mesh, self.device).tree
+            self._iteration.global_layout.set(n_agents, n_obstacles)
         self._iteration.reset_env(
             state, hetero_compute_obs(state, self.env_params))
         self._active_agents = int(n_agents.sum())

@@ -35,8 +35,11 @@ every stage. As in the JAX package:
   package wrote restores the learner and the counters; the streams start
   afresh and the partial stage starts again.
 
-The member-axis mesh and multi-host parts of the JAX package's trainer are
-not ported (ROADMAP A12).
+``mesh`` splits the candidates over 'dp' as ``SweepTrainer``'s does: each
+rank trains its member block, the records, checkpoints and the summary
+gather to the coordinator, and a resume is broadcast; the members' step
+counters are gathered every dispatch, so every rank's loop stops at one
+iteration.
 """
 
 from __future__ import annotations
@@ -69,8 +72,14 @@ from marl_distributedformation_tpu_torch.train.iteration import ENV_FIELDS
 from marl_distributedformation_tpu_torch.train.recovery import (
     nonfinite_flag_count,
 )
+from marl_distributedformation_tpu_torch.parallel.distributed import (
+    from_coordinator,
+    is_coordinator,
+    world_size,
+)
 from marl_distributedformation_tpu_torch.train.sweep import (
     SweepTrainer,
+    member_block,
     population_aggregate,
     write_sweep_summary,
 )
@@ -88,7 +97,6 @@ from marl_distributedformation_tpu_torch.utils.checkpoint import (
     save_checkpoint,
     save_sweep_state,
     sweep_state_path,
-    tree_to_host,
     write_atomic,
 )
 from marl_distributedformation_tpu_torch.utils.logging import (
@@ -118,6 +126,7 @@ class HeteroSweepTrainer(SweepTrainer):
         models: Sequence[torch.nn.Module],
         device: DeviceLike = None,
         capture: bool = True,
+        mesh: Any = None,
     ) -> None:
         if int(config.iters_per_dispatch) > 1:
             raise SystemExit(
@@ -130,22 +139,24 @@ class HeteroSweepTrainer(SweepTrainer):
         env_params = padded_env_params(curriculum, env_params)
         ppo = fill_ent_schedule(ppo, env_params, config,
                                 iterations=curriculum.total_rollouts)
-        self.num_timesteps_members = np.zeros(num_seeds, np.int64)
+        # This rank's members' counters (every member's without a mesh).
+        local = len(member_block(num_seeds, mesh))
+        self.num_timesteps_members = np.zeros(local, np.int64)
         self.completed_rollouts = 0
-        self._active_agents = np.zeros(num_seeds, np.int64)
+        self._active_agents = np.zeros(local, np.int64)
         # False until a stage reset (or an exact resume) fills the carry.
         self._stage_ready = False
         super().__init__(env_params, ppo, config, num_seeds, models=models,
-                         device=device, capture=capture)
+                         device=device, capture=capture, mesh=mesh)
 
     def _initial_env(self) -> Tuple[HeteroState, Tensor]:
         return empty_hetero_state(
-            self.env_params, self.num_seeds * self.config.num_formations,
+            self.env_params, len(self.members) * self.config.num_formations,
             self.device)
 
     def _iteration_options(self) -> Dict[str, Any]:
         return {"layout": HeteroLayout(
-            self.env_params, self.num_seeds * self.config.num_formations,
+            self.env_params, len(self.members) * self.config.num_formations,
             self.device)}
 
     @property
@@ -182,13 +193,14 @@ class HeteroSweepTrainer(SweepTrainer):
 
     def _refresh_active_agents(self) -> None:
         """The members' active agents, one read of the counts."""
-        counts = self.layout.n_agents.reshape(self.num_seeds, -1)
+        counts = self.layout.n_agents.reshape(len(self.members), -1)
         self._active_agents = counts.sum(-1).cpu().numpy().astype(np.int64)
 
     def _advance(self, rollouts: int) -> None:
         self.num_timesteps_members += (
             rollouts * self.ppo.n_steps * self._active_agents)
-        self.num_timesteps = int(self.num_timesteps_members.max(initial=0))
+        # The population's, so every rank's loop stops at one iteration.
+        self.num_timesteps = int(self._members_counters().max(initial=0))
         self.completed_rollouts += rollouts
         self._vec_steps_since_save += rollouts * self.ppo.n_steps
 
@@ -257,7 +269,7 @@ class HeteroSweepTrainer(SweepTrainer):
                             >= self.config.save_freq):
                         self.save()
             if metrics is not None and self.config.checkpoint:
-                final = tree_to_host(dict(metrics))
+                final = self._host_metrics(dict(metrics))
                 self.save()
                 self._write_summary(np.asarray(final["reward"]))
         finally:
@@ -321,7 +333,10 @@ class HeteroSweepTrainer(SweepTrainer):
         then a population record an iteration at the host loop's steps
         (from the members' counters before the chunk and the stage's
         active agents); returns the last iteration's member rewards."""
-        host = chunk.to_host()
+        host = {k: v.T for k, v in self._gather_members(
+            {k: np.ascontiguousarray(v.T)
+             for k, v in chunk.to_host().items()}).items()}
+        steps_before, active = self._members_counters(steps_before, active)
         self.skipped_updates += nonfinite_flag_count(host)
         meter.tick(self._formation_steps(r))
         for i in range(r):
@@ -338,7 +353,17 @@ class HeteroSweepTrainer(SweepTrainer):
             self.last_record = record
         return np.asarray(host["reward"][-1])
 
+    def _members_counters(self, *arrays: np.ndarray) -> Any:
+        """Per-member counters of every member (gathered on a mesh): the
+        given arrays, or the members' timesteps."""
+        arrays = arrays or (self.num_timesteps_members,)
+        out = self._gather_members({str(i): a for i, a in enumerate(arrays)})
+        out = [np.asarray(out[str(i)]) for i in range(len(arrays))]
+        return out[0] if len(out) == 1 else out
+
     def _write_summary(self, rewards: np.ndarray) -> None:
+        if not is_coordinator():
+            return
         write_sweep_summary(
             self.log_dir, self.config.seed, self.num_seeds, rewards,
             {"curriculum_rollouts": self.curriculum.total_rollouts},
@@ -375,18 +400,22 @@ class HeteroSweepTrainer(SweepTrainer):
         return trees, anchor
 
     def save(self) -> None:
-        """Every member's file, then the anchor, from one host copy."""
-        members = self.num_timesteps_members.copy()
-        trees, anchor = self._files(tree_to_host(self._checkpoint_state()),
-                                    members, self.completed_rollouts)
-        for member_dir, steps, tree in trees:
-            save_checkpoint(member_dir, steps, tree)
+        """Every member's file, then the anchor, from one host copy,
+        written by the coordinator."""
+        members = self._members_counters()
+        trees, anchor = self._files(self._population_host(), members,
+                                    self.completed_rollouts)
+        if is_coordinator():
+            for member_dir, steps, tree in trees:
+                save_checkpoint(member_dir, steps, tree, barrier=False)
+        # The anchor's barrier covers the member files too.
         save_sweep_state(self.log_dir, int(members.max(initial=0)), anchor)
         self._vec_steps_since_save = 0
 
     def _write_population_files(self, snapshot: Any, members: np.ndarray,
                                 rollouts: int) -> None:
-        trees, anchor = self._files(snapshot.result(), members, rollouts)
+        host = snapshot.result() if hasattr(snapshot, "result") else snapshot
+        trees, anchor = self._files(host, members, rollouts)
         for member_dir, steps, tree in trees:
             write_atomic(checkpoint_path(member_dir, steps), tree)
         write_atomic(sweep_state_path(self.log_dir,
@@ -395,44 +424,40 @@ class HeteroSweepTrainer(SweepTrainer):
     def save_async(self, writer: AsyncCheckpointWriter) -> None:
         """``save``'s files from a device snapshot, on ``writer``'s
         thread; the counters are taken now, with the snapshot."""
-        writer.submit_write(functools.partial(
-            self._write_population_files,
-            device_snapshot(self._checkpoint_state()),
-            self.num_timesteps_members.copy(), self.completed_rollouts,
-        ))
+        if self.mesh is not None and world_size() > 1:
+            # The gathers are collectives: on this thread, on every rank.
+            host, members = self._population_host(), self._members_counters()
+            if is_coordinator():
+                writer.submit_write(functools.partial(
+                    self._write_population_files, host, members,
+                    self.completed_rollouts))
+        else:
+            writer.submit_write(functools.partial(
+                self._write_population_files,
+                device_snapshot(self._checkpoint_state()),
+                self.num_timesteps_members.copy(), self.completed_rollouts,
+            ))
         self._vec_steps_since_save = 0
 
     def _try_resume(self) -> None:
         """Restore the newest anchor: the learner, the members' counters
         and the cursor; with the port's ``torch_`` keys also the
         generators, the env carry with its counts, the observation and the
-        steps, so that the run continues exactly, mid-stage included."""
-        path = latest_sweep_state(self.log_dir)
-        if path is None:
-            print("[hetero-sweep] resume=true but no sweep_state_* "
-                  f"population checkpoint under {self.log_dir}; starting "
-                  "fresh")
+        steps, so that the run continues exactly, mid-stage included. On a
+        mesh of several processes the coordinator reads and checks it and
+        every rank takes its member block (``SweepTrainer._try_resume``)."""
+        found = from_coordinator(self._read_anchor)
+        if found is None:
             return
-        raw = msgpack_restore_file(path)
-        for field, want in self._identity().items():
-            got = raw.get(field)
-            if got != want and str(got) != str(want):
-                raise SystemExit(
-                    f"hetero-sweep resume mismatch: {path} was written "
-                    f"with {field}={got!r} but this run uses {want!r} — "
-                    "candidate identities would silently change"
-                )
-        for name in ("params", "opt_state", "num_timesteps_members",
-                     "completed_rollouts"):
-            if name not in raw:
-                raise SystemExit(
-                    f"hetero-sweep resume: {path} is missing {name!r} — "
-                    "truncated or foreign file"
-                )
+        path, raw = found
+        raw = self._member_rows_of(raw, (
+            "params", "opt_state", "num_timesteps_members",
+            "torch_generators", "torch_env_state", "torch_obs",
+            "torch_step"))
         self._load_learner(raw, path)
         self.num_timesteps_members = np.array(raw["num_timesteps_members"],
                                               np.int64)
-        self.num_timesteps = int(self.num_timesteps_members.max(initial=0))
+        self.num_timesteps = int(self._members_counters().max(initial=0))
         self.completed_rollouts = int(raw["completed_rollouts"])
         it = self._iteration
         if "torch_generators" in raw:
@@ -450,10 +475,39 @@ class HeteroSweepTrainer(SweepTrainer):
                 it.step.copy_(torch.from_numpy(np.array(raw["torch_step"])))
             self._refresh_active_agents()
             self._stage_ready = True
-        # The interrupted run logged past the anchor: drop those records,
-        # which the resumed run logs again.
+        self._trim_metrics(path)
+
+    def _read_anchor(self):
+        """The newest anchor and its checked contents, or None."""
+        path = latest_sweep_state(self.log_dir)
+        if path is None:
+            print("[hetero-sweep] resume=true but no sweep_state_* "
+                  f"population checkpoint under {self.log_dir}; starting "
+                  "fresh")
+            return None
+        raw = msgpack_restore_file(path)
+        for field, want in self._identity().items():
+            got = raw.get(field)
+            if got != want and str(got) != str(want):
+                raise SystemExit(
+                    f"hetero-sweep resume mismatch: {path} was written "
+                    f"with {field}={got!r} but this run uses {want!r} — "
+                    "candidate identities would silently change"
+                )
+        for name in ("params", "opt_state", "num_timesteps_members",
+                     "completed_rollouts"):
+            if name not in raw:
+                raise SystemExit(
+                    f"hetero-sweep resume: {path} is missing {name!r} — "
+                    "truncated or foreign file"
+                )
+        return path, raw
+
+    def _trim_metrics(self, path: Any) -> None:
+        """The interrupted run logged past the anchor: drop those records,
+        which the resumed run logs again."""
         metrics = Path(self.log_dir) / "metrics.jsonl"
-        if metrics.exists():
+        if metrics.exists() and is_coordinator():
             kept = [line for line in metrics.read_text().splitlines()
                     if line.strip()
                     and json.loads(line).get("step", 0) <= self.num_timesteps]

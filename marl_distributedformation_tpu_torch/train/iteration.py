@@ -57,8 +57,13 @@ from marl_distributedformation_tpu_torch.algo import (
     compute_gae,
 )
 from marl_distributedformation_tpu_torch.algo.ppo import (
+    DataParallelUpdate,
     PopulationUpdate,
     PPOUpdate,
+)
+from marl_distributedformation_tpu_torch.algo.rollout import (
+    RolloutBatch,
+    policy_forward,
 )
 from marl_distributedformation_tpu_torch.env.hetero import (
     HeteroLayout,
@@ -201,7 +206,7 @@ class PhasedIteration:
             update_ppo = ppo
             self.row_shape = ()
         k = self.members or 1
-        m = obs.shape[0] // k
+        m = self._update_formations(obs.shape[0] // k)
         self.lead: Tuple[int, ...] = () if self.members is None else (k,)
         rows = ppo.n_steps * m * (1 if self.per_formation else n)
         carry = {f: getattr(env_state, f).detach().clone()
@@ -227,19 +232,29 @@ class PhasedIteration:
             device=device,
         ).expand(self.lead).clone()
         self.params = [p for _, p in model.named_parameters()]
-        update = PPOUpdate if self.members is None else PopulationUpdate
-        self.update = update(
-            model, opt_state, update_ppo, rows, self.step, self.lr
-        )
+        self.update = self._make_update(model, opt_state, update_ppo, rows)
         self.ring_rows = ring_rows
         self.health: Any = None
         self._rollout_names: Optional[Tuple[str, ...]] = None
         self._rollout_row: Optional[Tensor] = None
         self.ring: Optional[MetricsRing] = None
 
+    def _update_formations(self, m: int) -> int:
+        """The formations of one run's update, from the carry's ``m``."""
+        return m
+
+    def _make_update(self, model, opt_state, ppo, rows):
+        update = PPOUpdate if self.members is None else PopulationUpdate
+        return update(model, opt_state, ppo, rows, self.step, self.lr)
+
     @property
     def num_minibatch_steps(self) -> int:
         return self.update.num_steps
+
+    def phase_fns(self) -> List[Tuple[str, Callable[[], None]]]:
+        """The phases a trainer captures, by name, in ``run``'s order."""
+        return [("rollout", self.rollout), ("minibatch", self.minibatch),
+                ("end", self.end)]
 
     def learner_tensors(self) -> List[Tensor]:
         """What an iteration's update changes: the parameters, then Adam's
@@ -285,14 +300,34 @@ class PhasedIteration:
         ``permutations`` replace the generator's draws (tests)."""
         if self.health is not None:
             self.health.save()
-        p = self.env_params
+        env, last_obs, batch, last_value = self._collect(noise)
+        self._set_pending(env, last_obs)
         mask = None if self.layout is None else self.layout.fmask
-        env, last_obs, batch, last_value = collect_rollout(
-            self.model, self.env, self.obs, self.generator, p,
+        self._prepare(batch, last_value, mask, permutations)
+
+    def _collect(self, noise: Optional[Tensor] = None, block: Any = None):
+        """``n_steps`` steps of the carry (``collect_rollout``)."""
+        mask = None if self.layout is None else self.layout.fmask
+        return collect_rollout(
+            self.model, self.env, self.obs, self.generator, self.env_params,
             self.ppo.n_steps, env_step_fn=self.env_step_fn, noise=noise,
             forward=self.forward,
-            mask=mask if self.per_formation else None,
+            mask=mask if self.per_formation else None, block=block,
         )
+
+    def _set_pending(self, env: Any, last_obs: Tensor) -> None:
+        with torch.no_grad():
+            for f in self.env_fields:
+                getattr(self._pending_env, f).copy_(getattr(env, f))
+            self._pending_obs.copy_(last_obs)
+
+    def _prepare(self, batch: Any, last_value: Tensor,
+                 mask: Optional[Tensor],
+                 permutations: Optional[Tensor] = None) -> None:
+        """GAE, the update's rows and permutations, and the rollout
+        metrics, from a rollout ``batch`` (``mask``: the padded
+        formations' agent mask)."""
+        p = self.env_params
         advantages, returns = compute_gae(
             batch.rewards, batch.values, batch.dones, last_value,
             self.ppo.gamma, self.ppo.gae_lambda,
@@ -313,9 +348,6 @@ class PhasedIteration:
             flat.mask = flat.weights if self.per_formation else None
         self.update.load(flat, self.generator, permutations)
         with torch.no_grad():
-            for f in self.env_fields:
-                getattr(self._pending_env, f).copy_(getattr(env, f))
-            self._pending_obs.copy_(last_obs)
             if self._rollout_names is None:
                 self._rollout_names = tuple(
                     k for k in batch.metrics if k not in ROLLOUT_TOTALS
@@ -473,3 +505,200 @@ class PopulationIteration(PhasedIteration):
             # The single run's reduction (C9: models/population.py).
             return getattr(x, op)().reshape(1)
         return getattr(self._by_member(x).reshape(self.members, -1), op)(-1)
+
+
+class DataParallelIteration(PhasedIteration):
+    """One training iteration of a rank of a data-parallel mesh
+    (``parallel.mesh.Mesh``): the counterpart of the JAX package's SPMD
+    iteration over dp-sharded formations, and with 'sp' agent-sharded
+    ones (``parallel/ring.py``).
+
+    The carry is the rank's block: ``(m, N)`` formations (``(m, N/sp)``
+    with 'sp'). A rollout steps the block through ``make_dp_step`` (the
+    ``knn_fused`` kernel at ``(m, N, 2)`` on the card) or ``make_ring_step``,
+    drawing every random number of the whole batch from the single run's
+    generator and keeping the block's (actions, auto-resets), so each
+    rank's generator stays in step with the single run's. The rank's
+    rollout is then gathered from every rank (one all-gather of one packed
+    buffer), so each rank holds the single run's whole batch: GAE, the
+    rollout metrics, the epochs' permutations (``randperm`` over the global
+    rows) and the advantages of each global minibatch are the single
+    run's. Each minibatch is split over the ranks and their gradients are
+    summed (``algo.ppo.DataParallelUpdate``).
+
+    Five phases, each captured as a CUDA graph on the card, with the two
+    collectives between their replays, so the graphs hold none whatever
+    the backend: ``rollout`` (the block's steps, packed), the gather,
+    ``prepare`` (unpacked; GAE, rows, permutations, metrics), then per
+    minibatch ``grad``, the sum, ``apply``, and ``end``. The whole batch
+    on every rank costs each rank the single run's rollout memory (an
+    all-to-all of the rows each rank needs would not).
+
+    ``global_layout`` is the padded formations' layout of the whole batch
+    (the loss weights), ``layout`` the block's (the env step).
+    """
+
+    def __init__(self, *args: Any, mesh: Any, global_layout: Any = None,
+                 **kwargs: Any) -> None:
+        self.mesh = mesh
+        self.global_layout = global_layout
+        super().__init__(*args, **kwargs)
+        from marl_distributedformation_tpu_torch.parallel.mesh import (
+            make_dp_step,
+        )
+        from marl_distributedformation_tpu_torch.parallel.ring import (
+            make_ring_step,
+        )
+
+        if self.env_step_fn is None:
+            make = (make_ring_step if mesh.axis_size("sp") > 1
+                    else make_dp_step)
+            step = make(self.env_params, mesh)
+
+            def env_step_fn(state, velocity):
+                return step(state, velocity, self.generator)
+
+            self.env_step_fn = env_step_fn
+        if self.per_formation and mesh.axis_size("sp") > 1:
+            self.forward = self._agent_sharded_forward
+        self._fields: Optional[List[Tuple[str, Tuple[int, ...], str, int,
+                                          int]]] = None
+        self._send: Optional[Tensor] = None
+        self._recv: Optional[Tensor] = None
+
+    def _update_formations(self, m: int) -> int:
+        return m * self.mesh.axis_size("dp")
+
+    def _make_update(self, model, opt_state, ppo, rows):
+        return DataParallelUpdate(
+            model, opt_state, ppo, rows, self.step, self.lr,
+            rank=self.mesh.rank, world=self.mesh.size,
+            reduce_fn=self.mesh.all_reduce,
+        )
+
+    def _hetero_step(self, state: HeteroState, velocity: Tensor):
+        from marl_distributedformation_tpu_torch.parallel.mesh import (
+            fresh_block,
+        )
+
+        fresh = fresh_block(self.env_params, self.mesh, state.agents,
+                            self.generator)
+        return hetero_step_batch(state, velocity, self.env_params,
+                                 fresh=fresh, layout=self.layout)
+
+    def _agent_sharded_forward(self, model, obs: Tensor):
+        """A per-formation model on agent slabs: the formations gathered
+        over 'sp', the forward, and the slab's rows of its outputs."""
+        from marl_distributedformation_tpu_torch.parallel.ring import (
+            gather_agents,
+        )
+
+        n_local = obs.shape[1]
+        mean, log_std, value = policy_forward(
+            model, gather_agents(obs, self.mesh))
+        start = self.mesh.index("sp") * n_local
+        return (mean.narrow(1, start, n_local), log_std,
+                value.narrow(1, start, n_local))
+
+    def phase_fns(self) -> List[Tuple[str, Callable[[], None]]]:
+        return [("rollout", self.rollout), ("prepare", self.prepare),
+                ("grad", self.update.grad_step),
+                ("apply", self.update.apply_step), ("end", self.end)]
+
+    def rollout(self, noise: Optional[Tensor] = None,
+                permutations: Optional[Tensor] = None) -> None:
+        """The block's rollout (``noise``: the whole batch's, tests), the
+        pending env carry, and the rollout packed for the gather."""
+        if self.health is not None:
+            self.health.save()
+        env, last_obs, batch, last_value = self._collect(noise, self.mesh)
+        self._set_pending(env, last_obs)
+        with torch.no_grad():
+            self._pack(batch, last_value)
+
+    def _pack(self, batch: RolloutBatch, last_value: Tensor) -> None:
+        parts = [(f, getattr(batch, f), "agents_t") for f in (
+            "obs", "actions", "log_probs", "values", "rewards", "dones")]
+        parts.append(("last_value", last_value, "agents"))
+        parts += [(f"metric:{k}", v, "formations_t")
+                  for k, v in sorted(batch.metrics.items())]
+        if self._fields is None:
+            self._fields, offset = [], 0
+            for name, t, kind in parts:
+                self._fields.append((name, tuple(t.shape), kind, offset,
+                                     t.numel()))
+                offset += t.numel()
+            self._send = torch.zeros(offset, dtype=torch.float32,
+                                     device=self.device)
+            self._recv = torch.zeros((self.mesh.size, offset),
+                                     dtype=torch.float32, device=self.device)
+        for (_, t, _), (_, _, _, offset, size) in zip(parts, self._fields):
+            self._send[offset:offset + size].copy_(t.reshape(-1))
+
+    def gather(self) -> None:
+        """Every rank's packed rollout into ``_recv`` (between replays)."""
+        self.mesh.all_gather(self._send, out=self._recv)
+
+    def _unpack(self) -> Tuple[RolloutBatch, Tensor]:
+        """The whole batch from the gathered blocks: formations in dp
+        order, agents in sp order (a formation's per-step metrics are
+        alike on its sp ranks)."""
+        dp, sp = self.mesh.axis_size("dp"), self.mesh.axis_size("sp")
+        out: Dict[str, Tensor] = {}
+        for name, shape, kind, offset, size in self._fields:
+            x = self._recv[:, offset:offset + size].reshape(dp, sp, *shape)
+            if kind == "formations_t":  # (dp, sp, T, m)
+                x = x[:, 0].transpose(0, 1).reshape(shape[0], -1)
+            elif kind == "agents":  # (dp, sp, m, n)
+                x = x.permute(0, 2, 1, 3).reshape(dp * shape[0], -1)
+            else:  # (dp, sp, T, m, n, *tail)
+                tail = tuple(range(5, x.dim()))
+                x = x.permute(2, 0, 3, 1, 4, *tail).reshape(
+                    shape[0], dp * shape[1], sp * shape[2], *shape[3:])
+            # A fresh copy a field: a view into the gathered buffer would
+            # start at any offset, and a reduction's order can follow
+            # the address's alignment.
+            out[name] = x.clone(memory_format=torch.contiguous_format)
+        metrics = {k.split(":", 1)[1]: v for k, v in out.items()
+                   if k.startswith("metric:")}
+        batch = RolloutBatch(
+            **{f: out[f] for f in ("obs", "actions", "log_probs", "values",
+                                   "rewards", "dones")}, metrics=metrics)
+        return batch, out["last_value"]
+
+    def prepare(self, permutations: Optional[Tensor] = None) -> None:
+        """GAE, the update's rows and permutations, and the rollout
+        metrics of the whole gathered batch."""
+        batch, last_value = self._unpack()
+        mask = (None if self.global_layout is None
+                else self.global_layout.fmask)
+        self._prepare(batch, last_value, mask, permutations)
+
+    def run(
+        self, noise: Optional[Tensor] = None,
+        permutations: Optional[Tensor] = None,
+        mark: Optional[Callable[[str], None]] = None,
+        phases: Optional[Tuple[Callable[[], None], ...]] = None,
+    ) -> None:
+        """One whole iteration: the phases eagerly, or ``phases`` (the
+        trainer's ``PhaseGraph``s of ``phase_fns``), the collectives
+        between them."""
+        rollout, prepare, grad, apply, end = phases or (
+            lambda: self.rollout(noise), lambda: self.prepare(permutations),
+            self.update.grad_step, self.update.apply_step, self.end,
+        )
+        if mark is not None:
+            mark("rollout")
+        rollout()
+        self.gather()
+        prepare()
+        if mark is not None:
+            mark("update")
+        for _ in range(self.num_minibatch_steps):
+            grad()
+            self.update.reduce()
+            apply()
+        end()
+        if mark is not None:
+            mark("end")
+        self.ring.advance()

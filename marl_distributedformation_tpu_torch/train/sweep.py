@@ -35,8 +35,17 @@ learning-rate sweep's member files carry no optimizer state) and then the
 layout, the identity fields, and the port's generators, env state and
 observation under ``torch_`` keys. ``resume=true`` continues from the
 newest anchor exactly; an anchor the JAX package wrote restores the
-learner, and the streams start afresh. The seed-axis mesh and multi-host
-parts of the JAX package's trainer are not ported (ROADMAP A12).
+learner, and the streams start afresh.
+
+``mesh`` (a ``parallel.Mesh`` of one 'dp' axis) splits the seed axis over
+the ranks: rank r builds and trains only its contiguous member block
+(``member_block``; the caller builds those members' models), with no
+collective in the iteration, since members are independent. The host
+seams gather: each record aggregates every member's metrics, and a
+checkpoint gathers the population's host state to the coordinator, which
+alone writes the member files, the anchor and the summary. A resume is
+read and checked by the coordinator and broadcast; every rank takes its
+block of the anchor.
 """
 
 from __future__ import annotations
@@ -67,6 +76,14 @@ from marl_distributedformation_tpu_torch.env.types import EnvParams
 from marl_distributedformation_tpu_torch.envs import spec_for_params
 from marl_distributedformation_tpu_torch.models.population import (
     PopulationModel,
+)
+from marl_distributedformation_tpu_torch.parallel.distributed import (
+    all_gather_object,
+    from_coordinator,
+    is_coordinator,
+    local_formation_slice,
+    stack_rows,
+    world_size,
 )
 from marl_distributedformation_tpu_torch.train.capture import (
     PhaseGraph,
@@ -104,10 +121,38 @@ from marl_distributedformation_tpu_torch.utils.config import repo_root
 from marl_distributedformation_tpu_torch.utils.logging import (
     MetricsLogger,
     Throughput,
+    run_logger,
 )
 from marl_distributedformation_tpu_torch.utils.profiling import TraceWindow
 
 Tensor = torch.Tensor
+
+
+def member_block(num_seeds: int, mesh: Any = None) -> range:
+    """The members a rank of ``mesh`` trains: its contiguous block of the
+    seed axis over 'dp' (every member without a mesh)."""
+    if mesh is None:
+        return range(num_seeds)
+    start, count = local_formation_slice(
+        num_seeds, mesh.index("dp"), mesh.axis_size("dp"))
+    return range(start, start + count)
+
+
+def check_member_mesh(mesh: Any, num_seeds: int) -> None:
+    """The JAX package's checks of a population's mesh: the seed axis
+    over 'dp' only, and a member count every rank can share evenly."""
+    if mesh is None:
+        return
+    assert set(mesh.axis_names) == {"dp"}, (
+        f"sweep meshes shard the SEED axis over 'dp' only; got "
+        f"axes {tuple(mesh.axis_names)} — an 'sp' axis would "
+        "replicate every member redundantly across it"
+    )
+    dp = int(mesh.shape["dp"])
+    assert num_seeds % dp == 0, (
+        f"num_seeds={num_seeds} must be divisible by the mesh dp "
+        f"axis ({dp}) so every device holds the same member count"
+    )
 
 
 class SweepTrainer:
@@ -134,11 +179,16 @@ class SweepTrainer:
         learning_rates: Any = None,
         device: DeviceLike = None,
         capture: bool = True,
+        mesh: Any = None,
     ) -> None:
         models = list(models)
-        if num_seeds < 1 or len(models) != num_seeds:
+        check_member_mesh(mesh, num_seeds)
+        self.mesh = mesh
+        self.members = member_block(num_seeds, mesh)
+        if num_seeds < 1 or len(models) != len(self.members):
             raise ValueError(f"num_seeds={num_seeds} needs one model a "
-                             f"member, got {len(models)}")
+                             f"member of the block {self.members}, got "
+                             f"{len(models)}")
         self._fused_chunk = max(0, int(config.fused_chunk))
         if int(config.iters_per_dispatch) > 1:
             raise SystemExit(
@@ -175,14 +225,14 @@ class SweepTrainer:
             torch.Generator(device=self.device).manual_seed(
                 config.seed + i + RUN_SEED_OFFSET
             )
-            for i in range(num_seeds)
+            for i in self.members
         ]
         env_state, obs = self._initial_env()
         self.opt_state = population_adam_init(self.model.params)
         self._iteration = wrap_health(PopulationIteration(
             env_params, ppo, self.model, self.opt_state, self.generators,
             env_state, obs,
-            lr=None if self._lrs_host is None else self._lrs_host.tolist(),
+            lr=None if self._lrs_host is None else self._local_lrs(),
             ring_rows=2 * max(self._fused_chunk, 1),
             **self._iteration_options(),
         ), config)
@@ -229,9 +279,21 @@ class SweepTrainer:
         observation."""
         spec = spec_for_params(self.env_params)
         state = spec.reset_batch(
-            self.env_params, self.num_seeds * self.config.num_formations,
+            self.env_params, len(self.members) * self.config.num_formations,
             self.generators, self.device)
         return state, spec.obs(state, self.env_params)
+
+    def _local_lrs(self) -> List[float]:
+        """This rank's members' learning rates."""
+        return self._lrs_host[self.members.start:self.members.stop].tolist()
+
+    def _gather_members(self, tree: Any) -> Any:
+        """A host tree of this rank's members (member-leading leaves) as
+        the whole population's, gathered from every rank in member
+        order."""
+        if self.mesh is None or world_size() == 1:
+            return tree
+        return stack_rows(all_gather_object(tree))
 
     def _iteration_options(self) -> Dict[str, Any]:
         """Further arguments of the population's ``PopulationIteration``."""
@@ -323,12 +385,7 @@ class SweepTrainer:
     # ------------------------------------------------------------------
 
     def _logger(self) -> MetricsLogger:
-        return MetricsLogger(
-            self.log_dir,
-            run_name=self.config.name,
-            use_wandb=self.config.use_wandb,
-            use_tensorboard=self.config.use_tensorboard,
-        )
+        return run_logger(self.config, self.log_dir)
 
     def _formation_steps(self, iterations: int) -> int:
         """The population's formation-steps in ``iterations``."""
@@ -342,7 +399,7 @@ class SweepTrainer:
         values = tree_to_host(
             {"v": torch.stack([metrics[n] for n in names])}
         )["v"]
-        host = dict(zip(names, values))
+        host = self._gather_members(dict(zip(names, values)))
         self.skipped_updates += nonfinite_flag_count(host)
         return host
 
@@ -376,7 +433,7 @@ class SweepTrainer:
                     self.save()
             if metrics is not None:
                 # Rank on the final iteration, whatever log_interval read.
-                final = tree_to_host(dict(metrics))
+                final = self._host_metrics(dict(metrics))
                 self.last_record = population_aggregate(
                     final, self.config.seed
                 )
@@ -436,7 +493,10 @@ class SweepTrainer:
         """One transfer for a chunk's ``(fused_chunk, K)`` metrics, the
         skip count, then a population record an iteration at the host
         loop's steps; returns the last iteration's member rewards."""
-        host = chunk.to_host()
+        # (fused_chunk, K) after the gather: members on the second axis.
+        host = {k: v.T for k, v in self._gather_members(
+            {k: np.ascontiguousarray(v.T)
+             for k, v in chunk.to_host().items()}).items()}
         self.skipped_updates += nonfinite_flag_count(host)
         meter.tick(self._formation_steps(self._fused_chunk))
         per_iter = self.ppo.n_steps * self.num_envs
@@ -453,6 +513,8 @@ class SweepTrainer:
         return np.asarray(host["reward"][-1])
 
     def _write_summary(self, rewards: np.ndarray) -> None:
+        if not is_coordinator():
+            return
         extra = None
         if self._lrs_host is not None:
             extra = {"learning_rates": [float(r) for r in self._lrs_host]}
@@ -549,14 +611,22 @@ class SweepTrainer:
     def _member_dir(self, i: int) -> Path:
         return Path(self.log_dir) / f"seed{i}"
 
+    def _population_host(self) -> Dict[str, Any]:
+        """One host copy of the whole population's state (gathered from
+        every rank on a mesh)."""
+        return self._gather_members(tree_to_host(self._checkpoint_state()))
+
     def save(self) -> None:
         """Every member's checkpoint under ``seed{i}/`` and then the
-        anchor, from one host copy of the state. A state the non-finite
-        gate refuses is skipped with a notice."""
-        host = tree_to_host(self._checkpoint_state())
-        for i in range(self.num_seeds):
-            save_checkpoint(self._member_dir(i), self.num_timesteps,
-                            self.member_state(i, host))
+        anchor, from one host copy of the state, written by the
+        coordinator. A state the non-finite gate refuses is skipped with a
+        notice."""
+        host = self._population_host()
+        if is_coordinator():
+            for i in range(self.num_seeds):
+                save_checkpoint(self._member_dir(i), self.num_timesteps,
+                                self.member_state(i, host), barrier=False)
+        # The anchor's barrier covers the member files too.
         save_sweep_state(self.log_dir, self.num_timesteps,
                          self._population_tree(host))
         self._vec_steps_since_save = 0
@@ -566,7 +636,7 @@ class SweepTrainer:
         thread: the member files, then the anchor last, so that a crash
         mid-checkpoint never leaves an anchor whose members are
         missing."""
-        host = snapshot.result()
+        host = snapshot.result() if hasattr(snapshot, "result") else snapshot
         for i in range(self.num_seeds):
             write_atomic(checkpoint_path(self._member_dir(i), steps),
                          self.member_state(i, host, steps))
@@ -577,10 +647,19 @@ class SweepTrainer:
         """A logical checkpoint that does not stall the dispatch loop: a
         device snapshot queued behind the chunk that produced the state,
         written by ``writer``'s thread. The same bytes as ``save``."""
-        writer.submit_write(functools.partial(
-            self._write_population_files,
-            device_snapshot(self._checkpoint_state()), self.num_timesteps,
-        ))
+        if self.mesh is not None and world_size() > 1:
+            # The gather is a collective: on this thread, for every rank;
+            # the coordinator's writer thread writes what it gathered.
+            host = self._population_host()
+            if is_coordinator():
+                writer.submit_write(functools.partial(
+                    self._write_population_files, host, self.num_timesteps))
+        else:
+            writer.submit_write(functools.partial(
+                self._write_population_files,
+                device_snapshot(self._checkpoint_state()),
+                self.num_timesteps,
+            ))
         self._vec_steps_since_save = 0
 
     def _identity(self) -> Dict[str, Any]:
@@ -598,7 +677,39 @@ class SweepTrainer:
         the generators, env carry, observation and steps from the port's
         ``torch_`` keys, which an anchor the JAX package wrote lacks (its
         streams then start afresh, as a single run's do from a JAX
-        file)."""
+        file). On a mesh of several processes the coordinator reads and
+        checks the anchor, every rank receives it (an error too, raised
+        everywhere) and takes its member block."""
+        found = from_coordinator(self._read_anchor)
+        if found is None:
+            return
+        path, raw = found
+        self._load_learner(self._member_rows_of(raw), path)
+        stored_lrs = raw.get("learning_rates")
+        if stored_lrs is not None:
+            self._adopt_lrs(np.asarray(stored_lrs, np.float32))
+        self.num_timesteps = int(raw["num_timesteps"])
+        it = self._iteration
+        if "torch_generators" in raw:
+            raw = self._member_rows_of(raw, ("torch_generators",
+                                             "torch_env_state", "torch_obs",
+                                             "torch_step"))
+            with torch.no_grad():
+                for g, state in zip(self.generators,
+                                    np.array(raw["torch_generators"])):
+                    g.set_state(torch.from_numpy(state))
+                env = raw["torch_env_state"]
+                for f in ENV_FIELDS:
+                    getattr(it.env, f).copy_(
+                        torch.from_numpy(np.array(env[f]))
+                    )
+                it.obs.copy_(torch.from_numpy(np.array(raw["torch_obs"])))
+                it.step.copy_(torch.from_numpy(np.array(raw["torch_step"])))
+        print(f"[sweep] resumed {self.num_seeds}-member population from "
+              f"{path} at {self.num_timesteps} steps")
+
+    def _read_anchor(self) -> Optional[Tuple[Path, Dict[str, Any]]]:
+        """The newest anchor and its checked contents, or None."""
         path = latest_sweep_state(self.log_dir)
         if path is None:
             if latest_checkpoint(self._member_dir(0)) is not None:
@@ -608,7 +719,7 @@ class SweepTrainer:
                     "resume individual members via their seed{i}/ dirs "
                     "instead"
                 )
-            return
+            return None
         raw = msgpack_restore_file(path)
         for field, want in self._identity().items():
             got = raw.get(field)
@@ -633,25 +744,31 @@ class SweepTrainer:
                     f"sweep resume: checkpoint {path} is missing {name!r} "
                     "— truncated or foreign file"
                 )
-        self._load_learner(raw, path)
-        if stored_lrs is not None:
-            self._adopt_lrs(np.asarray(stored_lrs, np.float32))
-        self.num_timesteps = int(raw["num_timesteps"])
-        it = self._iteration
-        if "torch_generators" in raw:
-            with torch.no_grad():
-                for g, state in zip(self.generators,
-                                    np.array(raw["torch_generators"])):
-                    g.set_state(torch.from_numpy(state))
-                env = raw["torch_env_state"]
-                for f in ENV_FIELDS:
-                    getattr(it.env, f).copy_(
-                        torch.from_numpy(np.array(env[f]))
-                    )
-                it.obs.copy_(torch.from_numpy(np.array(raw["torch_obs"])))
-                it.step.copy_(torch.from_numpy(np.array(raw["torch_step"])))
-        print(f"[sweep] resumed {self.num_seeds}-member population from "
-              f"{path} at {self.num_timesteps} steps")
+        return path, raw
+
+    def _member_rows_of(self, raw: Dict[str, Any],
+                        keys: Sequence[str] = ("params", "opt_state")
+                        ) -> Dict[str, Any]:
+        """``raw`` with the ``keys`` cut to this rank's member block: the
+        leading axis of a member-stacked leaf, the block's formations of a
+        folded ``(K*M, ...)`` one (the whole anchor without a mesh)."""
+        if self.mesh is None:
+            return raw
+        k, m = self.num_seeds, self.config.num_formations
+        lo, hi = self.members.start, self.members.stop
+
+        def cut(x: Any) -> Any:
+            if isinstance(x, dict):
+                return {n: cut(v) for n, v in x.items()}
+            arr = np.asarray(x) if isinstance(x, np.ndarray) else x
+            if isinstance(arr, np.ndarray) and arr.ndim:
+                if arr.shape[0] == k:
+                    return arr[lo:hi]
+                if arr.shape[0] == k * m:
+                    return arr[lo * m:hi * m]
+            return x
+
+        return {n: cut(v) if n in keys else v for n, v in raw.items()}
 
     def _load_learner(self, raw: Dict[str, Any], origin: Any) -> None:
         """Copy the stacked parameters and Adam state (and the injected

@@ -49,8 +49,19 @@ loop and the drain record into the metrics registry
 at its build (subsystem ``trainer``), the device-memory watermark is
 sampled at the drain, and ``profile=true`` traces ``profile_iterations``
 dispatches (``utils/profiling.py::TraceWindow``). ``architecture=sebulba``
-is ``train/sebulba/``. Mesh and chaos fault points are not ported
-(ROADMAP Queue A).
+is ``train/sebulba/``.
+
+``shard_fn`` (``parallel.make_shard_fn``) trains one rank of a mesh, as the
+JAX trainer's ``shard_fn`` places its state: the iteration is
+``train/iteration.py``'s ``DataParallelIteration`` over this rank's block
+(``parallel/``), the parameters are rank 0's, and across processes every
+rank builds only its own block (``parallel.reset_batch_sharded``), the
+coordinator alone writes checkpoints, which then hold the learner and the
+streams but not the env block (a resume is broadcast and the env stays
+freshly reset, as the JAX package's multi-host resume). An 'sp' mesh runs
+the phases eagerly: the ring step's collectives sit between its env
+steps. Non-formation envs, and scenarios with 'sp', with k-NN on a mesh
+or across processes, are refused in the JAX trainer's words.
 """
 
 from __future__ import annotations
@@ -109,8 +120,18 @@ from marl_distributedformation_tpu_torch.train.capture import (
     PhaseGraph,
     own_stream,
 )
+from marl_distributedformation_tpu_torch.parallel.distributed import (
+    is_coordinator,
+    reset_batch_sharded,
+    world_size,
+)
+from marl_distributedformation_tpu_torch.parallel.mesh import (
+    Placement,
+    replicate,
+)
 from marl_distributedformation_tpu_torch.train.iteration import (
     ENV_FIELDS,
+    DataParallelIteration,
     PhasedIteration,
 )
 from marl_distributedformation_tpu_torch.train.recovery import (
@@ -123,6 +144,7 @@ from marl_distributedformation_tpu_torch.train.recovery import (
 )
 from marl_distributedformation_tpu_torch.utils.checkpoint import (
     AsyncCheckpointWriter,
+    broadcast_restore,
     checkpoint_path,
     device_snapshot,
     nonfinite_leaf,
@@ -136,6 +158,7 @@ from marl_distributedformation_tpu_torch.utils.config import repo_root
 from marl_distributedformation_tpu_torch.utils.logging import (
     MetricsLogger,
     Throughput,
+    run_logger,
 )
 from marl_distributedformation_tpu_torch.utils.profiling import TraceWindow
 
@@ -357,9 +380,13 @@ class Trainer:
         device: DeviceLike = None,
         capture: bool = True,
         scenario_schedule: Any = None,
+        shard_fn: Any = None,
     ) -> None:
         self.device = resolve_device(device)
         ppo = fill_ent_schedule(ppo, env_params, config)
+        self._shard_fn = shard_fn
+        self.mesh = getattr(shard_fn, "mesh", None)
+        self._multihost = world_size() > 1
         self.env_params = env_params
         # The env is resolved from the params type, as eval and the
         # scenario engine resolve it.
@@ -387,34 +414,44 @@ class Trainer:
                 "blind"
             )
 
+        self._check_mesh(scenario_schedule)
         self.generator = torch.Generator(device=self.device).manual_seed(
             config.seed + RUN_SEED_OFFSET
         )
         generators = [self.generator]
         env_state, obs = self._initial_env()
+        if self.mesh is not None:
+            replicate(dict(self.model.named_parameters()), self.mesh)
         scenario = self._init_scenarios(scenario_schedule)
         if scenario:
             env_state = init_scenario_state(
                 env_state, env_params, scenario["scenario_streams"])
             generators.append(self.scenario_generator)
         self.opt_state = adam_init(dict(self.model.named_parameters()))
-        self._iteration = wrap_health(PhasedIteration(
+        iteration_cls, mesh_options = PhasedIteration, {}
+        if self.mesh is not None:
+            iteration_cls = DataParallelIteration
+            mesh_options = {"mesh": self.mesh, **self._mesh_options()}
+        self._iteration = wrap_health(iteration_cls(
             env_params, ppo, self.model, self.opt_state, self.generator,
             env_state, obs,
             ring_rows=2 * max(self._fused_chunk, self._iters_per_dispatch),
-            **self._iteration_options(), **scenario,
+            **self._iteration_options(), **scenario, **mesh_options,
         ), config)
-        self.capture = capture and self.device.type == "cuda"
+        # The ring step's collectives run inside the rollout, between its
+        # env steps: an 'sp' mesh runs its phases eagerly.
+        self.capture = (capture and self.device.type == "cuda"
+                        and (self.mesh is None
+                             or self.mesh.axis_size("sp") == 1))
         it = self._iteration
-        # The three phases capture and replay on the trainer's own stream
+        # The phases capture and replay on the trainer's own stream
         # (train/capture.py: C6).
         self.capture_stream = own_stream(self, self.device)
         self._phases = tuple(
             PhaseGraph(name, fn, generators, self.capture,
                        subsystem="trainer", program=f"train_{name}",
                        stream=self.capture_stream)
-            for name, fn in (("rollout", it.rollout),
-                             ("minibatch", it.minibatch), ("end", it.end))
+            for name, fn in it.phase_fns()
         )
         # The iteration's build receipt: one a run, at the dispatch that
         # captures the phases (the CPU: runs them first); JAX counts the
@@ -472,15 +509,77 @@ class Trainer:
 
     def _initial_env(self) -> Tuple[FormationState, Tensor]:
         """The env carry the run starts from: a reset of the run's env drawn
-        from the run's generator, and its observation."""
+        from the run's generator, and its observation. On a mesh, this
+        rank's block of it (``_place``)."""
         spec = self.env_spec
+        if self._multihost:
+            # Every rank builds its own formation block only, from the
+            # whole batch's draws (parallel.reset_batch_sharded).
+            block = reset_batch_sharded(
+                self.generator, self.env_params, self.config.num_formations,
+                self.mesh, self.device).tree
+            return self._slab(block, spec.obs(block, self.env_params))
         state = spec.reset_batch(self.env_params, self.config.num_formations,
                                  self.generator, self.device)
-        return state, spec.obs(state, self.env_params)
+        obs = spec.obs(state, self.env_params)
+        if self._shard_fn is not None:
+            _, state, obs = self._shard_fn({}, state, obs)
+        return state, obs
+
+    def _slab(self, block: Any, obs: Tensor) -> Tuple[Any, Tensor]:
+        """This rank's agent slab of its formation block and its
+        observation (the block itself without 'sp')."""
+        if self.mesh.axis_size("sp") == 1:
+            return block, obs
+        slab = Placement(self.mesh, (None, "sp"))
+        return (dataclasses.replace(block, agents=slab.place(block.agents)),
+                slab.place(obs))
 
     def _iteration_options(self) -> Dict[str, Any]:
         """Further arguments of the run's ``PhasedIteration``."""
         return {}
+
+    def _mesh_options(self) -> Dict[str, Any]:
+        """Further arguments of the run's ``DataParallelIteration``."""
+        return {}
+
+    def _check_mesh(self, scenario_schedule: Any) -> None:
+        """The JAX trainer's refusals of what does not compose with a mesh
+        or with more than one process."""
+        mesh = self.mesh
+        if self._multihost and mesh is None:
+            raise SystemExit(
+                "multi-host training needs a mesh (cfg.mesh / make_shard_fn)")
+        if mesh is None:
+            return
+        if self.env_spec.name != "formation":
+            raise SystemExit(
+                f"env {self.env_spec.name!r} does not compose with mesh "
+                "sharding / multi-host yet (the sharded env steps in "
+                "parallel/ are formation-specialized); drop the mesh or "
+                "use env=formation"
+            )
+        sp = "sp" in mesh.shape and mesh.axis_size("sp") > 1
+        if scenario_schedule is not None:
+            if sp or self.env_params.obs_mode == "knn":
+                blocker = (
+                    "the agent-axis ('sp') sharded ring step — drop 'sp' "
+                    "from the mesh"
+                    if sp
+                    else "the shard_map knn env step a dp mesh uses for "
+                    "obs_mode=knn — use obs_mode=ring on this mesh, or "
+                    "drop the mesh"
+                )
+                raise SystemExit(
+                    f"scenario training does not compose with {blocker}; "
+                    "scenarios currently wrap only the plain vmapped step"
+                )
+            if self._multihost:
+                raise SystemExit(
+                    "scenario training is single-host for now (per-host "
+                    "scenario-param construction is not wired); drop "
+                    "scenarios or run single-process"
+                )
 
     # ------------------------------------------------------------------
     # Scenario training
@@ -805,12 +904,7 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def _logger(self) -> MetricsLogger:
-        return MetricsLogger(
-            self.log_dir,
-            run_name=self.config.name,
-            use_wandb=self.config.use_wandb,
-            use_tensorboard=self.config.use_tensorboard,
-        )
+        return run_logger(self.config, self.log_dir)
 
     def train(self) -> Dict[str, float]:
         """The full run with metrics and checkpoints; returns the last
@@ -1215,7 +1309,7 @@ class Trainer:
         hyper = None
         if "lr" in host:
             hyper = inject_hyperparams(float(host["lr"]), self.ppo.adam_eps)
-        return {
+        tree = {
             "policy": self.policy,
             "params": params_to_jax(host["params"], self.policy),
             "opt_state": opt_state_to_jax(host["opt"], self.policy, hyper),
@@ -1228,6 +1322,12 @@ class Trainer:
             **({"torch_scenario_generator": host["scenario_generator"]}
                if "scenario_generator" in host else {}),
         }
+        if self._multihost:
+            # Across processes the env carry is each rank's block: a
+            # resume restores the learner and the streams, and the env
+            # stays freshly reset (the JAX package's multi-host resume).
+            del tree["torch_env_state"], tree["torch_obs"]
+        return tree
 
     def _host_tree(self) -> Dict[str, Any]:
         return self._checkpoint_tree(tree_to_host(self._checkpoint_state()))
@@ -1270,6 +1370,10 @@ class Trainer:
         to the host and written by ``writer``'s thread. The same bytes as
         ``save``."""
         path = checkpoint_path(self.log_dir, self.num_timesteps)
+        if not is_coordinator():
+            # Only the coordinator writes (utils/checkpoint.py).
+            self._vec_steps_since_save = 0
+            return str(path)
         on_checkpoint = self.on_checkpoint
 
         def on_done(p: Path) -> None:
@@ -1370,7 +1474,7 @@ class Trainer:
     def _try_resume(self) -> None:
         """Restore the newest valid checkpoint in ``log_dir``
         (``_load_tree``)."""
-        found = restore_latest_partial(self.log_dir, self.resume_keys)
+        found = broadcast_restore(self.log_dir, self.resume_keys)
         if found is None:
             return
         path, raw = found

@@ -15,12 +15,14 @@ from marl_distributedformation_tpu_torch.utils.checkpoint import (  # noqa: F401
     CheckpointDiscovery,
     CorruptCheckpointError,
     NonFiniteCheckpointError,
+    broadcast_restore,
     checkpoint_path,
     checkpoint_step,
     device_snapshot,
     latest_checkpoint,
     latest_sweep_state,
     msgpack_restore_file,
+    own_restored,
     prune_checkpoints,
     quarantine_checkpoint,
     restore_latest_partial,

@@ -209,20 +209,40 @@ def write_atomic(path: Path, tree: Any) -> None:
     fault_point("checkpoint.post_rename", path=path)
 
 
+def _coordinator_write(path: Path, tree: Any,
+                       barrier: bool = True) -> Optional[Path]:
+    """``write_atomic`` on the coordinator only, then a barrier, so that when
+    any rank returns the coordinator's file is durable. Returns the path
+    on the coordinator, None on the other ranks (the file is not on their
+    disks) and when the non-finite gate refused the tree (with a notice
+    on stderr; the barrier is kept, so no peer waits on a refused
+    write)."""
+    from marl_distributedformation_tpu_torch.parallel import distributed
+
+    on_coordinator = distributed.is_coordinator()
+    if on_coordinator:
+        try:
+            write_atomic(path, tree)
+        except NonFiniteCheckpointError as e:
+            get_registry().counter("checkpoint_nonfinite_skipped_total").inc()
+            print(f"[checkpoint] skipped: {e}", file=sys.stderr)
+            path = None
+    if barrier:
+        distributed.barrier()
+    return path if on_coordinator else None
+
+
 def save_checkpoint(
-    log_dir: str | Path, num_timesteps: int, tree: Any
+    log_dir: str | Path, num_timesteps: int, tree: Any,
+    barrier: bool = True,
 ) -> Optional[Path]:
     """Write ``rl_model_{num_timesteps}_steps.msgpack``; returns its path,
     or None (with a notice on stderr) when the non-finite gate refused the
-    tree."""
-    path = checkpoint_path(log_dir, num_timesteps)
-    try:
-        write_atomic(path, tree)
-    except NonFiniteCheckpointError as e:
-        get_registry().counter("checkpoint_nonfinite_skipped_total").inc()
-        print(f"[checkpoint] skipped: {e}", file=sys.stderr)
-        return None
-    return path
+    tree. Across processes only the coordinator writes
+    (``_coordinator_write``; ``barrier=False``: a write the coordinator
+    makes alone, whose durability a later barrier covers)."""
+    return _coordinator_write(checkpoint_path(log_dir, num_timesteps), tree,
+                              barrier)
 
 
 def save_sweep_state(
@@ -230,15 +250,9 @@ def save_sweep_state(
 ) -> Optional[Path]:
     """Write a population's resume anchor,
     ``sweep_state_{num_timesteps}_steps.msgpack``; returns its path, or
-    None (with a notice on stderr) when the non-finite gate refused it."""
-    path = sweep_state_path(log_dir, num_timesteps)
-    try:
-        write_atomic(path, tree)
-    except NonFiniteCheckpointError as e:
-        get_registry().counter("checkpoint_nonfinite_skipped_total").inc()
-        print(f"[checkpoint] skipped: {e}", file=sys.stderr)
-        return None
-    return path
+    None (with a notice on stderr) when the non-finite gate refused it;
+    across processes the coordinator's alone (``_coordinator_write``)."""
+    return _coordinator_write(sweep_state_path(log_dir, num_timesteps), tree)
 
 
 def _latest(log_dir: str | Path, step_re: re.Pattern) -> Optional[Path]:
@@ -322,6 +336,43 @@ def restore_latest_partial(
         if not isinstance(raw, dict):
             raise ValueError(f"checkpoint {path} is not a dict")
         return path, {k: raw[k] for k in keys if k in raw}
+
+
+def own_restored(tree: Any) -> Any:
+    """Every array leaf of a restored checkpoint tree as an owning copy.
+
+    ``msgpack_restore_file`` returns arrays that view the file's decoded
+    bytes (``np.frombuffer``, read-only); a consumer that writes into a
+    leaf, or keeps it past the bytes' life, takes one explicit copy a leaf
+    here (the JAX package's ``own_restored``). Non-array leaves pass."""
+    if isinstance(tree, dict):
+        return {k: own_restored(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(own_restored(v) for v in tree)
+    if isinstance(tree, np.ndarray):
+        return np.array(tree, copy=True)
+    return tree
+
+
+def broadcast_restore(
+    log_dir: str | Path, keys: Iterable[str]
+) -> Optional[Tuple[Path, dict]]:
+    """Resume across processes: the coordinator reads and validates its
+    newest checkpoint (``restore_latest_partial``), and every rank
+    receives the same ``(path, {key: value})``, or None when there is
+    none. Checkpoints live on the coordinator's disk only, so the verdict
+    and the state both travel; a coordinator's error is raised on every
+    rank (``parallel.distributed.from_coordinator``). Alone,
+    ``restore_latest_partial``."""
+    from marl_distributedformation_tpu_torch.parallel import distributed
+
+    keys = list(keys)
+
+    def read():
+        found = restore_latest_partial(log_dir, keys)
+        return None if found is None else (found[0], own_restored(found[1]))
+
+    return distributed.from_coordinator(read)
 
 
 def restore_state_dict_partial(

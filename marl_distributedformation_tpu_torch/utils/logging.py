@@ -94,6 +94,31 @@ class MetricsLogger:
             self._tb.close()
 
 
+class NullLogger:
+    """A logger that records nothing: a rank other than the coordinator's
+    (the coordinator's records are the run's)."""
+
+    def log(self, metrics: Dict[str, Any], step: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def run_logger(config: Any, log_dir: str | Path) -> Any:
+    """A trainer's ``MetricsLogger`` for ``config`` (a ``TrainConfig``);
+    a ``NullLogger`` on a rank other than the coordinator."""
+    from marl_distributedformation_tpu_torch.parallel.distributed import (
+        is_coordinator,
+    )
+
+    if not is_coordinator():
+        return NullLogger()
+    return MetricsLogger(log_dir, run_name=config.name,
+                         use_wandb=config.use_wandb,
+                         use_tensorboard=config.use_tensorboard)
+
+
 class Throughput:
     """Steps per second over a rolling window of recent ticks. The first
     tick only starts the clock (that iteration includes warm-up: kernel

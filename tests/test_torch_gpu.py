@@ -1403,3 +1403,73 @@ def test_graph_owners_alive_at_once_hold_distinct_capture_streams(
     for engine, want in zip(engines, acts):
         np.testing.assert_array_equal(engine.act(obs), want)
     assert program.compile_count == 1
+
+
+def test_dp_step_in_a_one_rank_nccl_group(cuda, monkeypatch, tmp_path):
+    """A dp mesh of one rank through a real NCCL group: the dp step's
+    block is the batch, ``knn_fused`` runs at it, and a captured
+    data-parallel iteration (its collectives between the graphs' replays)
+    equals the single run's bitwise."""
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.env.formation import (
+        reset_batch,
+        step_batch,
+    )
+    from marl_distributedformation_tpu_torch.models import GNNActorCritic
+    from marl_distributedformation_tpu_torch.algo import PPOConfig
+    from marl_distributedformation_tpu_torch.parallel import (
+        init_distributed,
+        make_dp_step,
+        make_shard_fn,
+        shutdown_distributed,
+    )
+    from marl_distributedformation_tpu_torch.parallel import distributed
+    from marl_distributedformation_tpu_torch.parallel.launch import (
+        free_port,
+    )
+    from marl_distributedformation_tpu_torch.train import (
+        TrainConfig,
+        Trainer,
+    )
+
+    for key, value in dict(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+                           LOCAL_WORLD_SIZE="1", MASTER_ADDR="localhost",
+                           MASTER_PORT=str(free_port())).items():
+        monkeypatch.setenv(key, value)
+    assert init_distributed(device="cuda") is False  # a world of one
+    try:
+        assert distributed.backend() == "nccl"
+        p = EnvParams(num_agents=20, obs_mode="knn", knn_k=4, max_steps=3)
+        shard_fn = make_shard_fn({"dp": 1})
+        step = make_dp_step(p, shard_fn.mesh)
+        gens = [torch.Generator(device=cuda).manual_seed(5) for _ in "ab"]
+        a = reset_batch(p, 8, gens[0], cuda)
+        b = reset_batch(p, 8, gens[1], cuda)
+        vel = torch.ones(8, 20, 2, device=cuda)
+        knn_cuda.reset_launches()
+        for _ in range(5):  # through the auto-reset
+            a, ta = step(a, vel, gens[0])
+            b, tb = step_batch(b, vel, p, gens[1])
+            assert torch.equal(ta.obs, tb.obs)
+            assert torch.equal(a.agents, b.agents)
+        assert knn_cuda.LAUNCHES["knn_fused"] == 10
+
+        def run(mesh_fn):
+            model = GNNActorCritic(k=4,
+                                   generator=torch.Generator().manual_seed(0))
+            trainer = Trainer(
+                p, PPOConfig(n_steps=4, batch_size=80, n_epochs=2),
+                TrainConfig(num_formations=16, checkpoint=False,
+                            log_dir=str(tmp_path)),
+                model=model, device=cuda, shard_fn=mesh_fn)
+            for _ in range(3):  # warm-up, capture, replay
+                trainer.run_iteration()
+            return trainer
+
+        meshed, single = run(shard_fn), run(None)
+        assert meshed.graph_count() == 5 and single.graph_count() == 3
+        for (k, x), (_, y) in zip(meshed.model.named_parameters(),
+                                  single.model.named_parameters()):
+            assert torch.equal(x, y), k
+    finally:
+        shutdown_distributed()

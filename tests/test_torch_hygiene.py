@@ -93,7 +93,9 @@ def test_sources_found():
             "serving/tenancy/smoke.py", "pipeline/__init__.py",
             "pipeline/stream.py", "pipeline/promote.py", "pipeline/gate.py",
             "pipeline/rollback.py", "pipeline/supervisor.py",
-            "always_learning.py", "chaos_storm.py"} <= rel
+            "always_learning.py", "chaos_storm.py", "parallel/__init__.py",
+            "parallel/mesh.py", "parallel/ring.py", "parallel/distributed.py",
+            "parallel/launch.py"} <= rel
     assert (PORT / "csrc" / "knn.cu").exists()
 
 
@@ -168,7 +170,6 @@ JAX = ROOT / "marl_distributedformation_tpu"
 # A JAX export the port does not export: its counterpart (a dotted path in
 # the port) or the open ROADMAP item that ports it.
 NOT_EXPORTED = {
-    "parallel": "A12",
     # The static linter.
     "analysis": dict.fromkeys((
         "GraftlintConfig", "Violation", "lint_paths", "lint_source",
@@ -186,8 +187,6 @@ NOT_EXPORTED = {
         "make_fused_chunk": "train.capture.PhaseGraph",
     },
     "utils": {
-        "broadcast_restore": "A12",
-        "own_restored": "A12",
         "read_checkpoint_payload": "utils.strip_footer",
         "restore_checkpoint": "utils.restore_state_dict_partial",
         "restore_checkpoint_partial": "utils.restore_state_dict_partial",
