@@ -59,8 +59,8 @@ Phases (any failure exits non-zero):
      end on finite parameters with a rollback in ``recovery.jsonl``.
 6. Train populations (``train/sweep.py``) through the ``train`` CLI, every
    member's formations folded into one env batch, the iteration captured:
-   - ``pop4``: ``gnn100``'s command with ``num_seeds=4``, cut to 20
-     iterations (``fused_chunk=10``): ``knn_fused`` must launch 1 + 20 x 10 times (one
+   - ``pop4``: ``gnn100``'s command with ``num_seeds=4``, cut to 16
+     iterations (``fused_chunk=8``): ``knn_fused`` must launch 1 + 16 x 10 times (one
      launch a step for the whole population, at (4096,100,4)); the
      population mean of the last 3 iterations must beat the first 3 by 20
      and the best member end above 0; member 0's reward an iteration is
@@ -134,10 +134,10 @@ Phases (any failure exits non-zero):
    (``scenarios/matrix.py``, ``scenarios/adversary.py``, ``envs/pursuit.py``):
    - ``matrix100``: the robustness-matrix CLI in-process on ``gnn100``'s
      and ``scen100``'s checkpoints, ``clean``, ``wind``, ``storm`` x
-     severities 0, 0.5, 1.0 at M=256, full episodes (18 cells): one build
-     (the eval step captured once), ``knn_fused`` 18 x 1003 launches by
-     replay, every severity-0 cell
-     bitwise its checkpoint's clean cell, the ``wind`` 0.5 cell against
+     severities 0, 1.0 at M=256, full episodes (12 cells since phase 17):
+     one build (the eval step captured once), ``knn_fused`` 12 x 1003
+     launches by replay, every severity-0 cell
+     bitwise its checkpoint's clean cell, the ``wind`` 1.0 cell against
      the eager ``eval.evaluate_scenario`` within rtol 1e-5; s a cell
      captured beside the eager evaluation's; ``storm`` 1.0 of both.
    - ``matrix1024``: the same on ``gnn1024``'s checkpoint (``clean``,
@@ -335,7 +335,22 @@ Phases (any failure exits non-zero):
      same two ranks, 8 steps through auto-resets against ``step_batch``:
      observations within rtol 1e-5 atol 1e-6, ``done`` bitwise, rewards
      and metrics within 1e-4.
-17. Print the kernels' JSON line (launches and timings at the training
+17. The cross-host serving tier (``serving/mesh/``) on one card:
+   - ``mesh100``: ``run_mesh_smoke`` with 2 host subprocesses
+     time-sharing ``cuda:0`` (R=1 each, ladder 1/8/64) serving
+     ``gnn100``'s checkpoint, then ``scen100``'s and back through 3 global
+     swaps under 4 clients for 6 s, host0 SIGKILLed halfway: 0 lost, 0
+     step violations, one capture a (host, rung), after each commit every
+     live host's answer to 8 formations bitwise equal to this process's
+     engine on the same checkpoint, ``knn_fused`` launched on every host
+     (its probe rows), the library built before the hosts started.
+   - ``storm_mesh100``: ``run_mesh_campaign(seed=0, faults=20)`` over
+     ``gnn100``'s command at M=64 with 2 hosts: 0 violations, every armed
+     ``mesh.*`` fault fired, the killed host dead.
+   Prints requests/s beside phase 13's ``fleet100`` R=2 (time-sharing,
+   not scaling), global swap p50/p95, each host's launches, the storm's
+   wall time and commit rounds.
+18. Print the kernels' JSON line (launches and timings at the training
    paths' shapes, those of the eval paths under ``eval``, the population
    paths' under ``population``, ``ctde_knn``'s launches under
    ``ctde_knn``, ``scen100``'s under ``scenario``, phase 9's under
@@ -346,7 +361,8 @@ Phases (any failure exits non-zero):
    ``single_step``, phase 13's request rows under ``fleet``, phase 14's
    trainer and gate under ``always`` at the gate's (64,100,4), its lanes'
    request rows under ``tenants``, phase 15's storms under
-   ``chaos_storm``, phase 16's ranks under ``dp`` at (512,100,4)), the
+   ``chaos_storm``, phase 16's ranks under ``dp`` at (512,100,4), phase
+   17's hosts and storm under ``mesh``), the
    card
    line, and the last line ``{"ok": true,
    "device": {...}}``.
@@ -669,6 +685,7 @@ def profile_window(run, label, per, unit, top=8):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    started = time.perf_counter()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -702,7 +719,8 @@ def profile_window(run, label, per, unit, top=8):
           f"device intervals); sum of kernel times {total / 1e3:.3f} ms "
           f"({100 * total / wall_us:.1f}% of wall, a sum, not a share); "
           f"{union / per / 1e3:.4f} ms busy/{unit}, {launches / per:.0f} "
-          f"kernel launches/{unit}")
+          f"kernel launches/{unit}; the window and the trace's processing "
+          f"{time.perf_counter() - started:.1f} s")
     # The k-NN kernels always, on the run's own positions, even when they
     # fall outside the top.
     ranked = sorted(events, key=device_us, reverse=True)
@@ -1217,12 +1235,14 @@ SWEEP8_ENV = ("num_agents_per_formation=3", "strict_parity=false",
 TPU_SWEEP8_WINDOWS = {(1, 25): -47.3, (76, 100): -38.3, (126, 150): -37.1,
                       (151, 175): -36.7, (176, 200): -38.1}
 SWEEP8_MARGIN = 5.0
-# Cut from gnn100's 30 iterations to 20 for phase 13's room: by 20 the
+# Cut from gnn100's 30 iterations to 20 for phase 13's room and to 16 for
+# phase 17's, in chunks of 8 (a fused loop runs whole chunks): by 16 the
 # learning gate (last 3 above the first 3 by 20, the best member above 0)
-# holds with a margin of ~40 (member 0 at 7.1-7.8 over iterations 18-20
-# on an NVIDIA H100 80GB HBM3 at 700 W).
-POP4 = GNN100[:-1] + ("total_timesteps=20480000", "num_seeds=4",
-                      "fused_chunk=10")
+# holds with a margin of ~39 (member 0 at 2.44, 4.61, 5.85 over iterations
+# 14-16, the population mean of the first 3 -35.21, on an NVIDIA H100 80GB
+# HBM3 at 700 W).
+POP4 = GNN100[:-1] + ("total_timesteps=16384000", "num_seeds=4",
+                      "fused_chunk=8")
 # The N=1024 population: gnn1024's command, 2 members, 4 iterations.
 POP1024 = GNN1024[:-1] + ("total_timesteps=327680", "num_seeds=2")
 LR_SWEEP = ("num_formation=64", "num_seeds=4",
@@ -1313,7 +1333,7 @@ def population_phase(gnn100):
     import numpy as np
 
     trainer, rewards, got, pop_s = train_run(
-        "smoke_pop4", POP4, "pop4 K=4 M=1024 N=100 fused_chunk=10")
+        "smoke_pop4", POP4, "pop4 K=4 M=1024 N=100 fused_chunk=8")
     want = 1 + len(rewards) * trainer.ppo.n_steps
     if got != {"knn_fused": want, "knn_tiled": 0}:
         raise AssertionError(f"pop4 launches {got}, want fused {want}")
@@ -1344,8 +1364,13 @@ def population_phase(gnn100):
           f"> baseline {res['baseline_return']:.2f} > zero "
           f"{res['zero_return']:.2f} (M=1024)")
     rollout_graph_equals_plain(trainer.model, 100, 1024)
-    profile_window(lambda: trainer._dispatch(1), "train pop4 K=4 M=1024 "
-                   "N=100, one captured iteration", 1, "iteration")
+    # Depth cut for phase 17's room: the rollout and the first of the 10
+    # epochs (the epochs replay one graph), not the whole iteration, whose
+    # 269,560 traced kernels the profiler took tens of seconds to process.
+    steps = trainer._iteration.num_minibatch_steps // trainer.ppo.n_epochs
+    profile_window(epoch_window(trainer), f"train pop4 K=4 M=1024 N=100, "
+                   f"the rollout and the first epoch ({steps} minibatch "
+                   "replays) of a captured iteration", 1, "window")
     elapsed("pop4")
 
     trainer, rewards, got, _ = train_run("smoke_pop1024", POP1024,
@@ -1903,9 +1928,12 @@ def scen100_run(gnn100):
           + ", ".join(f"{x:.4f}" for x in per_stage)
           + f"; whole run {s_iter:.4f}; gnn100's {gnn100['s_iter']:.4f} "
           f"(ratio {s_iter / gnn100['s_iter']:.3f})")
-    profile_window(lambda: trainer._dispatch(1), "train scen100 M=1024 "
-                   "N=100 under storm, one captured iteration", 1,
-                   "iteration")
+    # Depth cut for phase 17's room, as pop4's: the rollout and the first
+    # epoch of a captured iteration under storm.
+    steps = trainer._iteration.num_minibatch_steps // trainer.ppo.n_epochs
+    profile_window(epoch_window(trainer), f"train scen100 M=1024 N=100 "
+                   f"under storm, the rollout and the first epoch ({steps} "
+                   "minibatch replays) of a captured iteration", 1, "window")
     return trainer, got["knn_fused"]
 
 
@@ -2096,8 +2124,10 @@ def scenario_phase(gnn100):
 # Phase 9: the robustness matrix, the falsifier search and pursuit-evasion.
 # 3 scenarios (5 before phase 15 was paid for: sensor_noise and
 # comm_dropout, which phase 8's severity-0 identity still covers).
+# 2 severities (3 before phase 17 was paid for): severity 0 (the bitwise
+# identity) and 1.0.
 MATRIX_SCENARIOS = ("clean", "wind", "storm")
-MATRIX_SEVERITIES = (0.0, 0.5, 1.0)
+MATRIX_SEVERITIES = (0.0, 1.0)
 MATRIX1024_SCENARIOS = ("clean", "storm")
 MATRIX1024_SEVERITIES = (0.0, 1.0)
 MATRIX_RTOL = 1e-5  # a captured cell against the eager evaluate_scenario
@@ -2187,7 +2217,7 @@ def cell_rate(program, params, name, severity, reps):
 
 def matrix100(gnn100, scen100_ckpt):
     """``matrix100``: the CLI on ``gnn100``'s and ``scen100``'s checkpoints
-    (5 scenarios x 3 severities, M=256); then the wind 0.5 cell against the
+    (3 scenarios x 2 severities, M=256); then the wind 1.0 cell against the
     eager ``eval.evaluate_scenario``, and s/cell captured beside eager."""
     import torch
 
@@ -2211,16 +2241,16 @@ def matrix100(gnn100, scen100_ckpt):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eager = evaluate_scenario(policy_act_fn(pol.model, params), params,
-                              "wind", 0.5, 256, 1234, "cuda")
+                              "wind", 1.0, 256, 1234, "cuda")
     torch.cuda.synchronize()
     eager_s = time.perf_counter() - t0
-    cell = report["matrix"][ckpts[0]]["wind"]["0.5"]
+    cell = report["matrix"][ckpts[0]]["wind"]["1"]
     err = max(abs(cell[k] - eager[k]) / max(abs(eager[k]), 1e-30)
               for k in eager)
     if err > MATRIX_RTOL:
-        raise AssertionError(f"matrix100 wind 0.5 cell {cell} != eager "
+        raise AssertionError(f"matrix100 wind 1.0 cell {cell} != eager "
                              f"evaluate_scenario {eager} (rel {err})")
-    print(f"[matrix] matrix100 wind 0.5, gnn100's checkpoint: captured cell "
+    print(f"[matrix] matrix100 wind 1.0, gnn100's checkpoint: captured cell "
           f"== eager evaluate_scenario within rtol {MATRIX_RTOL} (max rel "
           f"err {err:.3g}; bitwise: {cell == eager})")
     storm = {Path(c).parent.name: report["matrix"][c]["storm"]["1"]
@@ -2229,9 +2259,9 @@ def matrix100(gnn100, scen100_ckpt):
           + ", ".join(f"{k} {v:.2f}" for k, v in storm.items()))
     prog = MatrixProgram(pol.model, params, 256, device="cuda")
     prog.evaluate_clean(pol.params)  # the build and the capture
-    cs, cr = cell_rate(prog, pol.params, "wind", 0.5, 2)
+    cs, cr = cell_rate(prog, pol.params, "wind", 1.0, 2)
     er = 256 * 1002 / eager_s
-    print(f"[matrix] matrix100 cell (wind 0.5, M=256 N=100, 1002 steps): "
+    print(f"[matrix] matrix100 cell (wind 1.0, M=256 N=100, 1002 steps): "
           f"captured {cs:.4f} s a cell, {cr:.1f} formation-steps/s; the "
           f"eager eval.evaluate_scenario {eager_s:.4f} s, {er:.1f} "
           f"formation-steps/s ({eager_s / cs:.2f}x)")
@@ -3650,7 +3680,7 @@ GUARDS64 = ("policy=gnn", "obs_mode=knn", "num_agents_per_formation=100",
             "num_formation=64", "preset=tpu", "total_timesteps=192000",
             "fused_chunk=1", "guard_retraces=1", "guard_transfers=true",
             "guard_nans=true")
-FLEET_DURATION_S = 3.0
+FLEET_DURATION_S = 1.5  # a cell's storm (3.0 before phase 17 was paid for)
 FLEET_HTTP_REQUESTS = 200  # over 4 HTTP clients
 
 
@@ -4168,7 +4198,7 @@ def fleet_phase(gnn100_ckpt, scen100_ckpt, single=None):
     http_failures(policy, rows)
     elapsed("fleet watchdog and frontend failures")
     guards_run()
-    return launches
+    return launches, reports[2]["requests_per_sec_fleet"]
 
 
 # Phase 14: the always-learning pipeline and tenant lanes on one card.
@@ -5322,6 +5352,192 @@ def parallel_phase(gnn100):
     return {"dp100x1": x1, "dp100x2": x2, "s_iter": s_iter}
 
 
+# Phase 17: the cross-host serving tier (serving/mesh/) on one card.
+# mesh100: run_mesh_smoke over gnn100's checkpoint and scen100's in turn, 2
+# host subprocesses time-sharing cuda:0, R=1 each. The ladder is 1/8/64:
+# JAX's smoke's 1/8 (one formation a request, up to 4 coalesced) and the 64
+# rung of each host's probe batch; the fleet's 512 rung would add a capture
+# a host that no request of this load reaches. 4 clients for 6 s, 3 global
+# swaps, host0 SIGKILLed halfway; after each commit every live host answers
+# MESH_CHECK_ROWS formations alone (rung 8), held bitwise against this
+# process's engine on the same checkpoint.
+MESH_BUCKETS = (1, 8, 64)
+MESH_DURATION_S = 6.0
+MESH_SWAPS = 3
+MESH_CLIENTS = 4
+MESH_CHECK_ROWS = 8
+# storm_mesh100: run_mesh_campaign(seed=0, faults=20) over gnn100's command
+# at M=64 (storm_train100's width) with its default 16-iteration train leg,
+# 2 hosts; the storm's wedge and gate deadline of phase 15.
+MESH_STORM_SEED, MESH_STORM_FAULTS = 0, 20
+
+
+def mesh100(gnn100_ckpt, scen100_ckpt):
+    """``run_mesh_smoke`` on the card; returns its report with the bitwise
+    checks made after each commit."""
+    import tempfile
+
+    import numpy as np
+
+    from marl_distributedformation_tpu_torch.compat.policy import LoadedPolicy
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.serving import (
+        BucketedPolicyEngine,
+    )
+    from marl_distributedformation_tpu_torch.serving.mesh import (
+        run_mesh_smoke,
+    )
+    from marl_distributedformation_tpu_torch.serving.mesh.rpc import (
+        post_json,
+    )
+
+    p100 = EnvParams(num_agents=100, obs_mode="knn", knn_k=4)
+    rows, _ = serve_rows(m=64)
+    engines = {
+        Path(c): BucketedPolicyEngine(
+            LoadedPolicy.from_checkpoint(c, env_params=p100, device="cuda"),
+            buckets=MESH_BUCKETS)
+        for c in (gnn100_ckpt, scen100_ckpt)}
+    check = rows[:MESH_CHECK_ROWS]
+    body = json.dumps({"obs": check.tolist()}).encode()
+    verified = []
+
+    def on_commit(mesh, step, source):
+        want = engines[Path(source)].act(check)
+        live = sorted(h.host_id for h in mesh.hosts if h.alive())
+        routable = mesh.coordinator.routable_hosts()
+        if sorted(h.host_id for h in routable) != live:
+            raise AssertionError(f"mesh100 step {step}: routable "
+                                 f"{[h.host_id for h in routable]}, live "
+                                 f"{live}")
+        for h in routable:
+            status, payload, _ = post_json(h.data_url, "/v1/act", body,
+                                           timeout_s=30.0)
+            got = np.asarray(payload.get("actions"), np.float32)
+            if (status != 200 or payload.get("model_step") != step
+                    or not np.array_equal(got, want)):
+                raise AssertionError(
+                    f"mesh100 step {step} {h.host_id}: status {status}, "
+                    f"step {payload.get('model_step')}, max abs diff "
+                    f"{np.abs(got - want).max() if got.shape == want.shape else got.shape}")
+        verified.append((step, live))
+
+    t0 = time.perf_counter()
+    report = run_mesh_smoke(
+        Path(tempfile.mkdtemp(prefix="mesh100_")), hosts=2,
+        duration_s=MESH_DURATION_S, swaps=MESH_SWAPS, clients=MESH_CLIENTS,
+        buckets=MESH_BUCKETS, device="cuda",
+        checkpoints=(gnn100_ckpt, scen100_ckpt), env_params=p100, rows=rows,
+        on_commit=on_commit, ready_timeout_s=180.0)
+    report["wall_s"] = time.perf_counter() - t0
+    report["verified"] = verified
+    want_receipt = {f"rung{b}_f32_replicated_compiles": 1.0
+                    for b in MESH_BUCKETS}
+    launches = report["mesh_host_knn_fused_launches"]
+    checks = {
+        "0 lost": report["mesh_failover_lost_requests"] == 0,
+        "0 step violations": report["mesh_step_violations"] == 0,
+        "1 capture a (host, rung)": report["mesh_host_compile_receipts"]
+        == {"host0": want_receipt, "host1": want_receipt},
+        "3 swaps, each host bitwise after each":
+            report["mesh_global_swaps"] == MESH_SWAPS
+            and len(verified) == MESH_SWAPS,
+        "host0 killed": report["mesh_host_killed"] == "host0",
+        "knn_fused on every host": sorted(launches) == ["host0", "host1"]
+        and min(launches.values()) > 0,
+        "hosts on cuda:0, the library prebuilt": all(
+            r["device"] == "cuda:0" and r["kernels_prebuilt"]
+            for r in report["mesh_hosts_ready"]),
+        "requests served": report["mesh_requests_ok"] > 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"mesh100 fails {failed}: {report}")
+    return report
+
+
+def storm_mesh100(work):
+    """``run_mesh_campaign`` over ``gnn100``'s command at M=64, 2 hosts on
+    ``cuda:0``; returns the report and this process's ``knn_fused``
+    launches (the trainer, the gate, the probe's formation)."""
+    from marl_distributedformation_tpu_torch import chaos_storm
+    from marl_distributedformation_tpu_torch.ops import knn_cuda
+
+    knn_cuda.reset_launches()
+    t0 = time.perf_counter()
+    report = chaos_storm.run_mesh_campaign(
+        seed=MESH_STORM_SEED, faults=MESH_STORM_FAULTS, hosts=2,
+        workdir=str(work / "storm_mesh100"), wedge_s=STORM_WEDGE_S,
+        gate_timeout_s=STORM_GATE_TIMEOUT_S, device="cuda",
+        overrides=STORM64)
+    wall = time.perf_counter() - t0
+    launches = knn_cuda.LAUNCHES["knn_fused"]
+    storm_line("storm_mesh100", report, (
+        "chaos_invariant_violations", "chaos_faults_fired",
+        "chaos_faults_unfired", "chaos_mttr_p50_s", "chaos_mttr_s",
+        "chaos_disruptions", "probes_total", "probes_ok", "promotions",
+        "rejections", "pipeline_restarts", "mesh_host_killed",
+        "mesh_host_states", "mesh_commit_rounds", "mesh_global_swaps",
+        "mesh_failed_over_total", "mesh_final_step", "compile_receipts",
+        "campaign_seconds"))
+    armed = {(f["point"], f["at_hit"])
+             for f in report["deterministic"]["schedule"]
+             if f["point"].startswith("mesh.")}
+    fired = {(f["point"], f["at_hit"]) for f in report["chaos_fired"]
+             if f["point"].startswith("mesh.")}
+    killed = report["mesh_host_killed"]
+    checks = {
+        "0 violations": report["chaos_invariant_violations"] == 0,
+        "every armed mesh.* fault fired": bool(armed) and armed == fired,
+        "the killed host dead": killed is not None
+        and report["mesh_host_states"].get(killed) == "dead",
+        "a global swap landed": report["mesh_global_swaps"] >= 1,
+        "knn_fused in this process": launches > 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"storm_mesh100 fails {failed}: {report}")
+    print(f"[mesh] storm_mesh100 (seed {MESH_STORM_SEED}, "
+          f"{MESH_STORM_FAULTS} faults, 2 hosts on cuda:0, M=64): wall "
+          f"{wall:.1f} s, {report['mesh_commit_rounds']} commit rounds "
+          f"({report['mesh_global_swaps']} landed), mesh faults fired "
+          f"{sorted(fired)}, {killed} {report['mesh_host_states'][killed]}; "
+          f"knn_fused {launches} in this process")
+    return report, launches
+
+
+def mesh_phase(gnn100_ckpt, scen100_ckpt, fleet_rate=None):
+    """Phase 17: ``mesh100`` and ``storm_mesh100``. ``fleet_rate`` is
+    phase 13's R=2 requests/s, printed beside. Returns the hosts' and this
+    process's ``knn_fused`` launches."""
+    import tempfile
+
+    report = mesh100(gnn100_ckpt, scen100_ckpt)
+    launches = report["mesh_host_knn_fused_launches"]
+    print(f"[mesh] mesh100, 2 host subprocesses time-sharing cuda:0 (R=1 "
+          f"each, ladder {'/'.join(map(str, MESH_BUCKETS))}, "
+          f"{MESH_CLIENTS} clients, {report['mesh_load_seconds']} s of load, "
+          f"{report['mesh_host_killed']} SIGKILLed halfway): "
+          f"{report['mesh_req_per_sec']} requests/s (time-sharing one card, "
+          "not a scaling figure"
+          + (f"; phase 13's fleet100 R=2 {fleet_rate:.1f}" if fleet_rate
+             else "")
+          + f"); global swap p50 {report['mesh_global_swap_latency_s_p50']}"
+          f" s, p95 {report['mesh_global_swap_latency_s_p95']} s over "
+          f"{report['mesh_global_swaps']} swaps ({report['mesh_aborted_rounds']}"
+          f" aborted rounds retried); {report['mesh_requests_ok']} served, "
+          f"{report['mesh_typed_errors']} typed errors, "
+          f"{report['mesh_failover_lost_requests']} lost, "
+          f"{report['mesh_step_violations']} step violations; captures "
+          f"{report['mesh_host_compile_receipts']}; knn_fused launches a "
+          f"host {launches} (each host's probe rows, (64,100,4)); bitwise "
+          f"== this process's engine after each commit on "
+          f"{report['verified']}; wall {report['wall_s']:.1f} s")
+    _, storm_launches = storm_mesh100(
+        Path(tempfile.mkdtemp(prefix="storm_mesh_")))
+    return {"hosts": launches, "storm": storm_launches}
+
+
 def main() -> int:
     import torch
 
@@ -5452,7 +5668,8 @@ def main() -> int:
 
     # Phase 13: the serving fleet, the watchdog and the runtime guards,
     # this slice's main paths.
-    fleet_launches = fleet_phase(gnn100["ckpt"], scen100_ckpt, serve_smoke)
+    fleet_launches, fleet_rate = fleet_phase(gnn100["ckpt"], scen100_ckpt,
+                                             serve_smoke)
     elapsed("phase 13, fleet, watchdog, guards")
 
     # Phase 14: the always-learning pipeline and tenant lanes, this
@@ -5468,6 +5685,10 @@ def main() -> int:
     # main path.
     dp = parallel_phase(gnn100)
     elapsed("phase 16, dp and the ring")
+
+    # Phase 17: the cross-host serving tier, this slice's main path.
+    mesh = mesh_phase(gnn100["ckpt"], scen100_ckpt, fleet_rate)
+    elapsed("phase 17, the serving mesh")
 
     replaces = {
         "knn_fused": "marl_distributedformation_tpu/ops/knn_pallas.py:117",
@@ -5582,6 +5803,14 @@ def main() -> int:
         "path": "train dp100x2, each rank's block",
         "launches": dp["dp100x2"], "dp100x1_launches": dp["dp100x1"],
         "dp100x2_s_iter": dp["s_iter"], **stats["knn_fused"]["dp"]}
+    # Phase 17: each mesh host's probe rows at (64,100,4), the gate's
+    # shape (timed above); storm_mesh100's trainer, gate and probe in this
+    # process.
+    kernels[0]["mesh"] = {
+        "path": "mesh100 hosts' probe rows, storm_mesh100",
+        "launches": sum(mesh["hosts"].values()) + mesh["storm"],
+        "host_launches": mesh["hosts"], "storm_mesh100_launches":
+        mesh["storm"], **stats["knn_fused"]["gate"]}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -27,9 +27,14 @@ through to ``train.cli.build_trainer``):
 On one card the trainer, the gate and every replica share the device, each
 replaying its CUDA graphs on a stream of its own (``train/capture.py``);
 under ``architecture=sebulba`` the gate takes ``assign_gate_device``'s
-device, the learner's own on one card. Keys of parts not ported yet exit
-naming their ROADMAP item: ``mesh_serve`` and ``mesh_*`` (A13,
-``serving/mesh``) and ``sentinel*`` (A14). ``guard_transfers`` is refused,
+device, the learner's own on one card. ``mesh_serve=true`` serves through
+a loopback multi-host mesh instead (``serving/mesh``): ``mesh_hosts`` host
+subprocesses on the trainer's device behind the ``MetaRouter``, the
+``MeshCoordinator`` driving every promotion as a coordinator-barriered
+global commit (``mesh_heartbeat_s``, ``mesh_lease_s``,
+``mesh_dead_after_s``, ``mesh_prepare_timeout_s``; ``mesh_port`` starts
+the ``MeshFrontend``). Keys of parts not ported yet exit naming their
+ROADMAP item: ``sentinel*`` (A14). ``guard_transfers`` is refused,
 as Sebulba refuses it: the CUDA sync debug mode is the process's, and the
 gate's and the fleet's threads synchronize.
 
@@ -84,7 +89,9 @@ PIPELINE_KEYS = (
     "pipeline_poll_s",
     "pipeline_budget_s",
     "pipeline_verify_requests",
-    # mesh tier (not ported: ROADMAP A13, serving/mesh)
+    # mesh tier (serving/mesh): serve through a loopback multi-host mesh,
+    # host subprocesses behind the MetaRouter, the MeshCoordinator driving
+    # every promotion as a global barrier commit.
     "mesh_serve",
     "mesh_hosts",
     "mesh_heartbeat_s",
@@ -130,7 +137,6 @@ TRAIN_EXTRA_KEYS = (
 )
 # Pipeline keys of parts not ported yet, and the ROADMAP item of each.
 UNPORTED_PREFIXES = {
-    "mesh_": "A13 (serving/mesh)",
     "sentinel": "A14 (the perf-regression sentinel, after the port's "
                 "benchmark)",
 }
@@ -383,6 +389,7 @@ def main(
     router = None
     frontend = None
     watchdog = None
+    mesh = None
     stop_traffic = None
     try:
         if not pipeline.wait_first_promotion(
@@ -393,31 +400,69 @@ def main(
                 f"({budget_s:g}s) — see {trainer.log_dir}/promotions.jsonl"
             )
 
-        from marl_distributedformation_tpu_torch.serving.fleet import (
-            FleetFrontend,
-            fleet_from_checkpoint_dir,
-            warmup_fleet,
-        )
-
         buckets = _as_list(cfg.get("pipeline_buckets"), [1, 8])
-        router, coordinator = fleet_from_checkpoint_dir(
-            pipeline.promoted_dir,
-            env_params=env_params,
-            act_dim=env_params.act_dim,
-            num_replicas=replicas,
-            buckets=tuple(int(b) for b in buckets),
-            device=device,
-        )
-        row_shape = request_row_shape(router.policy, env_params)
-        # Every rung of every replica built (captured on the card) before
-        # the schedulers start.
-        warmup_fleet(router, row_shape)
-        router.start()
-        port = cfg.get("pipeline_port")
-        if port is not None:
-            frontend = FleetFrontend(router, port=int(port)).start()
-            report["frontend_url"] = frontend.url
-            print(f"[always] frontend: {frontend.url}", file=sys.stderr)
+        mesh_serve = bool(cfg.get("mesh_serve", False))
+        if mesh_serve:
+            # The cross-host shape: host SUBPROCESSES serve the promoted
+            # directory (their env params from the run's config.json)
+            # behind the MetaRouter; the MeshCoordinator drives every
+            # promotion as a coordinator-barriered global commit, and the
+            # supervisor is none the wiser (duck-typed attach_fleet).
+            from marl_distributedformation_tpu_torch.serving.mesh import (
+                spawn_local_mesh,
+            )
+
+            mesh_port = cfg.get("mesh_port")
+            mesh = spawn_local_mesh(
+                pipeline.promoted_dir,
+                hosts=int(cfg.get("mesh_hosts", 2)),
+                replicas_per_host=replicas,
+                buckets=tuple(int(b) for b in buckets),
+                num_agents=env_params.num_agents,
+                heartbeat_s=float(cfg.get("mesh_heartbeat_s", 0.25)),
+                lease_s=float(cfg.get("mesh_lease_s", 1.0)),
+                dead_after_s=float(cfg.get("mesh_dead_after_s", 1.0)),
+                prepare_timeout_s=float(
+                    cfg.get("mesh_prepare_timeout_s", 30.0)),
+                frontend_port=(
+                    int(mesh_port) if mesh_port is not None else None),
+                ready_timeout_s=max(deadline - time.time(), 30.0),
+                device=device,
+            )
+            router, coordinator = mesh.router, mesh.coordinator
+            if mesh.frontend is not None:
+                report["frontend_url"] = mesh.frontend.url
+                print(f"[always] mesh frontend: {mesh.frontend.url}",
+                      file=sys.stderr)
+            print(f"[always] mesh: {len(mesh.hosts)} host subprocesses on "
+                  f"{device}, coordinator {coordinator.url}",
+                  file=sys.stderr)
+            row_shape = request_row_shape(trainer.model, env_params)
+        else:
+            from marl_distributedformation_tpu_torch.serving.fleet import (
+                FleetFrontend,
+                fleet_from_checkpoint_dir,
+                warmup_fleet,
+            )
+
+            router, coordinator = fleet_from_checkpoint_dir(
+                pipeline.promoted_dir,
+                env_params=env_params,
+                act_dim=env_params.act_dim,
+                num_replicas=replicas,
+                buckets=tuple(int(b) for b in buckets),
+                device=device,
+            )
+            row_shape = request_row_shape(router.policy, env_params)
+            # Every rung of every replica built (captured on the card)
+            # before the schedulers start.
+            warmup_fleet(router, row_shape)
+            router.start()
+            port = cfg.get("pipeline_port")
+            if port is not None:
+                frontend = FleetFrontend(router, port=int(port)).start()
+                report["frontend_url"] = frontend.url
+                print(f"[always] frontend: {frontend.url}", file=sys.stderr)
         pipeline.attach_fleet(router, coordinator)
         monitor = rollback_monitor(cfg, router)
         if monitor is not None:
@@ -426,8 +471,10 @@ def main(
         # Self-healing supervision: a crashed replica worker restarts and
         # the router's half-open probe readmits it. The pipeline lane is
         # this thread here; pipeline.run() mode watches it too
-        # (watchdog.watch_pipeline).
-        if bool(cfg.get("watchdog", True)):
+        # (watchdog.watch_pipeline). The mesh has no in-process fleet lanes
+        # to watch: each host subprocess supervises its own schedulers, and
+        # host DEATH is the coordinator's lease taxonomy's job.
+        if bool(cfg.get("watchdog", True)) and not mesh_serve:
             from marl_distributedformation_tpu_torch.chaos import (
                 LaneWatchdog,
             )
@@ -530,9 +577,22 @@ def main(
         report["train_alive"] = train_thread.is_alive()
         if train_error:
             report["train_error"] = train_error[0][:300]
-        compile_receipts = router.compile_counts()
+        if mesh_serve:
+            # Per-host receipts scraped over HTTP (the captured rungs live
+            # in the host subprocesses); the ledger's receipt equality
+            # below covers THIS process only.
+            receipt_sets = router.host_compile_counts()
+            report["mesh_hosts"] = len(mesh.hosts)
+            report["mesh_commit_rounds"] = coordinator.commit_round
+            report["mesh_host_states"] = {
+                h["host_id"]: h["state"] for h in coordinator.hosts()
+            }
+            compile_receipts = {}
+        else:
+            compile_receipts = router.compile_counts()
+            receipt_sets = compile_receipts
         report["serving_max_compiles_per_rung"] = max(
-            (c for per in compile_receipts.values() for c in per.values()),
+            (c for per in receipt_sets.values() for c in per.values()),
             default=0,
         )
         # Program ledger: every budget-1 build site registers once a build,
@@ -573,7 +633,9 @@ def main(
             telemetry.stop()
         if frontend is not None:
             frontend.stop()
-        if router is not None:
+        if mesh is not None:
+            mesh.stop()
+        elif router is not None:
             router.stop()
         pipeline.stop()
 

@@ -13,15 +13,19 @@ JSON line:
     python -m marl_distributedformation_tpu_torch.chaos_storm --seed 0
     python -m marl_distributedformation_tpu_torch.chaos_storm --train
     python -m marl_distributedformation_tpu_torch.chaos_storm --sebulba
+    python -m marl_distributedformation_tpu_torch.chaos_storm --mesh
     # on the CPU:
     python -m marl_distributedformation_tpu_torch.chaos_storm device=cpu
 
 Every campaign runs on ``cuda`` unless ``device=cpu`` is given (the
 ``key=value`` spelling of the port's entry points; ``--device cpu`` too),
-and raises without a card. ``--mesh`` and ``--elastic`` print their
-schedules under ``--print-schedule``; their campaigns need the serving
-mesh (ROADMAP A13, ``serving/mesh``) and elastic capacity (ROADMAP A12,
-``serving/elastic``), which are not ported, and exit naming them.
+and raises without a card. ``--mesh`` points the storm at a loopback
+multi-process mesh (``serving/mesh``): ``--hosts`` host subprocesses on
+the campaign's device (on one card they share ``cuda:0``), the
+control-plane faults armed in this process, and a real ``kill -9`` of one
+host. ``--elastic`` prints its schedule under ``--print-schedule``; its
+campaign needs elastic capacity (ROADMAP A12, ``serving/elastic``), which
+is not ported, and exits naming it.
 
 The campaign is DETERMINISTIC from its seed: ``--print-schedule`` emits
 the armed fault schedule (a pure function of the CLI arguments, equal to
@@ -92,8 +96,8 @@ SERVE_POINTS = (
     "registry.swap",
     "scheduler.dispatch",
 )
-# The --mesh campaign's serve leg: the control-plane seams of the serving
-# mesh (not ported: ROADMAP A13). Kept for its schedule.
+# The --mesh campaign's serve leg: the control-plane seams that live in
+# this process (the coordinator's legs and the heartbeats it serves).
 MESH_SERVE_POINTS = (
     "stream.poll",
     "gate.eval",
@@ -167,7 +171,6 @@ WINDOWS = {
 
 # The ROADMAP items of the campaigns that need more than one device.
 UNPORTED_CAMPAIGNS = {
-    "--mesh": "A13 (serving/mesh)",
     "--elastic": "A12 (serving/elastic)",
 }
 
@@ -709,6 +712,323 @@ def run_campaign(
             router.stop()
 
 
+def run_mesh_campaign(
+    seed: int = 0,
+    faults: int = 20,
+    hosts: int = 2,
+    workdir: Optional[str] = None,
+    budget_s: float = 300.0,
+    num_agents: int = 3,
+    num_formations: int = 4,
+    train_iterations: int = 16,
+    eval_formations: int = 8,
+    wedge_s: float = 2.0,
+    gate_timeout_s: float = 1.5,
+    probe_interval_s: float = 0.05,
+    device: Any = "cuda",
+    overrides: Overrides = None,
+) -> Dict[str, Any]:
+    """The storm pointed at a loopback multi-process mesh: the SAME
+    invariant checkers, now with the fleet spread over ``hosts`` real
+    subprocesses on ``device``, the control-plane faults armed in this
+    process, and a real ``kill -9`` of one host mid-storm instead of a
+    ``SimulatedCrash``. One JSON line out, :func:`run_campaign`'s shape
+    plus the ``mesh_*`` fields (and the port's ``compile_receipts``)."""
+    import signal
+
+    from marl_distributedformation_tpu_torch.chaos import (
+        DISRUPTIVE_KINDS,
+        LaneWatchdog,
+        Violation,
+        check_audit_log,
+        check_budget_one,
+        check_checkpoint_dir,
+        check_no_request_lost,
+        check_step_monotonic,
+        get_fault_plane,
+        report_violations,
+    )
+    from marl_distributedformation_tpu_torch.device import resolve_device
+    from marl_distributedformation_tpu_torch.pipeline import (
+        AlwaysLearningPipeline,
+        GateConfig,
+    )
+    from marl_distributedformation_tpu_torch.serving.mesh import (
+        spawn_local_mesh,
+    )
+    from marl_distributedformation_tpu_torch.serving.mesh.host import (
+        write_run_config,
+    )
+    from marl_distributedformation_tpu_torch.train import Trainer
+    from marl_distributedformation_tpu_torch.utils.checkpoint import (
+        checkpoint_path,
+        checkpoint_step,
+        latest_checkpoint,
+        restore_latest_partial,
+    )
+
+    device = resolve_device(device)
+    t_start = time.perf_counter()
+    deadline = t_start + budget_s
+    workdir = Path(
+        workdir
+        if workdir is not None
+        else tempfile.mkdtemp(prefix="chaos_mesh_")
+    )
+    log_dir = workdir / "run"
+    run = _run_settings(overrides, num_agents, num_formations)
+    env = run.env
+    schedule = build_schedule(
+        seed,
+        faults,
+        wedge_s=wedge_s,
+        point_names=TRAIN_POINTS + MESH_SERVE_POINTS,
+    )
+    plane = get_fault_plane()
+    plane.reset()
+    report: Dict[str, Any] = {
+        "deterministic": {
+            "chaos_seed": int(seed),
+            "chaos_faults_armed": len(schedule),
+            "schedule": schedule.record(),
+        },
+        "mesh_hosts": int(hosts),
+    }
+    violations: List[Any] = []
+    pipeline = mesh = prober = watchdog = None
+    try:
+        # ---- phase 1: train under checkpoint-path faults ---------------
+        per_iter = run.per_iter
+        trainer = _trainer(
+            Trainer, run, device,
+            total_timesteps=train_iterations * per_iter,
+            save_freq=5,
+            fused_chunk=2,
+            name="chaos_mesh_storm",
+            log_dir=str(log_dir),
+        )
+        per_formation = getattr(trainer.model, "per_formation", False)
+        plane.arm(_split(schedule, TRAIN_POINTS))
+        plane.enabled = True
+        trainer.train()  # must SURVIVE the injected write failures
+        plane.enabled = False
+
+        # ---- phase 2: crash-consistent resume --------------------------
+        found = restore_latest_partial(log_dir, trainer.resume_keys)
+        report["resume_ok"] = bool(found)
+        del trainer
+        _release()
+
+        # ---- phase 3: bootstrap the pipeline, then the mesh ------------
+        gate_cfg = GateConfig(
+            scenarios=("wind",),
+            severities=(1.0,),
+            eval_formations=eval_formations,
+            clean_tolerance=10.0,
+            rung_tolerance=10.0,
+        )
+        pipeline = AlwaysLearningPipeline(
+            log_dir, env, gate_config=gate_cfg, poll_interval_s=0.05,
+            gate_device=device,
+        )
+        if not pipeline.wait_first_promotion(
+            timeout_s=max(30.0, deadline - time.perf_counter())
+        ):
+            report["error"] = "no candidate passed the bootstrap gate"
+            report["chaos_invariant_violations"] = -1
+            return report
+        # The hosts read the run's env params beside its checkpoints (the
+        # promoted directory's parent), as the serve CLI does.
+        write_run_config(log_dir, env)
+        mesh = spawn_local_mesh(
+            pipeline.promoted_dir,
+            hosts=hosts,
+            buckets=(1, 8),
+            heartbeat_s=0.2,
+            lease_s=0.8,
+            dead_after_s=0.8,
+            probe_interval_s=0.5,
+            ready_timeout_s=max(30.0, deadline - time.perf_counter()),
+            device=device,
+        )
+        killed_host = None
+        t_kill = None
+        # The pipeline lane is the only in-process lane to supervise: the
+        # hosts are separate processes whose death IS the scenario (the
+        # coordinator's lease taxonomy owns declaring it).
+        watchdog = LaneWatchdog(
+            wedge_timeout_s=1.0,
+            backoff_base_s=0.1,
+            backoff_cap_s=2.0,
+            poll_interval_s=0.1,
+        )
+        pipeline.attach_fleet(mesh.router, mesh.coordinator)
+        pipeline.gate.config = dataclasses.replace(
+            gate_cfg, gate_timeout_s=gate_timeout_s
+        )
+        watchdog.watch_pipeline(pipeline)
+        watchdog.start()
+        probe_row = (_formation_row(env, device) if per_formation
+                     else env.obs_dim)
+        prober = _Prober(
+            mesh.router, probe_row, interval_s=probe_interval_s
+        ).start()
+        plane.arm(_split(schedule, MESH_SERVE_POINTS))
+        plane.enabled = True
+        pipeline.run(interval_s=0.05)
+        # Pace like the single-host storm: keep the candidate stream fed
+        # while commit-path cells are pending, and mid-storm drop the
+        # hammer — a REAL SIGKILL of one host subprocess.
+        candidate_points = ("gate.eval", "mesh.rpc")
+        synth_src = found[0] if found is not None else None
+        newest = latest_checkpoint(log_dir)
+        synth_step = checkpoint_step(newest) if newest is not None else 0
+        synth_last, synth_count = time.perf_counter(), 0
+        kill_at = time.perf_counter() + 3.0
+        # Pace until every serve-leg fault fired AND at least one
+        # coordinator-driven global swap LANDED (swap_count counts commits
+        # that served; commit_round counts attempts, aborts included) — or
+        # the budget ends.
+        while (
+            plane.pending(MESH_SERVE_POINTS) > 0
+            or mesh.coordinator.swap_count == 0
+        ) and time.perf_counter() < deadline:
+            time.sleep(0.1)
+            if killed_host is None and time.perf_counter() >= kill_at:
+                t_kill = time.perf_counter()
+                killed_host = mesh.kill_host(0, sig=signal.SIGKILL)
+            if (
+                synth_src is not None
+                and plane.pending(candidate_points) > 0
+                and time.perf_counter() - synth_last > 1.0
+                and synth_count < 24
+            ):
+                synth_step += per_iter
+                dst = checkpoint_path(log_dir, synth_step)
+                tmp = dst.with_name(f".{dst.name}.tmp")
+                shutil.copyfile(synth_src, tmp)
+                tmp.replace(dst)
+                pipeline.stream.nudge()
+                synth_last = time.perf_counter()
+                synth_count += 1
+        if killed_host is None:
+            # Every fault fired before the timer: the kill is still owed
+            # (it IS the campaign's headline disruption).
+            t_kill = time.perf_counter()
+            killed_host = mesh.kill_host(0, sig=signal.SIGKILL)
+        time.sleep(max(2.0, wedge_s))
+        plane.enabled = False
+        pipeline.stop()
+        watchdog.stop()
+        prober.stop()
+        receipts = mesh.router.host_compile_counts()
+        mesh_snapshot = mesh.router.snapshot()
+        mesh_swaps_landed = mesh.coordinator.swap_count
+        host_states = {
+            h["host_id"]: h["state"] for h in mesh.coordinator.hosts()
+        }
+
+        # ---- phase 4: invariants ---------------------------------------
+        fired = plane.fired_record()
+        disruptions = [
+            f["t"]
+            for f in plane.fired
+            if f["kind"] in DISRUPTIVE_KINDS
+            and f["point"] in MESH_SERVE_POINTS
+        ]
+        if t_kill is not None:
+            disruptions.append(t_kill)  # the kill -9 IS a disruption
+        mttr = prober.mttr_samples(disruptions)
+        violations += check_step_monotonic(
+            prober.steps,
+            rollback_to_steps=[r["to_step"] for r in pipeline.rollbacks],
+        )
+        violations += check_no_request_lost(prober.outcomes)
+        compiles = {
+            "gate_matrix": (
+                pipeline.gate.program.compile_count
+                if pipeline.gate.program is not None
+                else 0
+            ),
+        }
+        for host_id, per_rung in receipts.items():
+            for rung, count in per_rung.items():
+                compiles[f"{host_id}_{rung}"] = int(count)
+        violations += check_budget_one(compiles)
+        violations += check_audit_log(log_dir / "promotions.jsonl")
+        violations += check_checkpoint_dir(log_dir)
+        violations += check_checkpoint_dir(pipeline.promoted_dir)
+        if disruptions and not mttr:
+            violations.append(
+                Violation(
+                    "recovery",
+                    f"{len(disruptions)} disruption(s) (incl. the host "
+                    "kill) but no probe ever succeeded afterwards — the "
+                    "mesh never recovered",
+                )
+            )
+        if killed_host is not None and host_states.get(killed_host) != "dead":
+            violations.append(
+                Violation(
+                    "gossip",
+                    f"killed host {killed_host} never declared dead "
+                    f"(state: {host_states.get(killed_host)!r}) — the "
+                    "lease/suspect/dead taxonomy missed a real SIGKILL",
+                )
+            )
+        if mesh_swaps_landed == 0:
+            violations.append(
+                Violation(
+                    "global_commit",
+                    "no coordinator-driven global swap LANDED during the "
+                    "campaign (aborted rounds don't count) — the "
+                    "monotonicity witness never crossed a cross-host "
+                    "commit, so the acceptance criterion was not exercised",
+                )
+            )
+        report["chaos_violations"] = report_violations(violations, plane)
+        report["chaos_invariant_violations"] = len(violations)
+        report["chaos_faults_fired"] = len(fired)
+        report["chaos_faults_unfired"] = plane.pending()
+        if mttr:
+            report["chaos_mttr_s"] = round(max(mttr), 3)
+            report["chaos_mttr_p50_s"] = round(
+                sorted(mttr)[len(mttr) // 2], 3
+            )
+        report["chaos_disruptions"] = len(disruptions)
+        report["probes_total"] = len(prober.outcomes)
+        report["probes_ok"] = sum(1 for o in prober.outcomes if o["ok"])
+        report["promotions"] = len(pipeline.promotions)
+        report["rejections"] = len(pipeline.rejections)
+        report["pipeline_restarts"] = watchdog.restarts_total()
+        report["mesh_host_killed"] = killed_host
+        report["mesh_host_states"] = host_states
+        report["mesh_commit_rounds"] = int(
+            mesh_snapshot.get("mesh_commit_rounds", 0)
+        )
+        report["mesh_global_swaps"] = int(mesh_swaps_landed)
+        report["mesh_failed_over_total"] = int(
+            mesh_snapshot.get("mesh_failed_over_total", 0)
+        )
+        report["mesh_final_step"] = int(mesh_snapshot.get("mesh_step", -1))
+        # The port's: the receipts and the faults that fired.
+        report["compile_receipts"] = compiles
+        report["chaos_fired"] = fired
+        report["campaign_seconds"] = round(time.perf_counter() - t_start, 2)
+        return report
+    finally:
+        plane.enabled = False
+        plane.reset()
+        if prober is not None:
+            prober.stop()
+        if watchdog is not None:
+            watchdog.stop()
+        if pipeline is not None:
+            pipeline.stop()
+        if mesh is not None:
+            mesh.stop()
+
+
 def run_train_campaign(
     seed: int = 0,
     faults: int = 10,
@@ -1082,9 +1402,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument(
         "--mesh",
         action="store_true",
-        help="the storm against a loopback multi-process mesh "
-        "(serving/mesh): not ported (ROADMAP A13); --print-schedule "
-        "prints its schedule",
+        help="point the storm at a loopback multi-process mesh "
+        "(serving/mesh): control-plane faults in this process plus a "
+        "real kill -9 of one host subprocess mid-storm",
     )
     ap.add_argument(
         "--hosts", type=int, default=2,
@@ -1186,7 +1506,16 @@ def main(argv: Optional[List[str]] = None) -> int:
             TRAIN_POINTS + MESH_SERVE_POINTS if args.mesh else None))
         return 0
     if args.mesh:
-        return refuse_unported("--mesh")
+        report = run_mesh_campaign(
+            seed=args.seed,
+            faults=faults,
+            hosts=args.hosts,
+            workdir=args.workdir,
+            budget_s=args.budget_s,
+            device=args.device,
+        )
+        print(json.dumps(report))
+        return 0 if report.get("chaos_invariant_violations") == 0 else 1
     report = run_campaign(
         seed=args.seed,
         faults=faults,

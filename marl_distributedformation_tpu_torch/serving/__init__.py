@@ -28,8 +28,12 @@
   coordinators with per-model step monotonicity, ``run_tenant_smoke`` for
   the isolation evidence.
 
-The sharded engine, elastic capacity and the mesh are not ported yet
-(ROADMAP A13).
+- ``serving.mesh`` — the cross-host tier above per-host fleets:
+  ``MeshCoordinator`` (host registry, lease gossip, the two-phase global
+  commit), ``HostAgent``, ``MetaRouter``/``MeshFrontend``, the loopback
+  mesh of host subprocesses (``spawn_local_mesh``) and ``run_mesh_smoke``.
+
+The sharded engine and elastic capacity are not ported yet (ROADMAP A13).
 """
 
 from marl_distributedformation_tpu_torch.serving.autotune import (

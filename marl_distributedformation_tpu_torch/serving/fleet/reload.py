@@ -36,9 +36,11 @@ architecture, a drifted dtype or a foreign checkpoint is a recorded
 older or equal steps are ignored; broken replicas receive the new
 parameters too, so a revived replica serves the current step.
 
-The elastic re-split (``commit_resplit``) and the cross-host two-phase
-commit (``prepare_global`` / ``commit_prepared`` / ``abort_prepared``)
-are not ported: they raise naming their ROADMAP items.
+The cross-host two-phase commit the serving mesh drives
+(``prepare_global`` / ``commit_prepared`` / ``abort_prepared``,
+``serving/mesh``) splits the same commit at its commit point. The elastic
+re-split (``commit_resplit``) is not ported: it raises naming its ROADMAP
+items.
 """
 
 from __future__ import annotations
@@ -216,6 +218,10 @@ class FleetReloadCoordinator:
             reg.active_step for reg in self._commit_registries()
         )
         self._refresh_lock = threading.Lock()
+        # The cross-host round this host has staged and awaits the mesh
+        # coordinator's commit or abort for (``prepare_global``).
+        self._staged: Optional[dict] = None  # guarded by _staged_lock
+        self._staged_lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
@@ -408,16 +414,245 @@ class FleetReloadCoordinator:
             "A13: serving/elastic, with A12)"
         )
 
-    def prepare_global(self, *args: Any, **kwargs: Any) -> Tuple[bool, str]:
-        """The cross-host two-phase commit: not ported (ROADMAP A13,
-        serving/mesh)."""
-        raise NotImplementedError(
-            "prepare_global (the cross-host mesh commit) is not ported yet "
-            "(ROADMAP A13: serving/mesh)"
+    # -- cross-host staged two-phase (serving/mesh) ----------------------
+    #
+    # The mesh coordinator generalizes the batch-barrier commit across
+    # hosts: it cannot hold every host's locks itself, so each host splits
+    # _load_and_commit at the commit point. ``prepare_global`` does
+    # everything UP TO the flip (restore + validate once, stage a copy a
+    # replica, close the gates, acquire every replica barrier) and HOLDS
+    # that state, the host serving nothing, until the coordinator decides:
+    # ``commit_prepared`` installs every staged cell (each engine copies it
+    # into its captured parameter tensors at its next dispatch, so no rung
+    # is captured again) and resumes, ``abort_prepared`` resumes on the old
+    # step. Every host pauses before any host commits, so no old-step
+    # response can complete after a new-step one anywhere in the mesh.
+    # ``ttl_s`` bounds an orphaned prepare (the coordinator died
+    # mid-round): the host aborts on its own and keeps serving the old step.
+
+    def prepare_global(
+        self,
+        path: str | Path,
+        step: Optional[int] = None,
+        monotonic: bool = True,
+        trace_id: Optional[str] = None,
+        ttl_s: Optional[float] = 60.0,
+    ) -> Tuple[bool, str]:
+        """Phase 1 of the cross-host swap: stage + pause. Returns
+        ``(staged, reason)``; on False the host is untouched and keeps
+        serving. The refresh lock stays held across a successful prepare,
+        so no local reload interleaves with the mesh round; commit or
+        abort releases it."""
+        path = Path(path)
+        # Refuse FAST when the lock is busy instead of parking: a prepare
+        # that blocks past the coordinator's RPC timeout becomes a zombie
+        # whose late "staged" ack lands after its round aborted. A quick
+        # typed refusal lets the coordinator abort-and-clear and retry.
+        if not self._refresh_lock.acquire(timeout=0.25):
+            with self._staged_lock:
+                staleness = (
+                    f" (round {self._staged['round_tag']} is staged "
+                    "here awaiting commit/abort)"
+                    if self._staged is not None
+                    else ""
+                )
+            return False, f"another reload holds the refresh lock{staleness}"
+        staged_ok = False
+        try:
+            with self._staged_lock:
+                if self._staged is not None:
+                    return False, (
+                        f"round {self._staged['round_tag']} is already "
+                        "staged on this host (commit or abort it first)"
+                    )
+            try:
+                step = checkpoint_step(path) if step is None else int(step)
+            except ValueError as e:
+                self.load_errors.append((str(path), repr(e)))
+                return False, f"unparseable checkpoint name: {e}"
+            if monotonic and step <= self._fleet_step:
+                return False, (
+                    f"stale step {step} <= served {self._fleet_step}"
+                )
+            if step == self._fleet_step:
+                return False, f"already serving step {step}"
+            tracer = get_tracer()
+            try:
+                with tracer.span(
+                    "reload.load", trace_id=trace_id, step=step,
+                    path=str(path),
+                ):
+                    restored = self._load_validated(path)
+                with tracer.span(
+                    "reload.stage", trace_id=trace_id, step=step
+                ):
+                    staged = [
+                        (reg, device_copy(restored, reg.device))
+                        for reg in self._commit_registries()
+                    ]
+            except Exception as e:  # noqa: BLE001 — serving must not die
+                self.load_errors.append((str(path), repr(e)))
+                return False, f"load failed: {e!r}"
+            barriers = [reg.batch_lock for reg, _ in staged]
+            held: List[BatchBarrier] = []
+            wedged_replica = None
+            try:
+                for b in barriers:
+                    b.close()
+                for i, b in enumerate(barriers):
+                    fault_point("fleet.barrier")
+                    t_acq = time.perf_counter()
+                    acquired = b.acquire(timeout=self.commit_timeout_s)
+                    tracer.add_span(
+                        "reload.barrier_acquire", t_acq, time.perf_counter(),
+                        trace_id=trace_id, replica=i, acquired=acquired,
+                    )
+                    if not acquired:
+                        reason = (
+                            f"prepare aborted: replica {i} barrier not "
+                            f"acquired in {self.commit_timeout_s}s "
+                            "(wedged dispatch?); old step keeps serving"
+                        )
+                        self.load_errors.append((str(path), reason))
+                        wedged_replica = i
+                        return False, reason
+                    held.append(b)
+            except BaseException as e:
+                # An exception with the gates closed (an armed
+                # fleet.barrier fault) must not leave the host paused
+                # forever: the finally below reopens them.
+                reason = f"prepare aborted mid-acquisition: {e!r}"
+                self.load_errors.append((str(path), reason))
+                if isinstance(e, Exception):
+                    return False, reason
+                raise  # SimulatedCrash-grade: die, but gates reopened
+            finally:
+                if len(held) != len(barriers):
+                    for h in reversed(held):
+                        h.release()
+                    for b in barriers:
+                        b.open()
+                if wedged_replica is not None:
+                    # After the gates reopened: the flight-recorder write
+                    # must not extend the pause the wedge already caused.
+                    tracer.incident(
+                        "wedged_barrier_abort", trace_id=trace_id,
+                        replica=wedged_replica, step=step, path=str(path),
+                        commit_timeout_s=self.commit_timeout_s,
+                    )
+            entry = {
+                "round_tag": f"step{step}",
+                "path": path,
+                "step": step,
+                "staged": staged,
+                "barriers": barriers,
+                "held": held,
+                "trace_id": trace_id,
+                "timer": None,
+                "t_closed": time.perf_counter(),
+            }
+            if ttl_s is not None:
+                timer = threading.Timer(ttl_s, self._ttl_abort, args=(entry,))
+                timer.daemon = True
+                entry["timer"] = timer
+            with self._staged_lock:
+                self._staged = entry
+            if entry["timer"] is not None:
+                entry["timer"].start()
+            staged_ok = True
+            return True, f"staged step {step}"
+        finally:
+            if not staged_ok:
+                self._refresh_lock.release()
+
+    def _take_staged(self) -> Optional[dict]:
+        with self._staged_lock:
+            entry, self._staged = self._staged, None
+        if entry is not None and entry["timer"] is not None:
+            entry["timer"].cancel()
+        return entry
+
+    def _resume(self, entry: dict) -> None:
+        """Release a staged round's barriers, reopen its gates and the
+        refresh lock ``prepare_global`` kept."""
+        for b in reversed(entry["held"]):
+            b.release()
+        for b in entry["barriers"]:
+            b.open()
+        self.last_pause_ms = (time.perf_counter() - entry["t_closed"]) * 1e3
+        self._refresh_lock.release()
+
+    def commit_prepared(self, trace_id: Optional[str] = None) -> bool:
+        """Phase 2: install every staged replica cell and resume. Returns
+        False when nothing is staged (an aborted or TTL-expired round: the
+        coordinator treats that as this host having dropped out). The
+        refresh lock ``prepare_global`` acquired is released here (or by
+        abort)."""
+        entry = self._take_staged()
+        if entry is None:
+            return False
+        tracer = get_tracer()
+        installed: List[Tuple[ReplicaRegistry, Tuple[Any, int]]] = []
+        try:
+            with tracer.span(
+                "reload.commit", trace_id=trace_id or entry["trace_id"],
+                step=entry["step"], replicas=len(entry["staged"]),
+            ):
+                for reg, params in entry["staged"]:
+                    prev = reg.active()
+                    fault_point("registry.swap")
+                    reg.install(params, entry["step"])
+                    installed.append((reg, prev))
+                self._fleet_step = entry["step"]
+                self.swap_count += 1
+        except Exception as e:  # noqa: BLE001 — contain + untear
+            for reg, (prev_params, prev_step) in reversed(installed):
+                reg.install(prev_params, prev_step)
+            self.load_errors.append((
+                str(entry["path"]),
+                f"staged commit aborted mid-swap and rolled back: {e!r}; "
+                "old step keeps serving",
+            ))
+            return False
+        finally:
+            self._resume(entry)
+        from marl_distributedformation_tpu_torch.analysis.guards import (
+            sample_device_watermark,
         )
 
-    commit_prepared = prepare_global
-    abort_prepared = prepare_global
+        sample_device_watermark(force=True)
+        return True
+
+    def abort_prepared(self, reason: str = "") -> bool:
+        """Resume on the old step without installing anything (the round
+        failed on another host, or the local TTL expired). Always safe to
+        call; returns False when nothing was staged."""
+        entry = self._take_staged()
+        if entry is None:
+            return False
+        self._resume(entry)
+        if reason:
+            self.load_errors.append(
+                (str(entry["path"]), f"prepare aborted: {reason}")
+            )
+        return True
+
+    def _ttl_abort(self, entry: dict) -> None:
+        """An orphaned prepare (no commit or abort before the TTL): the
+        coordinator is presumed dead, so serving resumes on the OLD step.
+        Fires only if this exact entry is still the staged one (a landing
+        commit wins the race)."""
+        with self._staged_lock:
+            if self._staged is not entry:
+                return
+        self.abort_prepared(
+            "prepare TTL expired with no commit/abort — coordinator "
+            "presumed dead; serving resumed on the old step"
+        )
+        get_tracer().incident(
+            "orphaned_prepare_abort", trace_id=entry["trace_id"],
+            step=entry["step"], path=str(entry["path"]),
+        )
 
     # -- background watcher ---------------------------------------------
 

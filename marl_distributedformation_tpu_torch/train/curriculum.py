@@ -248,18 +248,21 @@ class HeteroTrainer(Trainer):
         capture: bool = True,
         shard_fn: Any = None,
     ) -> None:
-        mesh = getattr(shard_fn, "mesh", None)
-        if mesh is not None and mesh.axis_size("sp") > 1:
-            raise SystemExit(
-                "curriculum training shards formations over 'dp' only (the "
-                "padded formations' dynamic ring is not halo-exchanged); "
-                "drop 'sp' from the mesh"
-            )
         if int(config.iters_per_dispatch) > 1 or int(config.fused_chunk) > 0:
             raise SystemExit(
                 "iters_per_dispatch > 1 / fused_chunk do not compose with "
                 "curriculum training (stage boundaries are host-driven); "
                 "unset them or drop the curriculum"
+            )
+        # The JAX package refuses any mesh that names 'sp', at size 1 too.
+        mesh = getattr(shard_fn, "mesh", None)
+        if mesh is not None and "sp" in mesh.shape:
+            raise ValueError(
+                "curriculum/hetero training does not support agent-axis "
+                "('sp') sharding: padded dynamic rings gather (i±1) mod n "
+                "neighbors across the whole formation, which the ring "
+                "halo-exchange layout cannot serve — use a dp-only mesh "
+                "(mesh={dp: N})"
             )
         if config.health or config.recovery:
             print("[hetero] health/recovery: the single curriculum run "

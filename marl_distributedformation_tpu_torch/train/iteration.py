@@ -551,8 +551,9 @@ class DataParallelIteration(PhasedIteration):
         )
 
         if self.env_step_fn is None:
-            make = (make_ring_step if mesh.axis_size("sp") > 1
-                    else make_dp_step)
+            # Any mesh that names 'sp' steps through the ring step, as
+            # the JAX trainer's does, at size 1 too.
+            make = make_ring_step if "sp" in mesh.shape else make_dp_step
             step = make(self.env_params, mesh)
 
             def env_step_fn(state, velocity):

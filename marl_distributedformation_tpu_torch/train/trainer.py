@@ -559,7 +559,9 @@ class Trainer:
                 "parallel/ are formation-specialized); drop the mesh or "
                 "use env=formation"
             )
-        sp = "sp" in mesh.shape and mesh.axis_size("sp") > 1
+        # A mesh that names 'sp' steps through the ring step, at size 1 too
+        # (the JAX trainer's test).
+        sp = "sp" in mesh.shape
         if scenario_schedule is not None:
             if sp or self.env_params.obs_mode == "knn":
                 blocker = (

@@ -620,10 +620,12 @@ def test_fleet_refuses_the_unported_paths_and_the_missing_gpu(monkeypatch):
         with pytest.raises(NotImplementedError, match="A13"):
             call()
     coordinator = FleetReloadCoordinator("unused", router)
-    for call in (coordinator.commit_resplit, coordinator.prepare_global,
-                 coordinator.commit_prepared, coordinator.abort_prepared):
-        with pytest.raises(NotImplementedError, match="A13"):
-            call()
+    with pytest.raises(NotImplementedError, match="A13"):
+        coordinator.commit_resplit()
+    # The cross-host two-phase commit is ported (serving/mesh): with no
+    # round staged, commit and abort are no-ops that say so.
+    assert coordinator.commit_prepared() is False
+    assert coordinator.abort_prepared() is False
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="devices=\\['cpu'\\]"):
         FleetRouter(policy)

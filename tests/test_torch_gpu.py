@@ -14,6 +14,7 @@ bitwise repeatable (its gather's backward adds in a fixed order).
 """
 
 import math
+import time
 
 import pytest
 import torch
@@ -1473,3 +1474,146 @@ def test_dp_step_in_a_one_rank_nccl_group(cuda, monkeypatch, tmp_path):
             assert torch.equal(x, y), k
     finally:
         shutdown_distributed()
+
+
+def _mesh_gnn_dir(path, steps=(100,), n=10, k=4):
+    """A promoted directory of seeded GNN checkpoints on k-NN rows (one a
+    step, each its own seed) with its run's ``config.json`` beside it;
+    returns ``(env params, checkpoint paths)``."""
+    from marl_distributedformation_tpu_torch.compat.convert import (
+        params_to_jax,
+    )
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.models import GNNActorCritic
+    from marl_distributedformation_tpu_torch.serving.mesh.host import (
+        write_run_config,
+    )
+    from marl_distributedformation_tpu_torch.utils.checkpoint import (
+        save_checkpoint,
+    )
+
+    env = EnvParams(num_agents=n, obs_mode="knn", knn_k=k)
+    promoted = path / "promoted"
+    paths = []
+    for i, step in enumerate(steps):
+        model = GNNActorCritic(k=k, generator=torch.Generator().manual_seed(i))
+        paths.append(save_checkpoint(promoted, step, {
+            "policy": "GNNActorCritic", "num_timesteps": step,
+            "params": params_to_jax(model.state_dict(), "GNNActorCritic")}))
+    write_run_config(path, env)
+    return env, paths
+
+
+def test_mesh_hosts_on_one_card_equal_one_engine(cuda, tmp_path):
+    """mesh100's gates at N=10 with two in-process hosts on ``cuda:0``:
+    every rung captured once a host, each host's probe rows through
+    ``knn_fused``, a global two-phase swap landing on both, and each host's
+    answer to 8 formations alone equal to a single engine's bitwise on the
+    new checkpoint."""
+    import numpy as np
+
+    from marl_distributedformation_tpu_torch.compat.policy import (
+        LoadedPolicy,
+    )
+    from marl_distributedformation_tpu_torch.serving import (
+        BucketedPolicyEngine,
+    )
+    from marl_distributedformation_tpu_torch.serving.mesh import (
+        MeshCoordinator,
+        build_inprocess_host,
+    )
+    from marl_distributedformation_tpu_torch.serving.mesh.host import (
+        probe_rows,
+    )
+
+    buckets = (1, 8, 64)
+    env, (first, second) = _mesh_gnn_dir(tmp_path, steps=(100, 200))
+    second.rename(tmp_path / second.name)  # published by the swap below
+    coord = MeshCoordinator(log_dir=first.parent, lease_s=5.0,
+                            dead_after_s=5.0).serve()
+    stacks = [build_inprocess_host(first.parent, coord.url, f"host{i}",
+                                   env_params=env, buckets=buckets,
+                                   heartbeat_s=0.1, device="cuda")
+              for i in range(2)]
+    try:
+        for router, _, _, agent in stacks:
+            assert agent.wait_registered(10.0)
+            assert router.compile_counts() == {0: dict.fromkeys(buckets, 1)}
+            assert router.launches["knn_fused"] == 1  # the probe rows
+        path = (tmp_path / second.name).rename(second)
+        assert coord.refresh() is True
+        assert coord.last_commit["host_count"] == 2
+        engine = BucketedPolicyEngine(
+            LoadedPolicy.from_checkpoint(path, env_params=env,
+                                         device="cuda"), buckets=buckets)
+        rows = probe_rows(env, 8, "cuda", seed=3)
+        want = engine.act(rows)
+        for router, fleet, _, _ in stacks:
+            assert fleet.fleet_step == 200
+            result = router.submit(rows).result(timeout=60)
+            assert result.model_step == 200
+            assert np.array_equal(result.actions, want)
+            assert router.compile_counts() == {0: dict.fromkeys(buckets, 1)}
+    finally:
+        for router, _, frontend, agent in stacks:
+            agent.stop()
+            frontend.stop()
+            router.stop()
+        coord.stop()
+
+
+def test_two_host_subprocess_mesh_on_one_card(cuda, tmp_path):
+    """Two host subprocesses on ``cuda:0``: each found the k-NN library
+    built by this process and launched ``knn_fused`` on its probe rows;
+    a global swap lands on both; a SIGKILLed host is declared dead and the
+    survivor serves the next swap, no accepted request lost."""
+    import numpy as np
+
+    from marl_distributedformation_tpu_torch.serving.mesh import (
+        spawn_local_mesh,
+    )
+    from marl_distributedformation_tpu_torch.serving.mesh.host import (
+        probe_rows,
+    )
+
+    env, (first, second, third) = _mesh_gnn_dir(tmp_path,
+                                                 steps=(100, 200, 300))
+    for p in (second, third):
+        p.rename(tmp_path / p.name)
+    mesh = spawn_local_mesh(first.parent, hosts=2, buckets=(1, 8),
+                            heartbeat_s=0.15, lease_s=0.6, dead_after_s=0.6,
+                            probe_interval_s=0.3, ready_timeout_s=180.0,
+                            device="cuda")
+    rows = probe_rows(env, 1, "cuda")
+    try:
+        for h in mesh.hosts:
+            assert h.info["device"] == "cuda:0" and h.info["kernels_prebuilt"]
+            assert h.info["knn_fused_launches"] == 1
+        assert mesh.coordinator.global_reload(
+            (tmp_path / second.name).rename(second)) is True
+        assert mesh.router.predict(rows).model_step == 200
+        killed = mesh.kill_host(0)
+        served = []
+        deadline = time.monotonic() + 10.0
+        while time.monotonic() < deadline:
+            try:
+                served.append(mesh.router.predict(rows, timeout_s=5.0))
+            except Exception as e:  # noqa: BLE001 — typed outcomes only
+                assert type(e).__name__ in ("NoHealthyHosts",
+                                            "RuntimeError"), e
+            states = {h["host_id"]: h["state"]
+                      for h in mesh.coordinator.hosts()}
+            if states[killed] == "dead" and served:
+                break
+        assert states[killed] == "dead"
+        assert mesh.coordinator.global_reload(
+            (tmp_path / third.name).rename(third)) is True
+        assert mesh.coordinator.last_commit["host_count"] == 1
+        result = mesh.router.predict(rows)
+        assert result.model_step == 300 and result.host == "host1"
+        assert np.isfinite(result.actions).all()
+        receipts = mesh.router.host_compile_counts()
+        assert set(receipts) == {"host1"}
+        assert set(receipts["host1"].values()) == {1.0}
+    finally:
+        mesh.stop()

@@ -95,7 +95,11 @@ def test_sources_found():
             "pipeline/rollback.py", "pipeline/supervisor.py",
             "always_learning.py", "chaos_storm.py", "parallel/__init__.py",
             "parallel/mesh.py", "parallel/ring.py", "parallel/distributed.py",
-            "parallel/launch.py"} <= rel
+            "parallel/launch.py", "serving/mesh/__init__.py",
+            "serving/mesh/rpc.py", "serving/mesh/coordinator.py",
+            "serving/mesh/agent.py", "serving/mesh/router.py",
+            "serving/mesh/host.py", "serving/mesh/loopback.py",
+            "serving/mesh/smoke.py"} <= rel
     assert (PORT / "csrc" / "knn.cu").exists()
 
 
@@ -141,7 +145,7 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked_for(monkeypatch):
                 model=MLPActorCritic(params.obs_dim))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_cli.main(["num_formation=2", "total_timesteps=10"])
-    for flag in ("--train", "--sebulba"):
+    for flag in ("--train", "--sebulba", "--mesh"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             chaos_storm.main([flag])
     assert resolve_device("cpu") == torch.device("cpu")
@@ -296,10 +300,6 @@ for build, needs in ((lambda: FormationRenderer(EnvParams()), "matplotlib"),
 # Injection points the port declares but no port code calls yet: the
 # module that calls each one is still to port, under its ROADMAP item.
 UNCALLED_SEAMS = {
-    "mesh.rpc": "A13",  # serving/mesh/
-    "mesh.heartbeat": "A13",
-    "mesh.prepare": "A13",
-    "mesh.commit": "A13",
     "elastic.prewarm": "A12",  # serving/elastic/ (A13, re-splits devices)
     "elastic.commit": "A12",
     "elastic.retire": "A12",

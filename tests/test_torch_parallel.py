@@ -227,32 +227,96 @@ def _jax_ring_case(obs_mode, dp, sp):
 
 @pytest.fixture(scope="module")
 def ring_reports(tmp_path_factory):
-    """Every rank's report of every ring case, by world size."""
+    """Every rank's report of every ring case of a world size: one launch
+    a world size, at its first case, so a failed launch fails that size's
+    cases only."""
     tmp = tmp_path_factory.mktemp("ring")
     torch.save([_jax_ring_case(*c) for c in RING_CASES], tmp / "data.pt")
     worker = tmp / "worker.py"
     worker.write_text(RING_WORKER.replace("__REPO__", str(REPO)))
-    reports = {}
-    for world in sorted({dp * sp for _, dp, sp in RING_CASES}):
-        results = launch([str(worker), str(tmp / "data.pt")], nprocs=world,
-                         timeout=TIMEOUT_S, cwd=str(REPO),
-                         env={**os.environ, "OMP_NUM_THREADS": "1"})
-        for rank, (code, out) in enumerate(results):
-            lines = [ln for ln in out.splitlines()
-                     if ln.startswith("REPORT ")]
-            assert code == 0 and lines, f"rank {rank} failed:\n{out}"
-            reports.setdefault(world, []).append(
-                json.loads(lines[-1][len("REPORT "):]))
+    launched = {}
+
+    def reports(world):
+        if world not in launched:
+            results = launch([str(worker), str(tmp / "data.pt")],
+                             nprocs=world, timeout=TIMEOUT_S, cwd=str(REPO),
+                             env={**os.environ, "OMP_NUM_THREADS": "1"})
+            launched[world] = [
+                (rank, code, out,
+                 [ln for ln in out.splitlines() if ln.startswith("REPORT ")])
+                for rank, (code, out) in enumerate(results)]
+        out = []
+        for rank, code, text, lines in launched[world]:
+            assert code == 0 and lines, f"rank {rank} failed:\n{text}"
+            out.append(json.loads(lines[-1][len("REPORT "):]))
+        return out
+
     return reports
 
 
 @pytest.mark.parametrize("obs_mode,dp,sp", RING_CASES)
 def test_ring_step_matches_jax(ring_reports, obs_mode, dp, sp):
     key = f"{obs_mode}/{dp}/{sp}"
-    for report in ring_reports[dp * sp]:
+    for report in ring_reports(dp * sp):
         got = report["cases"][key]
         assert got["done"], (report["rank"], got)
         assert all(got["ok"].values()), (report["rank"], got)
+
+
+TAKEN_PORT_WORKER = r'''
+import json, os, sys
+import torch
+
+sys.path.insert(0, "__REPO__")
+from marl_distributedformation_tpu_torch.parallel import init_distributed
+from marl_distributedformation_tpu_torch.parallel.distributed import (
+    all_reduce_sum, process_index,
+)
+
+init_distributed(device="cpu")
+total = all_reduce_sum(torch.ones(1) * (process_index() + 1))
+print("REPORT " + json.dumps({"rank": process_index(),
+                              "port": int(os.environ["MASTER_PORT"]),
+                              "sum": float(total)}), flush=True)
+'''
+
+
+def test_launch_survives_a_port_taken_before_the_ranks_start(
+        tmp_path, monkeypatch):
+    """The port the launcher picks is bound by another process before any
+    rank starts (the race of picking a free port and binding it later):
+    the launcher's store moves to a fresh port and the world forms."""
+    import socket
+
+    from marl_distributedformation_tpu_torch.parallel import (
+        launch as launch_mod,
+    )
+
+    taken = socket.socket()
+    taken.bind(("localhost", 0))
+    taken.listen()
+    port = taken.getsockname()[1]
+    picks = iter([port])
+    real = launch_mod.free_port
+    monkeypatch.setattr(launch_mod, "free_port",
+                        lambda: next(picks, None) or real())
+    worker = tmp_path / "worker.py"
+    worker.write_text(TAKEN_PORT_WORKER.replace("__REPO__", str(REPO)))
+    try:
+        results = launch([str(worker)], nprocs=2, timeout=TIMEOUT_S,
+                         cwd=str(REPO),
+                         env={**os.environ, "OMP_NUM_THREADS": "1"})
+    finally:
+        taken.close()
+    reports = []
+    for rank, (code, out) in enumerate(results):
+        lines = [ln for ln in out.splitlines() if ln.startswith("REPORT ")]
+        assert code == 0 and lines, f"rank {rank} failed:\n{out}"
+        reports.append(json.loads(lines[-1][len("REPORT "):]))
+    assert [r["rank"] for r in reports] == [0, 1]
+    assert {r["port"] for r in reports} != {port}
+    assert len({r["port"] for r in reports}) == 1
+    assert [r["sum"] for r in reports] == [3.0, 3.0]
 
 
 # ---------------------------------------------------------------------------
@@ -303,6 +367,13 @@ MESH_REFUSALS = {
                      "agent-axis ('sp') sharded ring step"),
     "scenarios_multihost": "scenario training is single-host for now",
     "env": "does not compose with mesh sharding / multi-host yet",
+    # A mesh that names 'sp' at size 1 is an 'sp' mesh to the JAX package
+    # (its Trainer steps it through make_ring_step, its curriculum refuses
+    # it): both refused in its types and words, held against it below.
+    "scenarios_sp1": ("scenario training does not compose with the "
+                      "agent-axis ('sp') sharded ring step"),
+    "curriculum_sp1": ("curriculum/hetero training does not support "
+                       "agent-axis ('sp') sharding"),
 }
 
 
@@ -313,6 +384,12 @@ def test_mesh_refusals_in_jax_words(case, tmp_path, monkeypatch,
     want = MESH_REFUSALS[case]
     base = ["num_formation=4", "num_agents_per_formation=4", "device=cpu",
             "mesh={dp: 1}"]
+    if case.endswith("_sp1"):
+        port_err, jax_err = _sp1_refusals(case, tmp_path)
+        assert type(port_err) is type(jax_err)
+        assert str(port_err) == str(jax_err)
+        assert want in str(port_err)
+        return
     if case == "sebulba":
         argv = [*base, "architecture=sebulba"]
     elif case == "scenarios_knn":
@@ -345,6 +422,113 @@ def test_mesh_refusals_in_jax_words(case, tmp_path, monkeypatch,
     with pytest.raises(SystemExit, match=want.replace("(", r"\(")
                        .replace(")", r"\)")):
         train_cli.build_trainer(argv)
+
+
+def _sp1_refusals(case, tmp_path):
+    """What the port and the JAX package raise for ``case`` on a
+    ``{dp: 1, sp: 1}`` mesh: scenarios in the Trainer, or the curriculum
+    (its HeteroTrainer)."""
+    from marl_distributedformation_tpu.scenarios import schedule_from_cfg
+    from marl_distributedformation_tpu.train import TrainConfig as JaxTC
+    from marl_distributedformation_tpu.train import Trainer as JaxTrainer
+    from marl_distributedformation_tpu.train.curriculum import (
+        Curriculum as JaxCurriculum,
+        HeteroTrainer as JaxHeteroTrainer,
+    )
+    from marl_distributedformation_tpu_torch.train.curriculum import (
+        Curriculum,
+        HeteroTrainer,
+    )
+    from marl_distributedformation_tpu_torch.utils.config import (
+        load_config,
+        scenario_schedule_from_config,
+    )
+
+    p = EnvParams(num_agents=4)
+    shard_fn = make_shard_fn(mesh=Mesh(("dp", "sp"), (1, 1)))
+    jax_shard_fn = jax_make_shard_fn({"dp": 1, "sp": 1})
+    config = TrainConfig(num_formations=4, checkpoint=False,
+                         log_dir=str(tmp_path))
+    if case == "scenarios_sp1":
+        schedule = scenario_schedule_from_config(
+            load_config(["scenarios=[wind]"]))
+        with pytest.raises(SystemExit) as port_err:
+            Trainer(p, config=config, model=MLPActorCritic(p.obs_dim),
+                    device="cpu", scenario_schedule=schedule,
+                    shard_fn=shard_fn)
+        with pytest.raises(SystemExit) as jax_err:
+            JaxTrainer(JaxEnvParams(num_agents=4),
+                       config=JaxTC(num_formations=4, checkpoint=False),
+                       shard_fn=jax_shard_fn,
+                       scenario_schedule=schedule_from_cfg(["wind"]))
+    else:
+        with pytest.raises(ValueError) as port_err:
+            HeteroTrainer(Curriculum(), p, config=config,
+                          model=MLPActorCritic(p.obs_dim), device="cpu",
+                          shard_fn=shard_fn)
+        with pytest.raises(ValueError) as jax_err:
+            JaxHeteroTrainer(JaxCurriculum(), JaxEnvParams(num_agents=4),
+                             config=JaxTC(num_formations=4,
+                                          checkpoint=False),
+                             shard_fn=jax_shard_fn)
+    return port_err.value, jax_err.value
+
+
+def test_sp1_mesh_steps_through_the_ring_step_as_jax():
+    """A ``{dp: 1, sp: 1}`` mesh steps through ``make_ring_step`` in the
+    port's Trainer, as in the JAX package's. Over 8 steps through the
+    auto-resets, with JAX's fresh formations injected, that step's
+    positions and ``done`` equal JAX's ring step's bitwise; its
+    observations and rewards equal the port's unsharded step's bitwise and
+    JAX's within ``tests/test_parallel.py``'s tolerances (the two packages'
+    float32 sums round apart by an ulp or two)."""
+    from marl_distributedformation_tpu_torch.env.formation import step_batch
+    from marl_distributedformation_tpu_torch.env.types import FormationState
+    from marl_distributedformation_tpu_torch.parallel import place_ring_state
+
+    mesh = Mesh(("dp", "sp"), (1, 1))
+    tol = {"obs": (1e-5, 1e-6), "reward": (1e-4, 1e-4)}
+    for obs_mode in ("ring", "knn"):
+        case = _jax_ring_case(obs_mode, 1, 1)
+        params = EnvParams(num_agents=8, max_steps=3, obs_mode=obs_mode,
+                           knn_k=3)
+        step = make_ring_step(params, mesh)
+        state = place_ring_state(FormationState(**case["state"]), mesh)
+        plain = FormationState(**case["state"])
+        for t, want in enumerate(case["out"]):
+            fresh = FormationState(**case["fresh"][t])
+            state, tr = step(state, case["velocity"][t], fresh=fresh)
+            plain, plain_tr = step_batch(plain, case["velocity"][t], params,
+                                         fresh=fresh)
+            where = (obs_mode, t)
+            assert torch.equal(state.agents, want["agents"]), where
+            assert torch.equal(tr.done, want["done"]), where
+            assert torch.equal(state.agents, plain.agents), where
+            for name, got, unsharded, ref in (
+                    ("obs", tr.obs, plain_tr.obs, want["obs"]),
+                    ("reward", tr.reward, plain_tr.reward, want["reward"])):
+                assert torch.equal(got, unsharded), (where, name)
+                rtol, atol = tol[name]
+                torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
+    # The Trainer takes the ring step for that mesh, the dp step for a
+    # dp-only one.
+    from marl_distributedformation_tpu_torch.parallel import mesh as mesh_mod
+    from marl_distributedformation_tpu_torch.parallel import ring as ring_mod
+
+    made = []
+    p = EnvParams(num_agents=4)
+    for shape, names in (((1, 1), ("dp", "sp")), ((1,), ("dp",))):
+        with pytest.MonkeyPatch.context() as mp:
+            for mod, fn in ((ring_mod, "make_ring_step"),
+                            (mesh_mod, "make_dp_step")):
+                real = getattr(mod, fn)
+                mp.setattr(mod, fn, lambda *a, _r=real, _n=fn: (
+                    made.append(_n), _r(*a))[1])
+            Trainer(p, config=TrainConfig(num_formations=4,
+                                          checkpoint=False),
+                    model=MLPActorCritic(p.obs_dim), device="cpu",
+                    shard_fn=make_shard_fn(mesh=Mesh(names, shape)))
+    assert made == ["make_ring_step", "make_dp_step"]
 
 
 def test_jax_refuses_in_the_same_words():

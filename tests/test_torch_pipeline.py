@@ -592,12 +592,14 @@ def test_always_learning_cli_on_cpu(tmp_path, private_obs, capsys,
     assert check_audit_log(log) == [] and jax_check_audit_log(log) == []
 
 
+# The ids the cases had beside the two mesh refusals the mesh's port
+# removed (argv0, argv1).
 @pytest.mark.parametrize("argv, match", [
-    (["mesh_serve=true"], "A13"),
-    (["mesh_hosts=2"], "A13"),
-    (["sentinel=true"], "A14"),
-    (["guard_transfers=true"], "guard_transfers"),
-    (["gate_formatoins=4"], "gate_formations"),
+    pytest.param(["sentinel=true"], "A14", id="argv2-A14"),
+    pytest.param(["guard_transfers=true"], "guard_transfers",
+                 id="argv3-guard_transfers"),
+    pytest.param(["gate_formatoins=4"], "gate_formations",
+                 id="argv4-gate_formations"),
 ])
 def test_always_learning_cli_refuses(argv, match, tmp_path, monkeypatch):
     from marl_distributedformation_tpu_torch.train import cli as train_cli
