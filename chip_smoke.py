@@ -40,13 +40,15 @@ Phases (any failure exits non-zero):
      must launch 1 + 12 x 10 times; the last 3 iterations must beat the
      first 3.
    - the ring/MLP default (M=1000, N=5, ``batch_size=64``), 2 iterations
-     captured; its profile and its captured-to-eager ratio cover the
-     rollout and the first of the 10 epochs.
+     captured; its captured-to-eager ratio covers the rollout and the
+     first of the 10 epochs, its profile the rollout and the first tenth
+     of that epoch.
    - for every run: seconds an iteration split into rollout and update
      (CUDA events between graph replays), formation-steps/s,
      agent-transitions/s, peak memory (and above what earlier phases
      hold), each graph's nodes and capture time, and the device's busy
-     share over one profiled captured iteration: the union of the device
+     share over one profiled captured iteration (``gnn100``'s, like the
+     ring/MLP's, over its rollout and first epoch): the union of the device
      intervals in the trace over the wall time, asserted <= 100%, with the
      kernels' summed time beside it as a sum.
    - a 10-step rollout of each trained GNN at its training shape (N=100,
@@ -350,7 +352,36 @@ Phases (any failure exits non-zero):
    Prints requests/s beside phase 13's ``fleet100`` R=2 (time-sharing,
    not scaling), global swap p50/p95, each host's launches, the storm's
    wall time and commit rounds.
-18. Print the kernels' JSON line (launches and timings at the training
+18. The sharded big-rung slice (``serving/sharded.py``) and elastic
+   capacity (``serving/elastic``) on one card:
+   - ``sharded100``: ``gnn100``'s checkpoint behind R=1 (ladder 1/8/64)
+     plus a ``{"dp": 2}`` slice whose two row blocks time-share ``cuda:0``
+     (rungs 64 and 512 formations, 51,200 agent rows), the request rows
+     through ``knn_fused`` (``serve_rows``): one capture a (slot, rung),
+     counted by the guards and the program ledger; each row block bitwise
+     equal to the single engine's rung of its rows, the whole rung within
+     serving's rtol 1e-5 / atol 1e-6 of the single engine's rung (the max
+     abs diff printed); a storm of 1-512 formations with a coordinated
+     swap to ``scen100``'s checkpoint landing on both replica kinds: 0
+     lost, monotonic steps, the slice serving the new parameters; on a
+     seeded MLP a bf16 slice within ``tests/bf16_budget.py``'s bound and
+     nonzero, and a ``{"dp": 2, "mp": 2}`` slice within 1e-5. Requests/s
+     and the 512-formation requests' p95 at R=1 against R=1 plus the
+     slice (time-sharing, not scaling).
+   - ``elastic100``: a ``CapacityController`` over that fleet (two device
+     slots of ``cuda:0``) fed an interactive mix and then a storm mix,
+     each decided with traffic in flight: >= 1 re-split committed, its
+     pause and prewarm captures printed, no capture on the request path
+     (the ledger's census equal before and after serving the new split),
+     0 lost, monotonic steps, one capture a rung.
+   - ``serve --slo-bench`` and ``--elastic-bench`` with the JAX package's
+     bench.py arguments on ``cuda:0``, each in a process of its own, both
+     at once: one capture a rung, no program built in the elastic bench's
+     measured storm.
+   - ``storm_elastic100``: ``run_elastic_campaign(seed=0, faults=9)`` over
+     ``gnn100``'s command: 0 violations, every fault fired, >= 2 re-splits
+     committed, its row pool through ``knn_fused`` once.
+19. Print the kernels' JSON line (launches and timings at the training
    paths' shapes, those of the eval paths under ``eval``, the population
    paths' under ``population``, ``ctde_knn``'s launches under
    ``ctde_knn``, ``scen100``'s under ``scenario``, phase 9's under
@@ -362,7 +393,8 @@ Phases (any failure exits non-zero):
    trainer and gate under ``always`` at the gate's (64,100,4), its lanes'
    request rows under ``tenants``, phase 15's storms under
    ``chaos_storm``, phase 16's ranks under ``dp`` at (512,100,4), phase
-   17's hosts and storm under ``mesh``), the
+   17's hosts and storm under ``mesh``, phase 18's request rows and row
+   pool under ``sharded``), the
    card
    line, and the last line ``{"ok": true,
    "device": {...}}``.
@@ -1151,8 +1183,13 @@ def train_phase():
     print(f"[gnn100] learned {ret['policy']:.2f} > baseline "
           f"{ret['baseline']:.2f} > zero {ret['zero']:.2f} (M=1024)")
     rollout_graph_equals_plain(trainer.model, 100, 1024)
-    profile_window(lambda: trainer._dispatch(1), "train gnn100 M=1024 N=100, "
-                   "one captured iteration", 1, "iteration")
+    # Depth cut for phase 18's room: the rollout and the first of the 10
+    # epochs (the epochs replay one graph), not the whole iteration, whose
+    # 153,237 traced kernels took the profiler 16.8 s to process.
+    steps = trainer._iteration.num_minibatch_steps // trainer.ppo.n_epochs
+    profile_window(epoch_window(trainer), f"train gnn100 M=1024 N=100, the "
+                   f"rollout and the first epoch ({steps} minibatch "
+                   "replays) of a captured iteration", 1, "window")
     elapsed("gnn100 captured")
 
     # The captured-to-eager ratio over one window, the rollout and the
@@ -1190,15 +1227,23 @@ def train_phase():
     trainer, *_, captured_s = train_run(
         "smoke_mlp", MLP_DEFAULT, "ring/MLP default M=1000 N=5")
     elapsed("gnn1024 captured, ring/MLP captured")
-    # Depth cut: its rollout and first epoch (781 of 7,810 replays of one
-    # minibatch graph), not the whole iteration, whose 1.39 M traced
-    # kernels took the profiler 116-177 s; the epochs replay one graph.
+    # Depth cut: its rollout and the first tenth of its first epoch (78 of
+    # 7,810 replays of one minibatch graph), not the whole iteration, whose
+    # 1.39 M traced kernels took the profiler 116-177 s, nor the whole
+    # first epoch (16.5 s of processing; cut for phase 18's room): the
+    # epochs replay one graph.
     first_epoch = epoch_window(trainer)
     steps = trainer._iteration.num_minibatch_steps // trainer.ppo.n_epochs
+    rollout, minibatch, _ = trainer._phases
 
-    profile_window(first_epoch, f"train ring/MLP default, the rollout and "
-                   f"the first epoch ({steps} minibatch replays) of a "
-                   "captured iteration", 1, "window")
+    def profiled():
+        rollout()
+        for _ in range(steps // 10):
+            minibatch()
+
+    profile_window(profiled, f"train ring/MLP default, the rollout and the "
+                   f"first {steps // 10} of its first epoch's {steps} "
+                   "minibatch replays, of a captured iteration", 1, "window")
     elapsed("ring/MLP profile")
     # The captured-to-eager ratio over that same window (cut from a whole
     # eager iteration, 52.8 s of host-bound launches on an NVIDIA H100 80GB
@@ -1502,8 +1547,12 @@ def ctde_phase():
           f"{ret['baseline']:.2f} > zero {ret['zero']:.2f} (M=64, full "
           "episodes); the record, a CPU eval of the TPU-trained checkpoint: "
           + " / ".join(str(v) for v in CTDE20_EVAL_RECORD.values()))
-    profile_window(lambda: trainer._dispatch(1), "train ctde20 M=2048 N=20, "
-                   "one captured iteration", 1, "iteration")
+    # Depth cut for phase 18's room: the rollout and the first epoch, not
+    # the whole iteration (47,494 traced kernels).
+    steps = trainer._iteration.num_minibatch_steps // trainer.ppo.n_epochs
+    profile_window(epoch_window(trainer), f"train ctde20 M=2048 N=20, the "
+                   f"rollout and the first epoch ({steps} minibatch "
+                   "replays) of a captured iteration", 1, "window")
     elapsed("ctde20")
 
     trainer, rewards, got, _ = train_run("smoke_ctde_knn", CTDE_KNN,
@@ -1512,8 +1561,12 @@ def ctde_phase():
     if len(rewards) != 3 or got != {"knn_fused": want, "knn_tiled": 0}:
         raise AssertionError(f"ctde_knn launches {got} over {len(rewards)} "
                              f"iterations, want fused {want} over 3")
-    profile_window(lambda: trainer._dispatch(1), "train ctde_knn M=1024 "
-                   "N=100, one captured iteration", 1, "iteration")
+    # Depth cut for phase 18's room: the rollout and the first epoch, not
+    # the whole iteration (12.5 s of the profiler's processing).
+    steps = trainer._iteration.num_minibatch_steps // trainer.ppo.n_epochs
+    profile_window(epoch_window(trainer), f"train ctde_knn M=1024 N=100, "
+                   f"the rollout and the first epoch ({steps} minibatch "
+                   "replays) of a captured iteration", 1, "window")
     elapsed("ctde_knn")
     return got["knn_fused"]
 
@@ -5538,6 +5591,546 @@ def mesh_phase(gnn100_ckpt, scen100_ckpt, fleet_rate=None):
     return {"hosts": launches, "storm": storm_launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the sharded big-rung slice and elastic capacity on one card.
+# ``sharded100``: gnn100's checkpoint behind R=1 on the ladder 1/8/64 plus
+# a {"dp": 2} slice on cuda:0 whose rungs are 64 and 512 formations
+# (51,200 agent rows); the fleet's two device slots are both cuda:0, so
+# the slice's row blocks and the elastic controller's decisions see two.
+SHARDED_SPEC = {"axis_sizes": {"dp": 2}, "buckets": (64, 512)}
+SHARDED_FLEET_BUCKETS = (1, 8, 64)
+SHARDED_SIZES = (1, 8, 64, 512)  # the clients' request sizes, formations
+SHARDED_DURATION_S = 1.5
+# The elastic controller's mixes (JAX's --elastic-bench's, in formations).
+ELASTIC_INTERACTIVE = (1, 2, 4, 8)
+ELASTIC_STORM = (64, 128, 256)
+ELASTIC_REQUESTS = 48  # a mix's window, over the controller's floor of 32
+# The serving benches with the arguments the JAX package's bench.py passes
+# them (bench.py:1538-1552, :1633-1647), on cuda:0 (the device default).
+SLO_BENCH_ARGS = ("--init-policy", "MLPActorCritic", "--obs-dim", "8",
+                  "--slo-bench", "--replicas", "2", "--duration", "1.5",
+                  "--slo-p95-ms", "50.0")
+ELASTIC_BENCH_ARGS = ("--init-policy", "MLPActorCritic", "--obs-dim", "8",
+                      "--hidden", "64,64", "--elastic-bench", "--replicas",
+                      "2", "--duration", "2.0", "--load-rps", "120",
+                      "--slo-p95-ms", "80.0", "--slo-iterations", "4")
+
+
+def timed_clients(router, rows, sizes, duration_s, clients=4):
+    """``clients`` request loops cycling through ``sizes`` (formations of
+    ``rows`` at random offsets) for ``duration_s``: requests/s, the p95 ms
+    of the largest size's requests, and the requests lost (accepted, never
+    resolved) or failed."""
+    import threading
+    from concurrent.futures import TimeoutError as FutureTimeout
+
+    import numpy as np
+
+    lat = {n: [] for n in sizes}
+    counts = {"ok": 0, "lost": 0, "failed": 0}
+    lock = threading.Lock()
+    stop = time.perf_counter() + duration_s
+
+    def loop(i):
+        rng = np.random.default_rng(i)
+        k = i
+        while time.perf_counter() < stop:
+            n = sizes[k % len(sizes)]
+            k += 1
+            start = int(rng.integers(0, len(rows) - n + 1))
+            t0 = time.perf_counter()
+            try:
+                fut = router.submit(rows[start:start + n])
+                fut.result(timeout=router.default_timeout_s + 5.0)
+            except FutureTimeout:
+                with lock:
+                    counts["lost" if not fut.done() else "failed"] += 1
+                continue
+            except Exception:  # noqa: BLE001 — a typed failure, counted
+                with lock:
+                    counts["failed"] += 1
+                continue
+            with lock:
+                counts["ok"] += 1
+                lat[n].append(time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=loop, args=(i,), daemon=True)
+               for i in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=duration_s + 60.0)
+    wall = time.perf_counter() - t0
+    big = sorted(lat[max(sizes)])
+    return {"requests_per_sec": counts["ok"] / wall,
+            "big_p95_ms": (big[min(len(big) - 1, int(0.95 * len(big)))]
+                           * 1e3 if big else 0.0),
+            "big_requests": len(big), **counts}
+
+
+def sharded_fleet(fleet_dir, p100, **extra):
+    """R=1 of ``fleet_dir``'s checkpoint on the ladder 1/8/64 over two
+    device slots of ``cuda:0``, plus ``extra`` router arguments."""
+    import torch
+
+    from marl_distributedformation_tpu_torch.serving.fleet import (
+        fleet_from_checkpoint_dir,
+    )
+
+    cuda0 = torch.device("cuda", 0)
+    return fleet_from_checkpoint_dir(
+        fleet_dir, env_params=p100, device="cuda", devices=[cuda0, cuda0],
+        num_replicas=1, buckets=SHARDED_FLEET_BUCKETS, window_ms=2.0,
+        probe_interval_s=0.2, max_failovers=2, **extra)
+
+
+def sharded_equals_engine(sh, engine, rows):
+    """Each row block of every slice rung bitwise against the single
+    engine's rung of its rows; the whole rung within serving's tolerance of
+    the single engine's rung ``b``. Returns the largest difference."""
+    import numpy as np
+
+    params, _ = sh.registry.active()
+    dp = sh.engine.mesh.dp
+    worst = 0.0
+    for b in SHARDED_SPEC["buckets"]:
+        got = sh.engine.act(rows[:b], nn_params=params)
+        h = b // dp
+        for d in range(dp):
+            want = engine.act(rows[d * h:(d + 1) * h])
+            if not np.array_equal(got[d * h:(d + 1) * h], want):
+                raise AssertionError(
+                    f"sharded100 rung {b} row block {d} != the single "
+                    f"engine's rung {h}: max abs diff "
+                    f"{np.abs(got[d * h:(d + 1) * h] - want).max():.3g}")
+        want = engine.act(rows[:b])
+        np.testing.assert_allclose(got, want, rtol=SERVE_RTOL,
+                                   atol=SERVE_ATOL,
+                                   err_msg=f"sharded100 rung {b}")
+        worst = max(worst, float(np.abs(got - want).max()))
+    return worst
+
+
+def seeded_mlp_slices():
+    """A seeded MLP (obs 8, (64, 64)) on the card: its bf16 {"dp": 2}
+    slice against the f32 engine within ``tests/bf16_budget.py``'s bound
+    and not f32; its {"dp": 2, "mp": 2} slice within JAX's atol 1e-5.
+    Returns the two largest differences."""
+    import numpy as np
+    import torch
+
+    from marl_distributedformation_tpu_torch.compat.policy import LoadedPolicy
+    from marl_distributedformation_tpu_torch.models import MLPActorCritic
+    from marl_distributedformation_tpu_torch.serving import (
+        BucketedPolicyEngine,
+        ShardedPolicyEngine,
+    )
+    from marl_distributedformation_tpu_torch.serving.sharded import (
+        make_slice,
+    )
+
+    model = MLPActorCritic(8, generator=torch.Generator().manual_seed(0))
+    policy = LoadedPolicy(model.to("cuda").eval())
+    rows = np.random.default_rng(3).standard_normal((512, 8)).astype(
+        np.float32)
+    buckets = SHARDED_SPEC["buckets"]
+    f32 = BucketedPolicyEngine(policy, buckets=buckets)
+    bf16 = ShardedPolicyEngine(policy, make_slice({"dp": 2}),
+                               buckets=buckets, dtype="bfloat16")
+    mp = ShardedPolicyEngine(policy, make_slice({"dp": 2, "mp": 2}),
+                             buckets=buckets)
+    atol = bf16_action_atol(num_layers=3)
+    d16 = dmp = 0.0
+    for b in buckets:
+        want = f32.act(rows[:b])
+        d16 = max(d16, float(np.abs(bf16.act(rows[:b]) - want).max()))
+        dmp = max(dmp, float(np.abs(mp.act(rows[:b]) - want).max()))
+    if not 0.0 < d16 <= atol:
+        raise AssertionError(f"bf16 slice divergence {d16:.3g} outside "
+                             f"(0, {atol:.3g}]")
+    if dmp > 1e-5:
+        raise AssertionError(f"dp x mp slice divergence {dmp:.3g} > 1e-5")
+    return d16, dmp, atol
+
+
+def sharded100(gnn100_ckpt, scen100_ckpt, workdir):
+    """``sharded100``: the gates of phase 18's first half (see the module
+    docstring). Returns ``(router, coordinator, rows, report)`` with the
+    router started, for ``elastic100``."""
+    import shutil
+
+    import numpy as np
+
+    from marl_distributedformation_tpu_torch.chaos import (
+        check_no_request_lost,
+        check_step_monotonic,
+    )
+    from marl_distributedformation_tpu_torch.compat.policy import LoadedPolicy
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.obs.ledger import get_ledger
+    from marl_distributedformation_tpu_torch.serving import (
+        BucketedPolicyEngine,
+        ShardedSpec,
+        TraceRecorder,
+    )
+    from marl_distributedformation_tpu_torch.serving.fleet import (
+        run_fleet_smoke,
+        warmup_fleet,
+    )
+    from marl_distributedformation_tpu_torch.utils.checkpoint import (
+        checkpoint_step,
+    )
+
+    p100 = EnvParams(num_agents=100, obs_mode="knn", knn_k=4)
+    rows, launches = serve_rows()
+    policy = LoadedPolicy.from_checkpoint(gnn100_ckpt, env_params=p100,
+                                          device="cuda")
+    engine = BucketedPolicyEngine(policy, buckets=(32, 64, 256, 512))
+    step0 = checkpoint_step(gnn100_ckpt)
+    swap_step = max(step0, checkpoint_step(scen100_ckpt)) + 7
+    report = {"launches": launches}
+
+    # R=1 alone, for the requests/s and big p95 beside the sliced fleet.
+    alone_dir = workdir / "alone"
+    alone_dir.mkdir(parents=True)
+    shutil.copy(gnn100_ckpt, alone_dir / Path(gnn100_ckpt).name)
+    alone, _ = sharded_fleet(alone_dir, p100)
+    warmup_fleet(alone, rows.shape[1:])
+    with alone:
+        report["alone"] = timed_clients(alone, rows, SHARDED_SIZES,
+                                        SHARDED_DURATION_S)
+
+    fleet_dir = workdir / "sliced"
+    fleet_dir.mkdir(parents=True)
+    shutil.copy(gnn100_ckpt, fleet_dir / Path(gnn100_ckpt).name)
+    ledger = get_ledger()
+    before = len(ledger.entries())
+    router, coordinator = sharded_fleet(
+        fleet_dir, p100, sharded=ShardedSpec(**SHARDED_SPEC),
+        trace_recorder=TraceRecorder())
+    sh = router.sharded_replica
+    t0 = time.perf_counter()
+    warmup_fleet(router, rows.shape[1:])
+    report["capture_s"] = time.perf_counter() - t0
+    want_counts = {0: dict.fromkeys(SHARDED_FLEET_BUCKETS, 1),
+                   sh.index: dict.fromkeys(SHARDED_SPEC["buckets"], 1)}
+    if router.compile_counts() != want_counts:
+        raise AssertionError(f"sharded100 captures {router.compile_counts()}")
+    blocks = {k: g.count for k, g in sh.engine.block_guards.items()}
+    sliced_programs = [e for e in ledger.entries()[before:]
+                       if e.subsystem == "serving_sharded"]
+    if (set(blocks.values()) != {1} or len(blocks) != 4
+            or len(sliced_programs) != 4
+            or any(part.graph.graph is None
+                   for b in SHARDED_SPEC["buckets"]
+                   for part in sh.engine.rung(b))):
+        raise AssertionError(f"sharded100: one capture a (slot, rung) "
+                             f"fails: guards {blocks}, ledger "
+                             f"{[e.name for e in sliced_programs]}")
+    report["captures"] = blocks
+    report["max_abs_diff"] = sharded_equals_engine(sh, engine, rows)
+
+    # The storm, with a coordinated swap to scen100's checkpoint landing
+    # on both replica kinds halfway.
+    def swap():
+        target = fleet_dir / f"rl_model_{swap_step}_steps.msgpack"
+        shutil.copy(scen100_ckpt, fleet_dir / ".incoming.tmp")
+        (fleet_dir / ".incoming.tmp").replace(target)
+        if not coordinator.refresh():
+            raise AssertionError(f"sharded100: no swap: "
+                                 f"{list(coordinator.load_errors)}")
+
+    router.start()
+    log = {}
+    storm = run_fleet_smoke(
+        router, rows.shape[1:], sizes=SHARDED_SIZES,
+        duration_s=SHARDED_DURATION_S, num_clients=4,
+        coordinator=coordinator, mid_storm=swap, mid_storm_at_s=0.5,
+        warmup=False, row_pool=rows, log=log, seed=3)
+    violations = (check_no_request_lost(log["outcomes"])
+                  + check_step_monotonic(log["steps"]))
+    steps = {r.kind: r.registry.active_step for r in router.replicas}
+    if (violations or storm["max_compiles_per_rung"] != 1.0
+            or storm["fleet_swap_count"] != 1.0
+            or set(steps.values()) != {swap_step}):
+        raise AssertionError(f"sharded100 storm: violations {violations}, "
+                             f"steps {steps}, report {storm}")
+    # After the swap the slice serves scen100's parameters.
+    newer = LoadedPolicy.from_checkpoint(scen100_ckpt, env_params=p100,
+                                         device="cuda")
+    params, _ = sh.registry.active()
+    np.testing.assert_allclose(
+        sh.engine.act(rows[:64], nn_params=params),
+        BucketedPolicyEngine(newer, buckets=(64,)).act(rows[:64]),
+        rtol=SERVE_RTOL, atol=SERVE_ATOL, err_msg="sharded100 after swap")
+    report["storm"] = storm
+    report["lost"] = sum(1 for o in log["outcomes"] if o.get("hung"))
+    report["sliced"] = timed_clients(router, rows, SHARDED_SIZES,
+                                     SHARDED_DURATION_S)
+    for cell in ("alone", "sliced"):
+        if report[cell]["lost"] or not report[cell]["big_requests"]:
+            raise AssertionError(f"sharded100 {cell}: {report[cell]}")
+    report["bf16_diff"], report["mp_diff"], report["bf16_atol"] = (
+        seeded_mlp_slices())
+    return router, coordinator, rows, report
+
+
+def elastic_drive(router, rows, sizes, count, outcomes, steps, seed):
+    """``count`` requests cycling through ``sizes`` formations, submitted
+    back to back, then every future resolved (the no-lost-request
+    witness); successes record ``(t_done, step)``."""
+    from concurrent.futures import TimeoutError as FutureTimeout
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    futures = []
+    for i in range(count):
+        n = sizes[i % len(sizes)]
+        start = int(rng.integers(0, len(rows) - n + 1))
+        try:
+            futures.append(router.submit(rows[start:start + n],
+                                         timeout_s=10.0))
+        except Exception as e:  # noqa: BLE001 — a typed reject resolved
+            outcomes.append({"ok": False, "hung": False,
+                             "error": type(e).__name__})
+    for f in futures:
+        try:
+            result = f.result(timeout=30.0)
+        except FutureTimeout as e:
+            # A RequestTimeout is a TimeoutError too: a typed outcome.
+            outcomes.append({"ok": False, "hung": not f.done(),
+                             "error": type(e).__name__})
+            continue
+        except Exception as e:  # noqa: BLE001 — a typed failure resolved
+            outcomes.append({"ok": False, "hung": False,
+                             "error": type(e).__name__})
+            continue
+        outcomes.append({"ok": True, "hung": False, "error": None})
+        steps.append((time.perf_counter(), int(result.model_step)))
+
+
+def elastic100(router, coordinator, rows):
+    """``elastic100``: a ``CapacityController`` over ``sharded100``'s
+    fleet, fed an interactive mix and then a storm mix, each decided with
+    traffic in flight. Gates: at least 1 re-split committed, prewarm
+    captures counted, no capture on the request path (the ledger's census
+    before and after serving on the new split), 0 lost, monotonic
+    steps, one capture a rung everywhere. Returns its report."""
+    import threading
+
+    from marl_distributedformation_tpu_torch.chaos import (
+        check_no_request_lost,
+        check_step_monotonic,
+    )
+    from marl_distributedformation_tpu_torch.obs.ledger import get_ledger
+    from marl_distributedformation_tpu_torch.serving import (
+        CapacityController,
+    )
+
+    controller = CapacityController(
+        router, coordinator, row_shape=rows.shape[1:], p95_target_ms=50.0,
+        min_requests=32, drain_timeout_s=10.0)
+    router.trace_recorder.clear()  # sharded100's traffic decides nothing
+    outcomes, steps, reports = [], [], []
+    for i, mix in enumerate((ELASTIC_INTERACTIVE, ELASTIC_STORM)):
+        elastic_drive(router, rows, mix, ELASTIC_REQUESTS, outcomes, steps,
+                      seed=10 + i)
+        stop = threading.Event()
+
+        def pump(mix=mix):
+            k = 0
+            while not stop.is_set():
+                elastic_drive(router, rows, (1, mix[-1]), 2, outcomes, steps,
+                              seed=100 + k)
+                k += 1
+
+        pumper = threading.Thread(target=pump, daemon=True)
+        pumper.start()
+        try:
+            reports.append(controller.step())
+        finally:
+            stop.set()
+            pumper.join(timeout=60.0)
+    committed = [r for r in reports if r and r.get("committed")]
+    if not committed:
+        raise AssertionError(f"elastic100: no re-split committed: {reports}")
+    ledger = get_ledger()
+    census = len(ledger.entries())
+    if census != committed[-1]["prewarm_programs_after"]:
+        raise AssertionError(f"elastic100: {census} programs, the last "
+                             f"prewarm left {committed[-1]}")
+    elastic_drive(router, rows, ELASTIC_STORM + ELASTIC_INTERACTIVE, 24,
+                  outcomes, steps, seed=999)
+    after = len(ledger.entries())
+    violations = (check_no_request_lost(outcomes)
+                  + check_step_monotonic(sorted(steps)))
+    counts = router.compile_counts()
+    if (after != census or violations
+            or any(c != 1 for rungs in counts.values()
+                   for c in rungs.values())
+            or not all(o["ok"] for o in outcomes)):
+        raise AssertionError(f"elastic100: programs {census} -> {after} "
+                             f"serving the new split, violations "
+                             f"{violations}, captures {counts}, failures "
+                             f"{[o for o in outcomes if not o['ok']][:3]}")
+    snap = controller.snapshot()
+    return {"reports": reports, "snapshot": snap, "requests": len(outcomes),
+            "census": census, "counts": counts,
+            "buckets": {r.index: (r.kind, r.engine.buckets)
+                        for r in router.replicas}}
+
+
+def serve_benches():
+    """``serve --slo-bench`` and ``--elastic-bench`` on ``cuda:0``, each
+    in a process of its own as bench.py starts them, both at once (they
+    time-share the card with each other, not only within themselves; one
+    after the other in this process they took 88.2 s on an NVIDIA H100
+    80GB HBM3 at 700 W).
+    Returns each one's JSON line; every process ends before this returns."""
+    procs = {}
+    try:
+        for name, args in (("slo", SLO_BENCH_ARGS),
+                           ("elastic", ELASTIC_BENCH_ARGS)):
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "marl_distributedformation_tpu_torch"
+                 ".serve", *args], cwd=ROOT, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        out = {}
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=400)
+            lines = stdout.strip().splitlines()
+            if proc.returncode != 0 or not lines:
+                raise AssertionError(f"serve --{name}-bench exited "
+                                     f"{proc.returncode}: {stderr[-2000:]}")
+            out[name] = json.loads(lines[-1])
+        return out
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def sharded_phase(gnn100_ckpt, scen100_ckpt):
+    """Phase 18: ``sharded100``, ``elastic100``, the two serving benches
+    and ``storm_elastic100``. Returns the ``knn_fused`` launches: the
+    request rows (``serve_rows``, at the train shape) and the elastic
+    storm's row pool ((64,100,4))."""
+    import shutil
+
+    from marl_distributedformation_tpu_torch import chaos_storm
+    from marl_distributedformation_tpu_torch.obs.ledger import (
+        ProgramLedger,
+        set_ledger,
+    )
+    from marl_distributedformation_tpu_torch.ops import knn_cuda
+
+    workdir = ROOT / "logs" / "smoke_sharded100"
+    shutil.rmtree(workdir, ignore_errors=True)
+    previous = set_ledger(ProgramLedger(enabled=True))
+    knn_cuda.reset_launches()
+    try:
+        router, coordinator, rows, rep = sharded100(gnn100_ckpt, scen100_ckpt,
+                                                    workdir)
+        alone, sliced = rep["alone"], rep["sliced"]
+        print(f"[sharded] sharded100: R=1 (ladder "
+              f"{'/'.join(map(str, SHARDED_FLEET_BUCKETS))}) + a dp=2 slice "
+              f"on cuda:0 (rungs {'/'.join(map(str, SHARDED_SPEC['buckets']))}"
+              f" formations; 512 = 51,200 agent rows), captured in "
+              f"{rep['capture_s']:.2f} s, one capture a (slot, rung) "
+              f"{rep['captures']}; every row block bitwise == the single "
+              f"engine's rung of its rows; whole rung vs the single engine's "
+              f"rung b: max abs diff {rep['max_abs_diff']:.3g} (rtol "
+              f"{SERVE_RTOL}, atol {SERVE_ATOL}); mid-storm swap on both "
+              f"kinds: {rep['storm']['client_requests_ok']:.0f} served, "
+              f"{rep['lost']} lost, "
+              f"{rep['storm']['step_monotonic_violations']:.0f} step "
+              f"violations; knn_fused {rep['launches']} (request rows)")
+        print(f"[sharded] time-sharing cuda:0, not scaling: requests/s and "
+              f"the 512-formation requests' p95 ms, 4 clients x "
+              f"{SHARDED_DURATION_S} s of sizes {SHARDED_SIZES}: R=1 "
+              f"{alone['requests_per_sec']:.1f}, {alone['big_p95_ms']:.3f} "
+              f"({alone['big_requests']} big); R=1 + slice "
+              f"{sliced['requests_per_sec']:.1f}, {sliced['big_p95_ms']:.3f}"
+              f" ({sliced['big_requests']} big)")
+        print(f"[sharded] seeded MLP (obs 8, 64x64): bf16 dp=2 slice max abs "
+              f"diff {rep['bf16_diff']:.3g} in (0, {rep['bf16_atol']:.3g}]; "
+              f"dp=2 x mp=2 slice {rep['mp_diff']:.3g} <= 1e-5")
+        elapsed("sharded100")
+        try:
+            el = elastic100(router, coordinator, rows)
+        finally:
+            router.stop()
+        decisions = [(r or {}).get("decision", {}) for r in el["reports"]]
+        snap = el["snapshot"]
+        print(f"[elastic] elastic100: "
+              f"{snap['elastic_resplits_committed']:.0f} re-split(s) "
+              f"committed of "
+              f"{len(el['reports'])} decisions "
+              + "; ".join(
+                  f"{d.get('replicated_buckets')}+{d.get('sharded_buckets')}"
+                  for d in decisions)
+              + f", pause {snap['elastic_last_pause_ms']:.3f} ms, "
+              f"prewarm {snap['elastic_last_prewarm_ms']:.1f} ms, "
+              f"{snap['elastic_prewarm_compiles_total']:.0f} "
+              f"prewarm captures, 0 on the request path (census "
+              f"{el['census']} before and after serving the new split), "
+              f"{el['requests']} requests, 0 lost, monotonic; replicas now "
+              f"{el['buckets']}")
+        elapsed("elastic100")
+        benches = serve_benches()
+        slo, ela = benches["slo"], benches["elastic"]
+        print(f"[sharded] --slo-bench (its own process beside the elastic "
+              f"bench's, time-sharing cuda:0): replicated / "
+              f"sharded / bf16 512-rung p95 {slo['replicated_512_p95_ms']:.3f}"
+              f" / {slo['sharded_512_p95_ms']:.3f} / "
+              f"{slo['bf16_512_p95_ms']:.3f} ms, bf16 speedup "
+              f"{slo['bf16_speedup_pct']:.1f}%, req/s at p95 <= 50 ms "
+              f"{slo['req_per_sec_at_p95_slo']:.1f}, {slo['passes']} passes, "
+              f"max captures a rung {slo['max_compiles_per_rung']}")
+        print(f"[elastic] --elastic-bench (its own process beside the slo "
+              f"bench's, time-sharing cuda:0): storm p95 "
+              f"static {ela['static_storm_p95_ms']:.3f} / elastic "
+              f"{ela['elastic_storm_p95_ms']:.3f} ms, req/s at p95 <= 80 ms "
+              f"static {ela['req_per_sec_at_p95_slo_static']:.1f} / elastic "
+              f"{ela['req_per_sec_at_p95_slo_elastic']:.1f}, re-split pause "
+              f"{ela['elastic_resplit_pause_ms']:.3f} ms, "
+              f"{ela['elastic_prewarm_compiles']:.0f} prewarm captures, "
+              f"{ela['elastic_storm_new_programs']} new programs in the "
+              f"measured storm, buckets {ela['elastic_buckets']}")
+        if (slo["max_compiles_per_rung"] != 1
+                or ela["elastic_storm_new_programs"] != 0
+                or ela["max_compiles_per_rung"] != 1):
+            raise AssertionError(f"benches: {slo} {ela}")
+        elapsed("serving benches")
+        rows_launches = knn_cuda.LAUNCHES["knn_fused"]
+        storm = chaos_storm.run_elastic_campaign(
+            overrides=list(GNN100), device="cuda")
+        pool_launches = knn_cuda.LAUNCHES["knn_fused"] - rows_launches
+        if (storm["chaos_invariant_violations"] != 0
+                or storm["chaos_faults_unfired"] != 0
+                or storm["elastic_resplits_committed"] < 2
+                or pool_launches != 1):
+            raise AssertionError(f"storm_elastic100: {storm}, knn_fused "
+                                 f"{pool_launches}")
+        print(f"[storm] storm_elastic100 (--elastic over gnn100's command, "
+              f"seed 0): 0 violations, {storm['chaos_faults_fired']} of "
+              f"{storm['deterministic']['chaos_faults_armed']} fired, "
+              f"{storm['elastic_resplits_committed']} committed / "
+              f"{storm['elastic_resplits_aborted']} aborted / "
+              f"{storm['elastic_resplits_skipped']} skipped in "
+              f"{storm['elastic_rounds']} rounds, "
+              f"{storm['requests_ok']}/{storm['requests_resolved']} served, "
+              f"pause {storm['elastic_last_pause_ms']:.3f} ms, "
+              f"{storm['campaign_seconds']} s; knn_fused {pool_launches} "
+              f"(its row pool, (64,100,4))")
+        return {"rows": rows_launches, "storm": pool_launches}
+    finally:
+        set_ledger(previous)
+
+
 def main() -> int:
     import torch
 
@@ -5690,6 +6283,11 @@ def main() -> int:
     mesh = mesh_phase(gnn100["ckpt"], scen100_ckpt, fleet_rate)
     elapsed("phase 17, the serving mesh")
 
+    # Phase 18: the sharded big-rung slice and elastic capacity, this
+    # slice's main paths.
+    sharded = sharded_phase(gnn100["ckpt"], scen100_ckpt)
+    elapsed("phase 18, the sharded slice and elastic capacity")
+
     replaces = {
         "knn_fused": "marl_distributedformation_tpu/ops/knn_pallas.py:117",
         "knn_tiled": "marl_distributedformation_tpu/ops/knn_pallas.py:155",
@@ -5811,6 +6409,16 @@ def main() -> int:
         "launches": sum(mesh["hosts"].values()) + mesh["storm"],
         "host_launches": mesh["hosts"], "storm_mesh100_launches":
         mesh["storm"], **stats["knn_fused"]["gate"]}
+    # Phase 18: sharded100's request rows at the train shape, (1024,100,4)
+    # (the served GNN launches no kernel; the MLP benches none), and
+    # storm_elastic100's row pool at the gate's (64,100,4), timed above.
+    kernels[0]["sharded"] = {
+        "path": "sharded100 request rows, storm_elastic100's row pool",
+        "launches": sharded["rows"] + sharded["storm"],
+        "sharded100_launches": sharded["rows"],
+        "storm_elastic100_launches": sharded["storm"],
+        "shape": stats["knn_fused"]["train"]["shape"],
+        "storm_pool": stats["knn_fused"]["gate"]}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,7 @@ JSON line:
     python -m marl_distributedformation_tpu_torch.chaos_storm --train
     python -m marl_distributedformation_tpu_torch.chaos_storm --sebulba
     python -m marl_distributedformation_tpu_torch.chaos_storm --mesh
+    python -m marl_distributedformation_tpu_torch.chaos_storm --elastic
     # on the CPU:
     python -m marl_distributedformation_tpu_torch.chaos_storm device=cpu
 
@@ -23,9 +24,10 @@ and raises without a card. ``--mesh`` points the storm at a loopback
 multi-process mesh (``serving/mesh``): ``--hosts`` host subprocesses on
 the campaign's device (on one card they share ``cuda:0``), the
 control-plane faults armed in this process, and a real ``kill -9`` of one
-host. ``--elastic`` prints its schedule under ``--print-schedule``; its
-campaign needs elastic capacity (ROADMAP A12, ``serving/elastic``), which
-is not ported, and exits naming it.
+host. ``--elastic`` points it at the elastic re-split seams
+(``serving/elastic``): a live fleet on two device slots of the campaign's
+device (on one card both are ``cuda:0``) serves alternating traffic mixes
+while a ``CapacityController`` re-splits it round after round.
 
 The campaign is DETERMINISTIC from its seed: ``--print-schedule`` emits
 the armed fault schedule (a pure function of the CLI arguments, equal to
@@ -77,7 +79,7 @@ import threading
 import time
 from pathlib import Path
 from typing import (
-    Any, Dict, List, NoReturn, Optional, Sequence, Tuple, Union,
+    Any, Dict, List, Optional, Sequence, Tuple, Union,
 )
 
 # Points armed during the TRAIN leg vs the SERVE leg (the two halves of
@@ -125,8 +127,8 @@ SEBULBA_POINTS = (
     "sebulba.dequeue",
     "sebulba.param_publish",
 )
-# The --elastic campaign's seams (not ported: ROADMAP A12,
-# serving/elastic). Kept for its schedule.
+# elastic: the re-split's prewarm, barrier commit and drain-retire legs
+# (serving/elastic).
 ELASTIC_POINTS = (
     "elastic.prewarm",
     "elastic.commit",
@@ -167,11 +169,6 @@ WINDOWS = {
     "elastic.prewarm": 8,
     "elastic.commit": 4,
     "elastic.retire": 6,
-}
-
-# The ROADMAP items of the campaigns that need more than one device.
-UNPORTED_CAMPAIGNS = {
-    "--elastic": "A12 (serving/elastic)",
 }
 
 Overrides = Optional[Sequence[str]]
@@ -265,10 +262,11 @@ class _Prober:
             return
         try:
             result = future.result(timeout=10.0)
-        except FutureTimeout:
-            self.outcomes.append(
-                {"ok": False, "hung": True, "error": "unresolved future"}
-            )
+        except FutureTimeout as e:
+            # A RequestTimeout is a TimeoutError too: a typed outcome,
+            # hung only when the future never resolved.
+            self.outcomes.append({"ok": False, "hung": not future.done(),
+                                  "error": type(e).__name__})
             return
         except Exception as e:  # noqa: BLE001 — typed failure = resolved
             self.outcomes.append(
@@ -1356,6 +1354,230 @@ def run_sebulba_campaign(
         plane.reset()
 
 
+def run_elastic_campaign(
+    seed: int = 0,
+    faults: int = 9,
+    budget_s: float = 240.0,
+    obs_dim: int = 8,
+    rounds: int = 6,
+    requests_per_round: int = 60,
+    probe_interval_s: float = 0.03,
+    device: Any = "cuda",
+    overrides: Overrides = None,
+) -> Dict[str, Any]:
+    """The storm pointed at the elastic re-split seams (``serving/
+    elastic``): a live fleet (two replicas, rungs 1/8, on two device slots
+    of ``device``) serves alternating traffic mixes while a
+    ``CapacityController`` re-splits it round after round, with the seeded
+    schedule raising and delaying at the prewarm, barrier-commit and
+    drain-retire legs. Invariants: every accepted request resolves
+    (aborted rounds keep the old split serving; retire faults stop
+    replicas undrained and their queued work must fail over), served steps
+    stay monotonic through every commit, budget-1 receipts on the final
+    replica set, at least 2 re-splits committed, and every armed fault
+    fired. ``overrides`` (the train CLI's list) serve that command's
+    policy at its width, whole formations of its env a request row (drawn
+    from 64 formations of the env's reset, through the k-NN kernel on the
+    card); None serves JAX's
+    (8, 8) MLP at ``obs_dim``. One JSON line out."""
+    import numpy as np
+    import torch
+
+    from marl_distributedformation_tpu_torch.chaos import (
+        Violation,
+        check_budget_one,
+        check_no_request_lost,
+        check_step_monotonic,
+        get_fault_plane,
+        report_violations,
+    )
+    from marl_distributedformation_tpu_torch.compat.policy import LoadedPolicy
+    from marl_distributedformation_tpu_torch.device import resolve_device
+    from marl_distributedformation_tpu_torch.models import MLPActorCritic
+    from marl_distributedformation_tpu_torch.serving import (
+        CapacityController,
+        TraceRecorder,
+    )
+    from marl_distributedformation_tpu_torch.serving.fleet import (
+        FleetReloadCoordinator,
+        FleetRouter,
+        warmup_fleet,
+    )
+
+    device = resolve_device(device)
+    t_start = time.perf_counter()
+    deadline = t_start + budget_s
+    rng = np.random.default_rng(seed)
+    if overrides is None:
+        model = MLPActorCritic(obs_dim, 2, hidden=(8, 8),
+                               generator=torch.Generator().manual_seed(0))
+        row_shape: Tuple[int, ...] = (obs_dim,)
+        pool = None
+        probe_row: Any = obs_dim
+    else:
+        from marl_distributedformation_tpu_torch.envs import spec_for_params
+
+        run = _run_settings(overrides, 3, 4)
+        model = run.model()
+        spec = spec_for_params(run.env)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        pool = spec.obs(spec.reset_batch(run.env, 64, gen, device),
+                        run.env).cpu().numpy()
+        if not getattr(model, "per_formation", False):
+            pool = pool.reshape(-1, pool.shape[-1])
+        row_shape = tuple(pool.shape[1:])
+        probe_row = pool[0]
+    policy = LoadedPolicy(model.to(device).eval())
+
+    schedule = build_schedule(seed, faults, point_names=ELASTIC_POINTS)
+    plane = get_fault_plane()
+    plane.reset()
+    report: Dict[str, Any] = {
+        "deterministic": {
+            "chaos_seed": int(seed),
+            "chaos_faults_armed": len(schedule),
+            "schedule": schedule.record(),
+        },
+    }
+    violations: List[Any] = []
+
+    recorder = TraceRecorder()
+    router = FleetRouter(policy, devices=[device, device], num_replicas=2,
+                         buckets=(1, 8), window_ms=0.0,
+                         trace_recorder=recorder)
+    workdir = tempfile.mkdtemp(prefix="chaos_elastic_")
+    coordinator = FleetReloadCoordinator(workdir, router)
+    controller = CapacityController(
+        router, coordinator, row_shape=row_shape, p95_target_ms=50.0,
+        min_requests=24, drain_timeout_s=5.0,
+    )
+    # Three mixes cycling, so a round's plan always differs from the last
+    # COMMITTED one even when the round between aborted (the same mix two
+    # rounds apart would be skipped as equivalent and starve the armed
+    # commit and retire cells).
+    mixes = (
+        ((1, 0.6), (4, 0.4)),
+        ((64, 0.5), (128, 0.5)),
+        ((8, 0.5), (16, 0.5)),
+    )
+    outcomes: List[dict] = []
+    steps: List[Tuple[float, int]] = []
+
+    def _request(n: int):
+        if pool is None:
+            return rng.standard_normal((n, obs_dim)).astype(np.float32)
+        return pool[rng.integers(0, len(pool), n)]
+
+    def _drive_round(mix) -> None:
+        """One round of offered traffic; every accepted future must
+        resolve (collected for the no-lost-request invariant)."""
+        from concurrent.futures import TimeoutError as FutureTimeout
+
+        sizes = [s for s, _ in mix]
+        probs = [p for _, p in mix]
+        futures = []
+        for _ in range(requests_per_round):
+            n = int(rng.choice(sizes, p=probs))
+            try:
+                futures.append(router.submit(_request(n), timeout_s=5.0))
+            except Exception as e:  # noqa: BLE001 — typed reject
+                outcomes.append(
+                    {"ok": False, "hung": False, "error": type(e).__name__})
+            time.sleep(0.002)
+        for f in futures:
+            try:
+                result = f.result(timeout=15.0)
+            except FutureTimeout as e:
+                # A RequestTimeout is a TimeoutError too: a typed outcome,
+                # hung only when the future never resolved.
+                outcomes.append({"ok": False, "hung": not f.done(),
+                                 "error": type(e).__name__})
+                continue
+            except Exception as e:  # noqa: BLE001 — typed failure
+                outcomes.append(
+                    {"ok": False, "hung": False, "error": type(e).__name__})
+                continue
+            outcomes.append({"ok": True, "hung": False, "error": None})
+            steps.append((time.perf_counter(), int(result.model_step)))
+
+    prober = None
+    rounds_run = 0
+    try:
+        router.start()
+        warmup_fleet(router, row_shape)
+        plane.arm(schedule)
+        plane.enabled = True
+        prober = _Prober(router, probe_row,
+                         interval_s=probe_interval_s).start()
+        # Scheduled rounds, then flush rounds until every armed fault fired
+        # (an aborted prewarm consumes no commit or retire cells, so the
+        # campaign keeps re-splitting until the schedule drains).
+        while rounds_run < rounds or (
+            plane.pending(ELASTIC_POINTS) > 0
+            and rounds_run < rounds + 6
+            and time.perf_counter() < deadline - 10
+        ):
+            recorder.clear()  # each round decides from ITS mix alone
+            _drive_round(mixes[rounds_run % len(mixes)])
+            controller.step()
+            rounds_run += 1
+    finally:
+        # Never leave the process-global plane live past the campaign.
+        plane.enabled = False
+        if prober is not None:
+            prober.stop()
+        router.stop()
+
+    # ---- invariants ----------------------------------------------------
+    fired = plane.fired_record()
+    unfired = plane.pending()
+    probed = prober.outcomes if prober is not None else []
+    violations += check_no_request_lost(outcomes + probed)
+    violations += check_step_monotonic(sorted(
+        steps + (prober.steps if prober is not None else []),
+        key=lambda s: s[0]))
+    compiles = {
+        f"replica{idx}_rung{bucket}": count
+        for idx, counts in router.compile_counts().items()
+        for bucket, count in counts.items()
+    }
+    violations += check_budget_one(compiles)
+    snap = controller.snapshot()
+    if snap["elastic_resplits_committed"] < 2:
+        violations.append(Violation(
+            "campaign_coverage",
+            f"only {snap['elastic_resplits_committed']:.0f} re-split(s) "
+            "committed — the campaign never exercised the commit seam "
+            "under weather (raise rounds or lower the fault count)",
+        ))
+    if unfired:
+        violations.append(Violation(
+            "campaign_coverage",
+            f"{unfired} armed fault(s) never fired — the campaign ended "
+            "before exercising its whole schedule (raise rounds or lower "
+            "the hit windows)",
+        ))
+    report["chaos_violations"] = report_violations(violations, plane)
+    report["chaos_invariant_violations"] = len(violations)
+    report["chaos_faults_fired"] = len(fired)
+    report["chaos_faults_unfired"] = unfired
+    report["elastic_rounds"] = rounds_run
+    report["elastic_resplits_committed"] = int(
+        snap["elastic_resplits_committed"])
+    report["elastic_resplits_aborted"] = int(snap["elastic_resplits_aborted"])
+    report["elastic_resplits_skipped"] = int(snap["elastic_resplits_skipped"])
+    report["elastic_prewarm_compiles"] = int(
+        snap["elastic_prewarm_compiles_total"])
+    report["elastic_last_pause_ms"] = snap["elastic_last_pause_ms"]
+    report["requests_resolved"] = len(outcomes) + len(probed)
+    report["requests_ok"] = sum(1 for o in outcomes + probed if o["ok"])
+    report["final_replicas"] = len(router.replicas)
+    report["campaign_seconds"] = round(time.perf_counter() - t_start, 2)
+    # The port's own: the final replica set's receipts.
+    report["compile_receipts"] = compiles
+    return report
+
+
 def _schedule_line(seed: int, faults: int,
                    point_names: Optional[Tuple[str, ...]]) -> str:
     schedule = build_schedule(seed, faults, point_names=point_names)
@@ -1433,9 +1655,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument(
         "--elastic",
         action="store_true",
-        help="the storm against the elastic re-split seams "
-        "(serving/elastic): not ported (ROADMAP A12); --print-schedule "
-        "prints its schedule",
+        help="point the storm at the elastic re-split seams "
+        "(serving/elastic): a live fleet re-split round after round by a "
+        "CapacityController under alternating traffic mixes, with faults "
+        "at the prewarm, barrier-commit and drain-retire legs; "
+        "invariants: no request lost, monotonic steps, budget-1 "
+        "receipts, >= 2 re-splits committed, every armed fault fired",
     )
     ap.add_argument(
         "--print-schedule",
@@ -1464,7 +1689,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         if args.print_schedule:
             print(_schedule_line(args.seed, faults, ELASTIC_POINTS))
             return 0
-        return refuse_unported("--elastic")
+        report = run_elastic_campaign(
+            seed=args.seed,
+            faults=faults,
+            budget_s=args.budget_s,
+            device=args.device,
+        )
+        print(json.dumps(report))
+        return 0 if report.get("chaos_invariant_violations") == 0 else 1
     if args.sebulba:
         faults = _capped(args, "--sebulba", 12, "the three transfer seams' "
                          "armable cells are bounded by the hit windows")
@@ -1525,15 +1757,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     print(json.dumps(report))
     return 0 if report.get("chaos_invariant_violations") == 0 else 1
-
-
-def refuse_unported(flag: str) -> NoReturn:
-    """Exit naming the ROADMAP item that ``flag``'s campaign waits for."""
-    raise SystemExit(
-        f"{flag} is not ported yet (ROADMAP {UNPORTED_CAMPAIGNS[flag]}): "
-        "its campaign needs more than one device; --print-schedule prints "
-        "its schedule"
-    )
 
 
 if __name__ == "__main__":

@@ -33,7 +33,17 @@
   commit), ``HostAgent``, ``MetaRouter``/``MeshFrontend``, the loopback
   mesh of host subprocesses (``spawn_local_mesh``) and ``run_mesh_smoke``.
 
-The sharded engine and elastic capacity are not ported yet (ROADMAP A13).
+- :class:`~.sharded.ShardedPolicyEngine` — the big rungs over a slice of
+  row blocks instead of one replica: partition-rule placement over the
+  JAX paths (``match_partition_rules`` / ``make_shard_and_gather_fns``),
+  batch-axis request splitting, one CUDA graph a row block a rung, an
+  optional ``mp`` axis and bf16 rungs. ``ShardedSpec`` plugs it into a
+  ``FleetRouter``.
+- ``serving.elastic`` — the live capacity loop: ``TraceRecorder``
+  records offered arrivals at the schedulers, ``CapacityController``
+  replays the window through the same autotune DP and re-splits the fleet
+  (new ladder, new replicated/sharded split), prewarm-then-commit at the
+  fleet batch barrier.
 """
 
 from marl_distributedformation_tpu_torch.serving.autotune import (
@@ -49,6 +59,10 @@ from marl_distributedformation_tpu_torch.serving.client import (
 from marl_distributedformation_tpu_torch.serving.engine import (
     DEFAULT_BUCKETS,
     BucketedPolicyEngine,
+)
+from marl_distributedformation_tpu_torch.serving.elastic import (
+    CapacityController,
+    CapacityDecision,
 )
 from marl_distributedformation_tpu_torch.serving.loadgen import (
     RequestTrace,
@@ -67,11 +81,17 @@ from marl_distributedformation_tpu_torch.serving.scheduler import (
     RequestTimeout,
     ServedResult,
 )
+from marl_distributedformation_tpu_torch.serving.sharded import (
+    ShardedPolicyEngine,
+    ShardedSpec,
+)
 from marl_distributedformation_tpu_torch.serving.smoke import run_smoke_benchmark
 
 __all__ = [
     "BackpressureError",
     "BucketedPolicyEngine",
+    "CapacityController",
+    "CapacityDecision",
     "DEFAULT_BUCKETS",
     "LadderPlan",
     "MicroBatchScheduler",
@@ -83,6 +103,8 @@ __all__ = [
     "ServedResult",
     "ServingClient",
     "ServingMetrics",
+    "ShardedPolicyEngine",
+    "ShardedSpec",
     "TraceRecorder",
     "autotune_ladder",
     "backoff_s",

@@ -31,8 +31,8 @@ distribution and arrival rate of a :class:`~.loadgen.RequestTrace`
 The DP is pure — one trace in, one plan out — so the SAME plan shape
 serves two callers: offline (a bench builds its engines from a plan
 before traffic) and live (:func:`replay_recorder` replays the recent
-recorded window; the JAX package's elastic controller lands the new plan
-at the fleet batch barrier, not ported yet, ROADMAP A13). A rung change
+recorded window; ``serving/elastic``'s controller lands the new plan at
+the fleet batch barrier). A rung change
 means new rung builds, paid before traffic, never on the request path.
 """
 

@@ -70,6 +70,38 @@ from marl_distributedformation_tpu_torch.train.capture import (
 # stays at 4.
 DEFAULT_BUCKETS = (1, 8, 64, 512)
 
+
+def act_rows(model: torch.nn.Module, params: Mapping[str, torch.Tensor],
+             dtype: Optional[torch.dtype], generator: torch.Generator,
+             det: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The act of a rung over ``model``, whose ``state_dict`` is
+    ``params``: forward (in ``dtype`` when one is given: the float
+    parameters and the rows cast inside), sample from ``generator``, the
+    deterministic select on ``det``, f32 actions clipped to the action
+    space."""
+    if dtype is None:
+        mean, log_std, _ = model(x)
+    else:
+        cast = {k: v.to(dtype) if v.is_floating_point() else v
+                for k, v in params.items()}
+        mean, log_std, _ = torch.func.functional_call(
+            model, cast, (x.to(dtype),))
+    sampled = distributions.sample(generator, mean, log_std)
+    actions = torch.where(det, distributions.mode(mean), sampled)
+    return actions.float().clamp(-1.0, 1.0)
+
+
+def inference_dtype(dtype: Any) -> Optional[torch.dtype]:
+    """None for f32 serving, ``torch.bfloat16`` for bf16; refuses others."""
+    if dtype in (None, "float32", "f32", torch.float32):
+        return None
+    if dtype in ("bfloat16", "bf16", torch.bfloat16):
+        return torch.bfloat16
+    raise ValueError(
+        f"inference dtype must be float32 or bfloat16, got {dtype!r}"
+    )
+
+
 class _Rung:
     """One rung: a static input of ``bucket`` rows and the act that reads
     it, captured or eager; ``out`` holds the actions the last run wrote."""
@@ -132,14 +164,7 @@ class BucketedPolicyEngine:
         self.buckets = tuple(sorted({int(b) for b in buckets}))
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"buckets must be positive ints, got {buckets}")
-        if dtype in (None, "float32", "f32", torch.float32):
-            self.dtype = None
-        elif dtype in ("bfloat16", "bf16", torch.bfloat16):
-            self.dtype = torch.bfloat16
-        else:
-            raise ValueError(
-                f"inference dtype must be float32 or bfloat16, got {dtype!r}"
-            )
+        self.dtype = inference_dtype(dtype)
         self.guards: Dict[int, RetraceGuard] = {
             b: RetraceGuard(
                 f"serving-act-bucket{b}", max_traces=max_traces_per_bucket
@@ -180,16 +205,8 @@ class BucketedPolicyEngine:
         """The act of one rung: forward, sample, the deterministic select,
         f32 actions clipped to the action space (``LoadedPolicy.predict``'s
         contract)."""
-        if self.dtype is None:
-            mean, log_std, _ = self.model(x)
-        else:
-            cast = {k: v.to(self.dtype) if v.is_floating_point() else v
-                    for k, v in self._params.items()}
-            mean, log_std, _ = torch.func.functional_call(
-                self.model, cast, (x.to(self.dtype),))
-        sampled = distributions.sample(self.generator, mean, log_std)
-        actions = torch.where(self._det, distributions.mode(mean), sampled)
-        return actions.float().clamp(-1.0, 1.0)
+        return act_rows(self.model, self._params, self.dtype,
+                        self.generator, self._det, x)
 
     # -- bucketing ------------------------------------------------------
 
@@ -288,6 +305,42 @@ class BucketedPolicyEngine:
         self._rungs[bucket] = rung
         return rung.out
 
+    def _rows(self, obs: Any) -> Tuple[np.ndarray, Tuple[int, ...]]:
+        """``obs`` as f32 rows and their trailing shape, which must be the
+        one this engine serves."""
+        obs = np.asarray(obs, np.float32)
+        if obs.ndim < 2:
+            raise ValueError(
+                f"obs must be (n, *row_shape) with a leading batch axis, "
+                f"got shape {obs.shape}"
+            )
+        row_shape = tuple(obs.shape[1:])
+        if self._row_shape is not None and row_shape != self._row_shape:
+            raise ValueError(
+                f"obs rows have shape {row_shape}; this engine serves "
+                f"{self._row_shape} rows (one compiled row shape per "
+                "engine — the bucket ladder is the only shape axis)"
+            )
+        return obs, row_shape
+
+    def _stage(self, obs: np.ndarray, chunks: List[int]
+               ) -> Tuple[torch.Tensor, List[Tuple[int, int]]]:
+        """``obs`` copied into the input staging buffer laid out as the
+        plan (each chunk its own slice, the padding zeroed); returns the
+        buffer and each chunk's ``(offset, rows)``. Caller holds
+        ``_lock``."""
+        n = obs.shape[0]
+        stage = self._staging("_stage_in", sum(chunks), obs.shape[1:])
+        host = stage.numpy()
+        offsets, off, start = [], 0, 0
+        for bucket in chunks:
+            k = min(bucket, n - start)
+            host[off:off + k] = obs[start:start + k]
+            host[off + k:off + bucket] = 0.0
+            offsets.append((off, k))
+            off, start = off + bucket, start + k
+        return stage, offsets
+
     def act(
         self,
         obs: np.ndarray,
@@ -298,31 +351,11 @@ class BucketedPolicyEngine:
         of ``plan(n)``, runs them, slices the padding back off.
         ``nn_params=None`` serves the wrapped policy's parameters (the
         registry passes its active snapshot instead)."""
-        obs = np.asarray(obs, np.float32)
-        if obs.ndim < 2:
-            raise ValueError(
-                f"obs must be (n, *row_shape) with a leading batch axis, "
-                f"got shape {obs.shape}"
-            )
-        n, row_shape = obs.shape[0], tuple(obs.shape[1:])
-        if self._row_shape is not None and row_shape != self._row_shape:
-            raise ValueError(
-                f"obs rows have shape {row_shape}; this engine serves "
-                f"{self._row_shape} rows (one compiled row shape per "
-                "engine — the bucket ladder is the only shape axis)"
-            )
-        chunks = self.plan(n)
+        obs, row_shape = self._rows(obs)
+        chunks = self.plan(obs.shape[0])
         snapshot = self._own if nn_params is None else nn_params
         with self._lock, torch.no_grad():
-            stage = self._staging("_stage_in", sum(chunks), row_shape)
-            host = stage.numpy()
-            offsets, off, start = [], 0, 0
-            for bucket in chunks:
-                k = min(bucket, n - start)
-                host[off:off + k] = obs[start:start + k]
-                host[off + k:off + bucket] = 0.0
-                offsets.append((off, k))
-                off, start = off + bucket, start + k
+            stage, offsets = self._stage(obs, chunks)
             cuda = self._stream is not None
             if cuda:
                 self._stream.wait_stream(torch.cuda.current_stream())

@@ -38,9 +38,9 @@ parameters too, so a revived replica serves the current step.
 
 The cross-host two-phase commit the serving mesh drives
 (``prepare_global`` / ``commit_prepared`` / ``abort_prepared``,
-``serving/mesh``) splits the same commit at its commit point. The elastic
-re-split (``commit_resplit``) is not ported: it raises naming its ROADMAP
-items.
+``serving/mesh``) splits the same commit at its commit point; the elastic
+re-split (``commit_resplit``, ``serving/elastic``) lands a new replica set
+at the same barrier.
 """
 
 from __future__ import annotations
@@ -115,7 +115,10 @@ def device_copy(params: Dict[str, torch.Tensor],
                 device: torch.device) -> Dict[str, torch.Tensor]:
     """``params`` copied onto ``device`` (always a copy, never an alias),
     the copies finished when this returns: on the card they run on a
-    side stream that is synchronized."""
+    side stream that is synchronized. A sharded replica's ``device`` is
+    its engine, which places the copies on its slice (``shard_params``)."""
+    if hasattr(device, "shard_params"):
+        return device.shard_params(params)
     device = torch.device(device)
     if device.type != "cuda":
         return {k: v.detach().to(device, copy=True)
@@ -404,15 +407,134 @@ class FleetReloadCoordinator:
         )
         return params_from_jax(restored["params"], want)
 
-    # -- not ported ------------------------------------------------------
+    # -- elastic re-split (serving/elastic) -------------------------------
 
-    def commit_resplit(self, *args: Any, **kwargs: Any) -> dict:
-        """The elastic re-split: not ported (ROADMAP A13, serving/elastic;
-        it re-splits devices, A12)."""
-        raise NotImplementedError(
-            "commit_resplit (elastic capacity) is not ported yet (ROADMAP "
-            "A13: serving/elastic, with A12)"
+    def commit_resplit(
+        self,
+        add: Any = (),
+        retire: Any = (),
+        sharded_min_rows: Optional[int] = None,
+        trace_id: Optional[str] = None,
+    ) -> dict:
+        """Land a capacity re-split (replicas added, replicas retired, the
+        big-rung routing threshold re-pinned) at the SAME fleet batch
+        barrier a reload commits at, so no in-flight request sees a torn
+        replica set and ``model_step`` stays monotonic (added replicas
+        must already serve the fleet's step: a prewarm the fleet stepped
+        past is refused, and the controller retries).
+
+        ``add`` replicas come prewarmed from the controller: engines
+        built, every rung captured off the serving path, schedulers
+        started but unrouted. ``retire`` names replica indices to take out
+        of routing; the CALLER drains and stops them after the gates
+        reopen (``router.drain_replica``), so draining never lengthens the
+        pause. A sharded replica's parameters were placed on its slice
+        when it was built, and every later swap places them there once,
+        at this barrier, like every other replica's copy.
+
+        Returns a report dict; never raises. ``committed`` False means the
+        old split keeps serving and ``load_errors`` records why.
+        ``pause_ms`` is the barrier pause alone, gates closed to gates
+        reopened: the whole serving interruption a re-split costs."""
+        if self.model_id is not None:
+            raise ValueError(
+                "elastic re-split over a lane-keyed coordinator is not "
+                "supported yet (docs/serving.md 'Limits / next')"
+            )
+        add = list(add)
+        retire_set = {int(i) for i in retire}
+        tracer = get_tracer()
+        report: dict = {
+            "committed": False,
+            "pause_ms": 0.0,
+            "added": [r.index for r in add],
+            "retired": sorted(retire_set),
+        }
+        with self._refresh_lock:
+            current = list(self.router.replicas)
+            missing = retire_set - {r.index for r in current}
+            if missing:
+                self.load_errors.append((
+                    "resplit",
+                    f"resplit refused: retire names unknown replicas "
+                    f"{sorted(missing)}",
+                ))
+                return report
+            stale = [r.index for r in add
+                     if r.registry.active_step != self._fleet_step]
+            if stale:
+                # The fleet stepped forward while the controller was
+                # prewarming: committing these replicas would serve an
+                # older step after a newer one.
+                self.load_errors.append((
+                    "resplit",
+                    f"resplit refused: prewarmed replicas {stale} serve a "
+                    f"step != fleet step {self._fleet_step} (reload landed "
+                    "during prewarm); re-prewarm and retry",
+                ))
+                report["stale_prewarm"] = True
+                return report
+            barriers = [r.registry.batch_lock for r in current]
+            held: List[BatchBarrier] = []
+            wedged_replica = None
+            t_closed = time.perf_counter()
+            try:
+                for b in barriers:
+                    b.close()
+                t_closed = time.perf_counter()
+                for i, b in enumerate(barriers):
+                    fault_point("fleet.barrier")
+                    if not b.acquire(timeout=self.commit_timeout_s):
+                        self.load_errors.append((
+                            "resplit",
+                            f"resplit aborted: replica {i} barrier not "
+                            f"acquired in {self.commit_timeout_s}s (wedged "
+                            "dispatch?); old split keeps serving",
+                        ))
+                        wedged_replica = i
+                        return report
+                    held.append(b)
+                with tracer.span("elastic.commit", trace_id=trace_id,
+                                 added=len(add), retired=len(retire_set)):
+                    fault_point("elastic.commit")
+                    self.router._commit_resplit(
+                        add, retire_set, sharded_min_rows=sharded_min_rows)
+                    report["committed"] = True
+                    report["step"] = self._fleet_step
+            except Exception as e:  # noqa: BLE001 — contain, keep serving
+                # The membership swap is one list assignment: a fault
+                # before it (the armed elastic.commit seam) leaves the old
+                # split whole; nothing to untear.
+                self.load_errors.append((
+                    "resplit",
+                    f"resplit commit aborted: {e!r}; old split keeps "
+                    "serving",
+                ))
+                report["error"] = repr(e)
+                return report
+            finally:
+                for b in reversed(held):
+                    b.release()
+                for b in barriers:
+                    b.open()
+                report["pause_ms"] = round(
+                    max(0.0, time.perf_counter() - t_closed) * 1e3, 3)
+                if wedged_replica is not None:
+                    tracer.incident(
+                        "wedged_barrier_abort", trace_id=trace_id,
+                        replica=wedged_replica, step=self._fleet_step,
+                        path="resplit",
+                        commit_timeout_s=self.commit_timeout_s,
+                    )
+        # The retiring and the incoming engines' parameters are both live
+        # here, the double-residency peak a reload reaches too; sampled
+        # after the gates reopened.
+        from marl_distributedformation_tpu_torch.analysis.guards import (
+            sample_device_watermark,
         )
+
+        sample_device_watermark(force=True)
+        return report
 
     # -- cross-host staged two-phase (serving/mesh) ----------------------
     #

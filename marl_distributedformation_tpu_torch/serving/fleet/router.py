@@ -30,10 +30,15 @@ parameters on its device, never an alias of the policy's. Rungs are
 captured at their first dispatch (``serving/engine.py``):
 ``smoke.warmup_fleet`` captures every rung of every replica before
 traffic, so a capture during traffic is a rebuild the budget refuses.
+The elastic controller (``serving/elastic``) builds new replicas beside the
+serving ones (``build_replica``, ``build_sharded_replica``) and captures
+their rungs while the old ones replay, on their own streams and guards,
+before ``FleetReloadCoordinator.commit_resplit`` routes to them.
 
-The sharded big-rung replica (``sharded=``), ``build_sharded_replica``
-and the elastic membership swap are not ported: they raise naming their
-ROADMAP items.
+``sharded=`` adds one slice-backed big-rung replica
+(``serving/sharded.py``): its row blocks cycle over the fleet's devices
+too, so on one card ``{"dp": 2}`` is two row blocks on ``cuda:0``.
+Requests of at least ``sharded.route_min_rows`` rows try it first.
 """
 
 from __future__ import annotations
@@ -103,6 +108,10 @@ class Replica:
     healthy: bool = True
     broken_at: float = 0.0
     break_reason: str = ""
+    # "replicated" (one whole-ladder engine on one device) or "sharded"
+    # (the slice-backed big-rung engine; ``device`` is then its slice, and
+    # its registry places every swap on the slice).
+    kind: str = "replicated"
     # Tenant lanes: one (params, step) cell a lane, each with its own
     # batch barrier; ``registry`` is then the first lane's cell.
     registries: Optional[Dict[str, ReplicaRegistry]] = None
@@ -133,7 +142,12 @@ class FleetRouter:
       tenant_max_queue: per-lane admission bound in lanes mode.
       trace_recorder: optional ``loadgen.TraceRecorder`` shared by every
         replica's scheduler (the fleet's arrival process).
-      sharded: not ported (ROADMAP A13 with A12); must be None.
+      sharded: optional ``serving.sharded.ShardedSpec``: adds ONE
+        slice-backed big-rung replica (partition-rule parameters over a
+        ``dp`` slice whose row blocks cycle over ``devices``). Requests of
+        at least ``sharded.route_min_rows`` rows route there first; small
+        ones stay on the replicas (the slice only as a last resort). Not
+        combinable with ``lanes``.
     """
 
     def __init__(
@@ -157,11 +171,6 @@ class FleetRouter:
         tenant_max_queue: Optional[int] = None,
         trace_recorder: Any = None,
     ) -> None:
-        if sharded is not None:
-            raise NotImplementedError(
-                "the sharded big-rung replica is not ported yet (ROADMAP "
-                "A13: serving/sharded.py, with A12)"
-            )
         devs = ([torch.device(d) for d in devices] if devices is not None
                 else default_devices())
         if not devs:
@@ -169,6 +178,11 @@ class FleetRouter:
         n = len(devs) if num_replicas is None else int(num_replicas)
         if n < 1:
             raise ValueError(f"need at least one replica, got {n}")
+        if lanes is not None and sharded is not None:
+            raise ValueError(
+                "tenant lanes over the sharded big-rung slice are not "
+                "supported yet (docs/serving.md 'Limits / next')"
+            )
         if lanes is not None and not lanes:
             raise ValueError("lanes must declare at least one model lane")
         self.policy = policy
@@ -182,6 +196,14 @@ class FleetRouter:
         self.logger = logger
         self.emit_every = emit_every
         self.trace_recorder = trace_recorder
+        # Construction knobs kept for the elastic rebuild path
+        # (build_replica / build_sharded_replica): a re-split builds
+        # replicas the way the constructor did, later.
+        self._devices = devs
+        self._buckets = tuple(buckets)
+        self._window_ms = float(window_ms)
+        self._max_queue = int(max_queue)
+        self._seed = int(seed)
         self._health_lock = threading.Lock()
         self._stopping = False
         self.replicas: List[Replica] = []
@@ -221,6 +243,16 @@ class FleetRouter:
                 index=i, device=dev, engine=engine, scheduler=scheduler,
                 registry=registry, registries=registries,
             ))
+        self.sharded_replica: Optional[Replica] = None
+        self._sharded_min_rows = 0
+        # Replica indices are never reused across re-splits: metric and
+        # report keys (``replica{i}_*``) stay unambiguous for the process.
+        self._next_index = n  # guarded by _health_lock
+        if sharded is not None:
+            self.sharded_replica = self._sharded_replica(
+                sharded, self._alloc_index(), None, initial_step)
+            self.replicas.append(self.sharded_replica)
+            self._sharded_min_rows = sharded.route_min_rows
 
     # -- lifecycle -------------------------------------------------------
 
@@ -293,12 +325,27 @@ class FleetRouter:
         model_id: Optional[str] = None,
     ) -> Tuple[Replica, Future]:
         """Submit to the best healthy replica not in ``tried``, walking
-        down the drain-time order past individually full replicas."""
+        down the drain-time order past individually full replicas.
+
+        Big-rung preference: a request of at least ``sharded.min_rows``
+        rows tries the sharded replica FIRST, then the replicas on
+        backpressure or a break. Small requests route to the sharded
+        replica only as a last resort (its ladder starts at the big
+        rungs, so a 1-row request pads up; that still beats a 503)."""
         self._probe_broken()
+        rows = int(obs.shape[0]) if hasattr(obs, "shape") else 0
+        big = (self.sharded_replica is not None
+               and rows >= self._sharded_min_rows)
+
+        def _pref(r: Replica) -> int:
+            if r.kind == "sharded":
+                return 0 if big else 2
+            return 1
+
         candidates = sorted(
             (r for r in self.replicas
              if r.healthy and r.index not in tried),
-            key=lambda r: r.scheduler.estimated_drain_s(model_id),
+            key=lambda r: (_pref(r), r.scheduler.estimated_drain_s(model_id)),
         )
         rejections: List[BackpressureError] = []
         for r in candidates:
@@ -448,21 +495,130 @@ class FleetRouter:
     def healthy_replicas(self) -> int:
         return sum(1 for r in self.replicas if r.healthy)
 
-    # -- not ported ------------------------------------------------------
+    # -- elasticity (serving/elastic) ------------------------------------
+
+    def fleet_params(self) -> Tuple[Any, int]:
+        """The ``(params, step)`` the fleet serves now, as a ``state_dict``:
+        a replicated replica's cell when one exists, else the sharded
+        cell's, gathered. The coordinator commits every cell alike, so
+        any cell is authoritative."""
+        for r in self.replicas:
+            if r.kind == "replicated":
+                return r.registry.active()
+        params, step = self.replicas[0].registry.active()
+        return self.replicas[0].engine.gather_params(params), step
+
+    def _alloc_index(self) -> int:
+        with self._health_lock:
+            index = self._next_index
+            self._next_index += 1
+            return index
+
+    def _refuse_lanes(self) -> None:
+        if self.lane_ids:
+            raise ValueError(
+                "elastic re-split over tenant lanes is not supported "
+                "yet (docs/serving.md 'Limits / next')"
+            )
+
+    def build_replica(
+        self,
+        device: Any = None,
+        buckets: Optional[Tuple[int, ...]] = None,
+        window_ms: Optional[float] = None,
+    ) -> Replica:
+        """Build one UNROUTED replica at the fleet's current ``(params,
+        step)``: the elastic prewarm path. Its scheduler is built but not
+        started, and nothing routes to it until
+        ``FleetReloadCoordinator.commit_resplit`` lands it; the caller
+        builds every rung (with the registry's parameters, the
+        ``warmup_fleet`` contract) first."""
+        self._refuse_lanes()
+        index = self._alloc_index()
+        dev = (torch.device(device) if device is not None
+               else self._devices[index % len(self._devices)])
+        params, step = self.fleet_params()
+        engine = BucketedPolicyEngine(
+            self.policy,
+            buckets=tuple(buckets) if buckets is not None else self._buckets,
+            seed=self._seed + index, device=dev,
+        )
+        registry = ReplicaRegistry(device_copy(params, dev), step=step,
+                                   device=dev)
+        scheduler = MicroBatchScheduler(
+            engine, registry=registry, max_queue=self._max_queue,
+            window_ms=(self._window_ms if window_ms is None
+                       else float(window_ms)),
+            default_timeout_s=self.default_timeout_s,
+            trace_recorder=self.trace_recorder,
+        )
+        return Replica(index=index, device=dev, engine=engine,
+                       scheduler=scheduler, registry=registry)
+
+    def _sharded_replica(self, spec: Any, index: int, params: Any,
+                         step: int) -> Replica:
+        """A slice-backed replica of ``spec`` serving ``params`` (None:
+        the policy's, which the engine placed at its build) at ``step``;
+        its registry's cell is the engine's own placed tree (no second
+        copy on the slice) and its ``device`` the engine, which places
+        every swap on the slice at the barrier commit."""
+        from marl_distributedformation_tpu_torch.serving.sharded import (
+            ShardedPolicyEngine,
+            make_slice,
+        )
+
+        mesh = make_slice(dict(spec.axis_sizes or {"dp": -1}), self._devices)
+        engine = ShardedPolicyEngine(
+            self.policy, mesh, buckets=spec.buckets, rules=spec.rules,
+            seed=self._seed + index, dtype=spec.dtype,
+        )
+        placed = engine._own if params is None else engine.adopt_params(
+            params)
+        registry = ReplicaRegistry(placed, step=step, device=engine)
+        scheduler = MicroBatchScheduler(
+            engine, registry=registry, max_queue=self._max_queue,
+            window_ms=(self._window_ms if spec.window_ms is None
+                       else spec.window_ms),
+            default_timeout_s=self.default_timeout_s,
+            trace_recorder=self.trace_recorder,
+        )
+        return Replica(index=index, device=mesh, engine=engine,
+                       scheduler=scheduler, registry=registry,
+                       kind="sharded")
 
     def build_sharded_replica(self, spec: Any) -> Replica:
-        """Not ported (ROADMAP A13: serving/sharded.py, with A12)."""
-        raise NotImplementedError(
-            "the sharded big-rung replica is not ported yet (ROADMAP A13: "
-            "serving/sharded.py, with A12)"
-        )
+        """Build one UNROUTED slice-backed big-rung replica from a
+        ``serving.sharded.ShardedSpec`` at the fleet's current ``(params,
+        step)``: the boot path's construction, but the slice adopts the
+        parameters the fleet serves NOW (the policy's boot copy would
+        bring back a stale step after any reload). Big requests route to
+        it only when ``commit_resplit`` lands it."""
+        self._refuse_lanes()
+        index = self._alloc_index()
+        params, step = self.fleet_params()
+        return self._sharded_replica(spec, index, params, step)
 
-    def _commit_resplit(self, *args: Any, **kwargs: Any) -> None:
-        """Not ported (ROADMAP A13: serving/elastic, with A12)."""
-        raise NotImplementedError(
-            "the elastic membership swap is not ported yet (ROADMAP A13: "
-            "serving/elastic, with A12)"
-        )
+    def _commit_resplit(
+        self,
+        add: Sequence[Replica],
+        retire: Set[int],
+        sharded_min_rows: Optional[int] = None,
+    ) -> None:
+        """Swap routing membership: called only by
+        ``FleetReloadCoordinator.commit_resplit`` at the fleet batch
+        barrier, every current replica's barrier held (zero batches in
+        flight). One list assignment under the health lock: requests
+        racing the commit see the old set or the new one, never a torn
+        one."""
+        with self._health_lock:
+            kept = [r for r in self.replicas if r.index not in retire]
+            self.replicas = kept + list(add)
+            shards = [r for r in self.replicas if r.kind == "sharded"]
+            self.sharded_replica = shards[-1] if shards else None
+            if self.sharded_replica is None:
+                self._sharded_min_rows = 0
+            elif sharded_min_rows is not None:
+                self._sharded_min_rows = int(sharded_min_rows)
 
     # -- capacity --------------------------------------------------------
 

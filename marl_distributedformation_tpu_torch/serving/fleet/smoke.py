@@ -56,7 +56,8 @@ def warmup_fleet(
 ) -> None:
     """Build every rung of every replica once, before any traffic: on the
     card each rung's first dispatch captures its CUDA graph, one replica
-    after another. Call it before the schedulers start; a capture during
+    after another (a sharded replica's rung captures one graph a row
+    block of its slice). Call it before the schedulers start; a capture during
     traffic would be a rebuild, which the budget-1 ``RetraceGuard``
     refuses (and the router then breaks that replica).
 

@@ -7,11 +7,12 @@ chaos_storm.py``) on the CPU, held against the repository's
   ``--elastic`` included (a pure function of the arguments: no campaign
   runs).
 - The three single-host campaigns at the JAX script's tiny default, with
-  the JAX tests' arguments and assertions (``tests/test_chaos.py``), each
-  run once a module; each report carries every key the JAX campaign
-  writes (found by an AST scan of the script, no JAX campaign run).
-- ``--elastic`` exits naming its ROADMAP item, and a campaign whose
-  trainer raises leaves the fault plane disabled and empty (the
+  the JAX tests' arguments and assertions (``tests/test_chaos.py``), and
+  the ``--elastic`` campaign at its default, each run once a module; each
+  report carries every key the JAX campaign writes (found by an AST scan
+  of the script, no JAX campaign run).
+- ``--elastic`` runs its campaign from the command line, and a campaign
+  whose trainer raises leaves the fault plane disabled and empty (the
   ``--mesh`` campaign runs in ``test_torch_mesh.py``).
 
 Every test runs on a fresh fault plane, metrics registry, tracer and
@@ -151,6 +152,11 @@ def sebulba_report(fresh_globals, tmp_path_factory):
     )
 
 
+@pytest.fixture(scope="module")
+def elastic_report(fresh_globals):
+    return chaos_storm.run_elastic_campaign(device="cpu")
+
+
 def test_storm_campaign_zero_violations(storm_report):
     """JAX's ``test_chaos_storm_campaign_zero_violations``: 25 faults of
     every kind through trainer -> gate -> fleet, zero violations, finite
@@ -222,6 +228,27 @@ def test_sebulba_campaign_zero_violations(sebulba_report):
     assert report["deterministic"]["schedule"] == expected.record()
 
 
+def test_elastic_campaign_zero_violations(elastic_report):
+    """The JAX campaign's invariants at its default (seed 0, 9 faults, 6
+    rounds of 60 requests, the (8, 8) MLP at obs_dim 8): no request lost,
+    monotonic steps, budget-1 receipts on the final replica set, at least
+    2 re-splits committed, every armed fault fired."""
+    report = elastic_report
+    assert report["chaos_invariant_violations"] == 0, report.get(
+        "chaos_violations")
+    assert report["chaos_faults_fired"] == 9
+    assert report["chaos_faults_unfired"] == 0
+    assert report["elastic_resplits_committed"] >= 2
+    assert report["elastic_prewarm_compiles"] >= 1
+    assert report["requests_ok"] == report["requests_resolved"] > 0
+    assert set(report["compile_receipts"].values()) == {1}
+    expected = chaos_storm.build_schedule(
+        0, 9, point_names=chaos_storm.ELASTIC_POINTS)
+    assert report["deterministic"] == {
+        "chaos_seed": 0, "chaos_faults_armed": 9,
+        "schedule": expected.record()}
+
+
 def _jax_report_keys(function: str) -> set:
     """Every ``report["..."] = ...`` key of ``function`` in the JAX
     script, its early-exit ``error`` (a failed bootstrap) aside."""
@@ -244,6 +271,7 @@ def _jax_report_keys(function: str) -> set:
     ("run_campaign", "storm_report"),
     ("run_train_campaign", "train_report"),
     ("run_sebulba_campaign", "sebulba_report"),
+    ("run_elastic_campaign", "elastic_report"),
 ])
 def test_reports_carry_every_jax_key(function, fixture, request):
     keys = _jax_report_keys(function)
@@ -260,10 +288,27 @@ def test_reports_carry_every_jax_key(function, fixture, request):
 @pytest.mark.parametrize("flag, item", [
     ("--elastic", "A12 (serving/elastic)"),
 ])
-def test_unported_campaigns_exit_naming_their_items(flag, item):
-    with pytest.raises(SystemExit) as info:
-        chaos_storm.main([flag, "device=cpu"])
-    assert item in str(info.value)
+def test_unported_campaigns_exit_naming_their_items(flag, item, monkeypatch,
+                                                    capsys):
+    """Every campaign is ported: ``--elastic`` (A12's ``serving/elastic``,
+    its module named in its help) runs ``run_elastic_campaign`` with the
+    capped fault count on the asked-for device, prints its report and
+    exits by its violations."""
+    calls = []
+
+    def campaign(**kwargs):
+        calls.append(kwargs)
+        return {"chaos_invariant_violations": len(calls) - 1}
+
+    monkeypatch.setattr(chaos_storm, "run_elastic_campaign", campaign)
+    assert chaos_storm.main([flag, "device=cpu"]) == 0
+    assert calls[0]["faults"] == 9 and calls[0]["device"] == "cpu"
+    assert json.loads(capsys.readouterr().out.splitlines()[-1]) == {
+        "chaos_invariant_violations": 0}
+    assert chaos_storm.main([flag, "--device", "cpu"]) == 1
+    with pytest.raises(SystemExit):
+        chaos_storm.main(["--help"])
+    assert item.split()[1].strip("()") in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("campaign, cls", [

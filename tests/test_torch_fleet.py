@@ -611,17 +611,26 @@ def test_trace_id_reaches_the_batch_span():
 
 
 def test_fleet_refuses_the_unported_paths_and_the_missing_gpu(monkeypatch):
+    """What the fleet still refuses, in the JAX package's words: a sliced
+    replica or an elastic re-split over tenant lanes (the sharded replica
+    and the re-split themselves are served since A13's items 3-4,
+    ``test_torch_sharded.py`` and ``test_torch_elastic.py``), and no GPU
+    without ``devices=['cpu']``."""
+    from marl_distributedformation_tpu_torch.serving import ShardedSpec
+
     policy = _make_policy()
-    with pytest.raises(NotImplementedError, match="A13"):
-        FleetRouter(policy, devices=CPU, sharded=object())
-    router = _router(policy)
-    for call in (lambda: router.build_sharded_replica(None),
-                 lambda: router._commit_resplit([], set())):
-        with pytest.raises(NotImplementedError, match="A13"):
+    lanes = {"a": (policy.params, 0)}
+    with pytest.raises(ValueError, match="tenant lanes over the sharded"):
+        FleetRouter(policy, devices=CPU, sharded=ShardedSpec(), lanes=lanes)
+    router = _router(policy, lanes=lanes)
+    for call in (lambda: router.build_sharded_replica(ShardedSpec()),
+                 lambda: router.build_replica()):
+        with pytest.raises(ValueError, match="over tenant lanes"):
             call()
-    coordinator = FleetReloadCoordinator("unused", router)
-    with pytest.raises(NotImplementedError, match="A13"):
+    coordinator = FleetReloadCoordinator("unused", router, model_id="a")
+    with pytest.raises(ValueError, match="lane-keyed coordinator"):
         coordinator.commit_resplit()
+    coordinator = FleetReloadCoordinator("unused", _router(policy))
     # The cross-host two-phase commit is ported (serving/mesh): with no
     # round staged, commit and abort are no-ops that say so.
     assert coordinator.commit_prepared() is False

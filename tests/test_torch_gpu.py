@@ -1617,3 +1617,99 @@ def test_two_host_subprocess_mesh_on_one_card(cuda, tmp_path):
         assert set(receipts["host1"].values()) == {1.0}
     finally:
         mesh.stop()
+
+
+# -- the sharded big-rung slice: dp row blocks time-sharing cuda:0 ----------
+
+
+@pytest.mark.parametrize("kind", ["mlp", "gnn"])
+def test_sharded_row_blocks_on_one_card(cuda, kind):
+    """A ``{"dp": 2}`` slice on ``cuda:0``: each row block captures one
+    graph a rung on a stream of its own, each block's deterministic
+    actions equal the single engine's rung of ``b/2`` rows bitwise, the
+    whole rung is within serving's tolerance of the single engine's rung
+    ``b``, and captured equals the same slice run eagerly, bitwise."""
+    import numpy as np
+
+    from marl_distributedformation_tpu_torch.serving import (
+        BucketedPolicyEngine,
+        ShardedPolicyEngine,
+    )
+    from marl_distributedformation_tpu_torch.serving.sharded import (
+        make_slice,
+    )
+
+    policy, rows = _serving_policy(cuda, kind)
+    buckets = (64, 512)
+    mesh = make_slice({"dp": 2})
+    assert mesh.block_device(0) == mesh.block_device(1) == torch.device(
+        "cuda", 0)
+    sliced = ShardedPolicyEngine(policy, mesh, buckets=buckets)
+    eager = ShardedPolicyEngine(policy, mesh, buckets=buckets, capture=False)
+    single = BucketedPolicyEngine(policy, buckets=(32, 64, 256, 512))
+    streams = {b.stream.cuda_stream for b in sliced.row_blocks}
+    assert len(streams) == 2
+    for b in buckets:
+        got = sliced.act(rows[:b])
+        h = b // 2
+        for d in range(2):
+            assert np.array_equal(got[d * h:(d + 1) * h],
+                                  single.act(rows[d * h:(d + 1) * h])), (b, d)
+        np.testing.assert_allclose(got, single.act(rows[:b]), rtol=1e-5,
+                                   atol=1e-6)
+        assert np.array_equal(got, eager.act(rows[:b])), b
+    assert sliced.compile_counts() == dict.fromkeys(buckets, 1)
+    assert all(g.count == 1 for g in sliced.block_guards.values())
+    assert all(part.graph.graph is not None
+               for b in buckets for part in sliced.rung(b))
+
+
+def test_sharded_fleet_swap_lands_on_the_slice(cuda, tmp_path):
+    """R=1 plus a dp=2 slice on ``cuda:0``: a coordinated swap is placed on
+    the slice once and both replica kinds serve the new parameters, with no
+    second capture."""
+    import numpy as np
+
+    from marl_distributedformation_tpu_torch.compat.convert import (
+        params_to_jax,
+    )
+    from marl_distributedformation_tpu_torch.compat.policy import LoadedPolicy
+    from marl_distributedformation_tpu_torch.models import MLPActorCritic
+    from marl_distributedformation_tpu_torch.serving import (
+        BucketedPolicyEngine,
+        ShardedSpec,
+    )
+    from marl_distributedformation_tpu_torch.serving.fleet import (
+        FleetReloadCoordinator,
+        FleetRouter,
+        warmup_fleet,
+    )
+    from marl_distributedformation_tpu_torch.utils.checkpoint import (
+        save_checkpoint,
+    )
+
+    policy, rows = _serving_policy(cuda, "mlp")
+    newer = LoadedPolicy(MLPActorCritic(
+        8, generator=torch.Generator().manual_seed(1)).to(cuda).eval())
+    name = "MLPActorCritic"
+    save_checkpoint(tmp_path, 1, {"policy": name, "num_timesteps": 1,
+                                  "params": params_to_jax(policy.params, name)})
+    router = FleetRouter(policy, num_replicas=1, buckets=(1, 8, 64),
+                         window_ms=0.0, initial_step=1,
+                         sharded=ShardedSpec(axis_sizes={"dp": 2},
+                                             buckets=(64, 512)))
+    coordinator = FleetReloadCoordinator(tmp_path, router)
+    warmup_fleet(router, rows.shape[1:])
+    before = router.compile_counts()
+    with router:
+        save_checkpoint(tmp_path, 2, {
+            "policy": name, "num_timesteps": 2,
+            "params": params_to_jax(newer.params, name)})
+        assert coordinator.refresh(), list(coordinator.load_errors)
+        big = router.submit(rows[:512]).result(timeout=60)
+        small = router.submit(rows[:3]).result(timeout=60)
+    assert big.replica == router.sharded_replica.index
+    assert big.model_step == small.model_step == 2
+    want = BucketedPolicyEngine(newer, buckets=(512,)).act(rows[:512])
+    np.testing.assert_allclose(big.actions, want, rtol=1e-5, atol=1e-6)
+    assert router.compile_counts() == before

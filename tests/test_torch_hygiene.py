@@ -99,7 +99,9 @@ def test_sources_found():
             "serving/mesh/rpc.py", "serving/mesh/coordinator.py",
             "serving/mesh/agent.py", "serving/mesh/router.py",
             "serving/mesh/host.py", "serving/mesh/loopback.py",
-            "serving/mesh/smoke.py"} <= rel
+            "serving/mesh/smoke.py", "serving/sharded.py",
+            "serving/elastic/__init__.py", "serving/elastic/controller.py",
+            "weak_scaling.py"} <= rel
     assert (PORT / "csrc" / "knn.cu").exists()
 
 
@@ -145,7 +147,7 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked_for(monkeypatch):
                 model=MLPActorCritic(params.obs_dim))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_cli.main(["num_formation=2", "total_timesteps=10"])
-    for flag in ("--train", "--sebulba", "--mesh"):
+    for flag in ("--train", "--sebulba", "--mesh", "--elastic"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             chaos_storm.main([flag])
     assert resolve_device("cpu") == torch.device("cpu")
@@ -183,9 +185,6 @@ NOT_EXPORTED = {
     "obs": dict.fromkeys((
         "RegressionSentinel", "Watch", "default_watches", "ledger_watches",
         "load_bench_record", "recovery_watches"), "A14"),
-    "serving": dict.fromkeys((
-        "CapacityController", "CapacityDecision", "ShardedPolicyEngine",
-        "ShardedSpec"), "A13"),
     "train": {
         "fold_recovery_key": "train.fold_recovery_generator",
         "make_fused_chunk": "train.capture.PhaseGraph",
@@ -299,11 +298,7 @@ for build, needs in ((lambda: FormationRenderer(EnvParams()), "matplotlib"),
 
 # Injection points the port declares but no port code calls yet: the
 # module that calls each one is still to port, under its ROADMAP item.
-UNCALLED_SEAMS = {
-    "elastic.prewarm": "A12",  # serving/elastic/ (A13, re-splits devices)
-    "elastic.commit": "A12",
-    "elastic.retire": "A12",
-}
+UNCALLED_SEAMS: dict = {}
 
 # ``fault_point`` names that are no seam, and why.
 NOT_SEAMS = {

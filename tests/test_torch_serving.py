@@ -923,9 +923,26 @@ def test_serve_cli_needs_a_gpu_unless_cpu_is_asked_for(monkeypatch):
     ["--slo-p95-ms", "20"], ["--load-rps", "10"],
 ])
 def test_serve_cli_refuses_unported_flags_naming_a13(argv):
-    with pytest.raises(SystemExit, match="ROADMAP A13"):
-        serve_cli.main(["--init-policy", "MLPActorCritic", "--obs-dim", "8",
-                        "--smoke", "--device", "cpu", *argv])
+    """A13's twelve flags are served now (none is refused for being
+    unported): each parses to its value and shows in ``--help``; the
+    serving flags that need a fleet are refused without ``--fleet`` in the
+    JAX script's words. The benches run in ``test_torch_sharded.py`` and
+    ``test_torch_elastic.py``."""
+    base = ["--init-policy", "MLPActorCritic", "--obs-dim", "8", "--smoke",
+            "--device", "cpu"]
+    parser = serve_cli._parser()
+    args = parser.parse_args(base + argv)
+    flag = argv[0]
+    value = getattr(args, flag.lstrip("-").replace("-", "_"))
+    assert value is True or value == type(value)(argv[1])
+    assert flag in parser.format_help()
+    refusals = {"--sharded": "--sharded/--bf16 require --fleet",
+                "--bf16": "--sharded/--bf16 require --fleet",
+                "--record-trace": "--record-trace requires --fleet"}
+    if flag in refusals:
+        with pytest.raises(SystemExit) as info:
+            serve_cli.main(base + argv)
+        assert str(info.value) == refusals[flag]
 
 
 def test_serve_cli_serves_a_fleet(tmp_path, capsys):
