@@ -18,7 +18,9 @@ Phases (any failure exits non-zero):
    distances within 1 ulp. Then time the kernel (its device time under
    ``torch.profiler``, and back-to-back calls with CUDA events) and the
    plain version (CUDA events), with the SM clock, power and temperature
-   sampled before and after each kernel's window.
+   sampled before and after each kernel's window. Then a capture while a
+   graph owner is cyclic garbage: the collector is off inside it
+   (``capture_gc_check``).
 3. Drive the port's k-NN swarm evaluation at full width with a GNN from a
    seeded init: N=100, M=4096 for a full episode (1002 steps; the fused
    kernel must launch 1003 times), and N=1024, M=512 for 101 steps (the
@@ -287,6 +289,19 @@ Phases (any failure exits non-zero):
      gate's cells x 1003, counted by replay. Prints the promotion latency
      p50/p95, ``gate_eval_steps_per_sec``, the trainer's s/iteration
      beside ``gnn100``'s and the busy share of one profiled window.
+     It runs with ``sentinel=true`` against a bench record of this run's
+     own numbers, written to a temporary directory before it
+     (``gnn100``'s formation-steps/s, the gauge's definition; ``fleet100``'s
+     R=2 p95; ``gnn100``'s largest capture and memory peak; the card's
+     name and power limit; ``"skipped"`` for what nothing measured
+     before): its report carries every ``sentinel_*`` key, the record is
+     used (``platform: "gpu"``, the card's name) and checked at least
+     once; its trips are printed with their live and recorded values and
+     not gated (the trainer shares the card). Then two sentinels on the
+     registry ``always100`` filled: a record at 10x its live training
+     rate trips exactly once in ``trip_after`` checks, with one audit line
+     and one ``flightrec-perf_regression-*.json``, and stays latched on a
+     further check; one at 0.1x never trips. One ``[sentinel]`` line.
    - ``tenants100``: a ``TenantFleet`` at R=1 on ``cuda:0`` over
      ``gnn100``'s, ``scen100``'s and ``chase100``'s checkpoints (one GNN
      signature, one group) and the committed MLP (a second group): one
@@ -400,6 +415,9 @@ Phases (any failure exits non-zero):
    "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero with no result when no GPU is found.
+If the run is still going 1150 s after its start, or ``always100`` runs
+past 300 s, ``faulthandler`` dumps every thread's stack to stderr (the run
+goes on).
 """
 
 from __future__ import annotations
@@ -426,6 +444,38 @@ TOL_ULP = 1
 
 
 START = time.perf_counter()
+# Every thread's stack is dumped to stderr this long after the start, short
+# of the 1200 s limit, so a hang leaves its stacks; a phase that can wedge
+# (always100) arms a nearer dump around itself (``hang_dump``).
+HANG_DUMP_S = 1150.0
+
+
+def arm_hang_dump(after_s: float) -> None:
+    """Dump every thread's stack to stderr ``after_s`` from now (no later
+    than ``HANG_DUMP_S`` after the start), replacing the armed dump."""
+    import faulthandler
+
+    left = HANG_DUMP_S - (time.perf_counter() - START)
+    faulthandler.dump_traceback_later(max(min(after_s, left), 1.0),
+                                      exit=False, file=sys.stderr)
+
+
+class hang_dump:
+    """``with hang_dump(label, s):`` dumps every thread's stack if the block
+    runs past ``s`` seconds, then re-arms the whole run's dump."""
+
+    def __init__(self, label: str, after_s: float) -> None:
+        self.label, self.after_s = label, after_s
+
+    def __enter__(self):
+        print(f"[hang] {self.label}: every thread's stack goes to stderr "
+              f"if it runs past {self.after_s:.0f} s", file=sys.stderr)
+        arm_hang_dump(self.after_s)
+        return self
+
+    def __exit__(self, *exc):
+        arm_hang_dump(HANG_DUMP_S)
+        return False
 
 
 def elapsed(label: str) -> None:
@@ -1140,10 +1190,73 @@ def epoch_window(trainer):
     return window
 
 
+def capture_gc_check():
+    """A graph owner left as cyclic garbage while another owner captures:
+    the collector is off inside the capture, where freeing the owner would
+    reset its CUDAGraph on the capturing thread and fail the capture (it
+    failed ``smoke_profile64``'s once). The collector is made eager
+    (threshold 1) around the check, and the garbage must be gone after."""
+    import gc
+    import weakref
+
+    import torch
+
+    from marl_distributedformation_tpu_torch.train.capture import (
+        PhaseGraph,
+        own_stream,
+    )
+
+    x = torch.zeros(64, device="cuda")
+
+    class Owner:
+        pass
+
+    def victim():
+        owner = Owner()
+        owner.cycle = owner
+        owner.graph = PhaseGraph("gc_victim", lambda: x.add_(1),
+                                 stream=own_stream(owner, "cuda"))
+        owner.graph()  # the warm-up
+        owner.graph()  # the capture
+        return weakref.ref(owner)
+
+    seen = []
+
+    def fn():
+        seen.append(gc.isenabled())
+        junk = [[i] for i in range(1000)]  # allocations that collect
+        x.mul_(len(junk) // 1000)
+
+    holder = Owner()
+    graph = PhaseGraph("gc_probe", fn, stream=own_stream(holder, "cuda"))
+    thresholds = gc.get_threshold()
+    gc.collect()
+    gone = victim()
+    gc.set_threshold(1, 1, 1)
+    try:
+        graph()  # the warm-up
+        graph()  # the capture
+        graph()  # a replay
+    finally:
+        gc.set_threshold(*thresholds)
+    gc.collect()
+    torch.cuda.synchronize()
+    if seen != [True, False] or gone() is not None or graph.graph is None:
+        raise AssertionError(
+            f"capture_gc: the collector on in fn {seen}, want [True, "
+            f"False]; the victim collected after: {gone() is None}")
+    print("[capture] a graph owner left as cyclic garbage with the "
+          "collector at threshold 1: another owner's capture ran with the "
+          "collector off and succeeded; the garbage went at the next "
+          "collection")
+
+
 def train_phase():
     """Phase 5; returns the training paths' launch counts and the captured
     ``gnn100`` run's rewards and s/iteration (phase 6 sets them beside its
     population's)."""
+    import torch
+
     from marl_distributedformation_tpu_torch import evaluate as evaluate_cli
     from marl_distributedformation_tpu_torch.train import cli
     from marl_distributedformation_tpu_torch.utils.checkpoint import (
@@ -1155,10 +1268,19 @@ def train_phase():
         "smoke_gnn100", GNN100 + ("fused_chunk=10",),
         "gnn100 M=1024 N=100 fused_chunk=10",
         before_train=lambda t: kept.update(params=keep_params(t, (1, 2, 3))))
-    # Phase 16 holds dp100x1 and dp100x2 against these.
+    # Phase 16 holds dp100x1 and dp100x2 against these; phase 14's bench
+    # record takes the rate (the train_env_steps_per_sec gauge's
+    # formation-steps/s), the largest capture and the memory peak.
     gnn100 = {"rewards": rewards, "s_iter": captured_s,
               "model": trainer.model, "params_at": kept["params"],
-              "ckpt": latest_checkpoint(trainer.log_dir)}
+              "ckpt": latest_checkpoint(trainer.log_dir),
+              "env_steps_per_sec": (trainer.ppo.n_steps
+                                    * trainer.config.num_formations
+                                    / captured_s),
+              "capture_s_max": max(g["capture_s"]
+                                   for g in trainer.graph_stats()
+                                   if g["capture_s"] is not None),
+              "watermark_bytes": torch.cuda.max_memory_allocated()}
     want = 1 + len(rewards) * trainer.ppo.n_steps
     if got != {"knn_fused": want, "knn_tiled": 0}:
         raise AssertionError(f"gnn100 launches {got}, want fused {want}")
@@ -4251,7 +4373,7 @@ def fleet_phase(gnn100_ckpt, scen100_ckpt, single=None):
     http_failures(policy, rows)
     elapsed("fleet watchdog and frontend failures")
     guards_run()
-    return launches, reports[2]["requests_per_sec_fleet"]
+    return launches, reports[2]
 
 
 # Phase 14: the always-learning pipeline and tenant lanes on one card.
@@ -4301,14 +4423,16 @@ def write_nan_candidate(source, step):
     return path
 
 
-def always100(gnn100, rows):
+def always100(gnn100, rows, bench=None):
     """``always100``: the port's ``always_learning`` in-process on
     ``cuda:0`` (``ALWAYS100``), one NaN candidate written after the second
     checkpoint, a forced regression once the fleet serves two good
     checkpoints, and 2 clients sending 1-100 formations of ``rows``
-    through the router from the fleet's start to the training's end.
-    Returns the ``knn_fused`` launches of the run, the trainer's and the
-    gate's each counted on its own (``knn_cuda.counted_for``)."""
+    through the router from the fleet's start to the training's end;
+    with ``bench`` (``(path, record)`` of a bench record) the regression
+    sentinel runs against it (``sentinel_phase``). Returns the
+    ``knn_fused`` launches of the run, the trainer's and the gate's each
+    counted on its own (``knn_cuda.counted_for``)."""
     import shutil
     import threading
 
@@ -4341,8 +4465,10 @@ def always100(gnn100, rows):
     ctx = {"nan": None, "seen": 0, "written": set(), "forced": False,
            "steps": [],
            "outcomes": [], "share": None}
-    previous = set_registry(MetricsRegistry()), set_ledger(
-        ProgramLedger(enabled=True))
+    registry, ledger = MetricsRegistry(), ProgramLedger(enabled=True)
+    previous = set_registry(registry), set_ledger(ledger)
+    sentinel_keys = () if bench is None else (
+        "sentinel=true", f"sentinel_bench={bench[0]}")
 
     # Each owner's launches, counted where they are made: the trainer's
     # thread (its dispatches), the gate's evaluations (on this thread), and
@@ -4455,7 +4581,8 @@ def always100(gnn100, rows):
     try:
         with knn_cuda.counted_for(owned["main"]):
             report = always_learning.main(
-                [f"name={name}", "device=cuda", *ALWAYS100],
+                [f"name={name}", "device=cuda", *ALWAYS100,
+                 *sentinel_keys],
                 on_trainer=on_trainer, on_fleet=on_fleet)
     finally:
         set_registry(previous[0])
@@ -4569,7 +4696,129 @@ def always100(gnn100, rows):
           f"{iterations} x {trainer.ppo.n_steps}), the gate "
           f"{counts['gate']} (want {pipeline.gate.cells_evaluated} cells x "
           f"{T + 1}), none elsewhere")
+    if bench is not None:
+        sentinel_phase(report, registry, ledger, Path(trainer.log_dir),
+                       bench)
     return counts
+
+
+SENTINEL_KEYS = ("sentinel_checks", "sentinel_trips", "sentinel_missing",
+                 "sentinel_never_observed", "sentinel_bench_record")
+
+
+def write_bench_record(gnn100, card, fleet_p95_ms):
+    """A bench record of this run's own numbers, in a temporary directory:
+    ``gnn100``'s formation-steps/s (the ``train_env_steps_per_sec``
+    gauge's definition), its largest capture and memory peak,
+    ``fleet100``'s R=2 p95, the card's name and power limit; ``"skipped"``
+    for the sentinel's fields nothing measured before phase 14. Returns
+    ``(path, record)``."""
+    import tempfile
+
+    name, power_limit = (part.strip() for part in card.split(",", 1))
+    record = {
+        "platform": "gpu", "device": name, "power_limit": power_limit,
+        "source": "chip_smoke.py phases 5 and 13 of this run",
+        "train_env_steps_per_sec": gnn100["env_steps_per_sec"],
+        "serving_fleet_p95_ms": fleet_p95_ms,
+        "ledger_compile_seconds_max": gnn100["capture_s_max"],
+        "device_memory_watermark_bytes": gnn100["watermark_bytes"],
+        "gate_eval_steps_per_sec": "skipped",
+        "recovery_mttr_s": "skipped",
+    }
+    path = Path(tempfile.mkdtemp(prefix="smoke_bench_")) / "BENCH_smoke.json"
+    path.write_text(json.dumps(record))
+    return path, record
+
+
+def planted_sentinel(live, factor, workdir, snapshot):
+    """A sentinel on ``live`` train rate x ``factor`` (a record of this
+    card), checked ``trip_after`` times and once more; returns ``(trips by
+    check, audit lines, flight records)``."""
+    import torch
+
+    from marl_distributedformation_tpu_torch.obs import (
+        FlightRecorder,
+        MetricsRegistry,
+        RegressionSentinel,
+        Tracer,
+        default_watches,
+    )
+
+    workdir.mkdir(parents=True, exist_ok=True)
+    sentinel = RegressionSentinel(
+        default_watches(),
+        record={"platform": "gpu", "device": torch.cuda.get_device_name(0),
+                "train_env_steps_per_sec": live * factor},
+        trip_after=3, audit_dir=workdir, registry=MetricsRegistry(),
+        tracer=Tracer(flightrec=FlightRecorder(workdir)),
+        device="cuda", device_kind=torch.cuda.get_device_name(0))
+    trips = [len(sentinel.check(dict(snapshot)))
+             for _ in range(sentinel.trip_after + 1)]
+    audit = workdir / RegressionSentinel.AUDIT_NAME
+    lines = audit.read_text().splitlines() if audit.exists() else []
+    dumps = sorted(workdir.glob("flightrec-perf_regression-*.json"))
+    return trips, lines, dumps
+
+
+def sentinel_phase(report, registry, ledger, log_dir, bench):
+    """The regression sentinel inside ``always100`` (its report's
+    ``sentinel_*`` keys, against this run's record ``bench``), then two
+    planted records on the registry ``always100`` filled: 10x its live
+    training rate trips exactly once and stays latched, 0.1x never
+    trips."""
+    path, record = bench
+    problems = [f"report lacks {k}" for k in SENTINEL_KEYS
+                if k not in report]
+    missing = report.get("sentinel_missing", {})
+    if report.get("sentinel_checks", 0) < 1:
+        problems.append(f"sentinel_checks {report.get('sentinel_checks')}")
+    if report.get("sentinel_bench_record") != str(path):
+        problems.append(f"sentinel_bench_record "
+                        f"{report.get('sentinel_bench_record')}, want {path}")
+    if "train_env_steps_per_sec" in missing:
+        problems.append(f"the record was not used: {missing}")
+    audit = log_dir / "perf_incidents.jsonl"
+    trips = ([json.loads(x) for x in audit.read_text().splitlines()]
+             if audit.exists() else [])
+    if len(trips) != report.get("sentinel_trips"):
+        problems.append(f"{len(trips)} audit lines for "
+                        f"{report.get('sentinel_trips')} trips")
+    snapshot = {**registry.snapshot(), **ledger.snapshot()}
+    live = snapshot.get("train_env_steps_per_sec")
+    planted = {}
+    if not live:
+        problems.append(f"no live train_env_steps_per_sec: {live}")
+    else:
+        for factor in (10.0, 0.1):
+            planted[factor] = planted_sentinel(
+                live, factor, log_dir / f"sentinel_x{factor:g}", snapshot)
+        trips10, lines10, dumps10 = planted[10.0]
+        if trips10 != [0, 0, 1, 0] or len(lines10) != 1 or len(dumps10) != 1:
+            problems.append(f"10x record: trips by check {trips10}, "
+                            f"{len(lines10)} audit lines, {len(dumps10)} "
+                            "flight records; want [0, 0, 1, 0], 1, 1")
+        trips01, lines01, dumps01 = planted[0.1]
+        if any(trips01) or lines01 or dumps01:
+            problems.append(f"0.1x record tripped: {trips01}")
+    if problems:
+        raise AssertionError("sentinel: " + "; ".join(problems))
+    print(f"[sentinel] {record['device']}, {record['power_limit']}: "
+          f"always100 checked {report['sentinel_checks']} times against "
+          f"this run's record {path.name} (train "
+          f"{record['train_env_steps_per_sec']:.1f} formation-steps/s, "
+          f"fleet R=2 p95 {record['serving_fleet_p95_ms']:.3f} ms, capture "
+          f"max {record['ledger_compile_seconds_max']:.3f} s, peak "
+          f"{record['device_memory_watermark_bytes'] / 2**30:.2f} GiB); "
+          f"{report['sentinel_trips']} trips (not gated: the trainer "
+          "shares the card)"
+          + "".join(f"; {t['gauge']} live {t['live']:.4g} against recorded "
+                    f"{t['recorded']:.4g} (limit {t['limit']:.4g})"
+                    for t in trips)
+          + f"; missing {sorted(missing)}; never observed "
+          f"{report['sentinel_never_observed']}; planted on the live "
+          f"{live:.1f}: 10x trips by check {planted[10.0][0]} with 1 audit "
+          f"line and 1 flight record, 0.1x {planted[0.1][0]}")
 
 
 def pursuit_rows(m=1024):
@@ -4722,15 +4971,20 @@ def tenants100(gnn100_ckpt, scen100_ckpt, chase100_ckpt, rows):
     return p_launches
 
 
-def pipeline_phase(gnn100, scen100_ckpt):
-    """Phase 14: ``always100`` and ``tenants100``. Returns the launches of
-    each path."""
+def pipeline_phase(gnn100, scen100_ckpt, card, fleet_p95_ms):
+    """Phase 14: ``always100`` with the regression sentinel against a
+    record of this run (``card``: ``nvidia-smi``'s name and power limit;
+    ``fleet_p95_ms``: phase 13's R=2 p95), and ``tenants100``. Returns
+    the launches of each path."""
     from marl_distributedformation_tpu_torch.utils.checkpoint import (
         latest_checkpoint,
     )
 
     rows, row_launches = serve_rows()
-    always = always100(gnn100, rows)
+    bench = write_bench_record(gnn100, card, fleet_p95_ms)
+    # always100 hung once (no stack): its budget is 240 s.
+    with hang_dump("always100", 300.0):
+        always = always100(gnn100, rows, bench=bench)
     elapsed("always100")
     chase100_ckpt = latest_checkpoint(ROOT / "logs" / "smoke_chase100")
     tenant_launches = tenants100(gnn100["ckpt"], scen100_ckpt,
@@ -6144,6 +6398,7 @@ def main() -> int:
     from marl_distributedformation_tpu_torch.models import GNNActorCritic
     from marl_distributedformation_tpu_torch.ops import _build, knn_cuda
 
+    arm_hang_dump(HANG_DUMP_S)
     dev = resolve_device("cuda")
     card = card_line()
     print(card)
@@ -6188,6 +6443,7 @@ def main() -> int:
             stats.setdefault(name, {})[path] = done[shape]
 
     elapsed("phase 2, kernels")
+    capture_gc_check()
 
     # Phase 3: the k-NN swarm evaluation at full width.
     gen = torch.Generator().manual_seed(0)
@@ -6261,13 +6517,16 @@ def main() -> int:
 
     # Phase 13: the serving fleet, the watchdog and the runtime guards,
     # this slice's main paths.
-    fleet_launches, fleet_rate = fleet_phase(gnn100["ckpt"], scen100_ckpt,
-                                             serve_smoke)
+    fleet_launches, fleet_r2 = fleet_phase(gnn100["ckpt"], scen100_ckpt,
+                                           serve_smoke)
+    fleet_rate = fleet_r2["requests_per_sec_fleet"]
     elapsed("phase 13, fleet, watchdog, guards")
 
-    # Phase 14: the always-learning pipeline and tenant lanes, this
-    # slice's main paths.
-    pipeline_launches = pipeline_phase(gnn100, scen100_ckpt)
+    # Phase 14: the always-learning pipeline (with the regression sentinel
+    # against this run's own record) and tenant lanes, this slice's main
+    # paths.
+    pipeline_launches = pipeline_phase(gnn100, scen100_ckpt, card,
+                                       fleet_r2["latency_p95_ms"])
     elapsed("phase 14, always-learning pipeline, tenant lanes")
 
     # Phase 15: the chaos storm, this slice's main path.

@@ -32,7 +32,10 @@ the tools); and the always-learning pipeline:
 - ``pipeline``  — train -> gate -> promote -> fleet -> rollback in one
                   process; ``always_learning`` is its CLI
 - ``chaos``     — fault seams, invariant checkers, the lane watchdog
-- ``obs``       — tracer, flight recorder, metrics registry, program ledger
+- ``obs``       — tracer, flight recorder, metrics registry, program
+                  ledger, regression sentinel
+- ``analysis``  — the build and runtime guards, and graftlint: the static
+                  linter of captured scopes (``python -m ...analysis``)
 - ``compat``    — ``FormationVecEnv`` (the reference's SB3 VecEnv contract),
                   the Gymnasium adapters, the renderer, SB3 checkpoint
                   import and export, ``LoadedPolicy``, and parameters to and
@@ -47,15 +50,25 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``device.resolve_device``); with no GPU they raise. Nothing here imports
 ``gymnasium`` or ``matplotlib`` unless a Gymnasium adapter, the renderer or
 a tool's display path is used.
+
+The env's names below load on first use, so that importing a subpackage
+that needs no torch (``analysis``, the linter's CLI) imports none.
 """
 
 __version__ = "0.1.0"
 
-from marl_distributedformation_tpu_torch.env import (  # noqa: F401
-    EnvParams,
-    FormationState,
-    Transition,
-    make_vec_env,
-    reset,
-    step,
-)
+_ENV_EXPORTS = ("EnvParams", "FormationState", "Transition", "make_vec_env",
+                "reset", "step")
+
+
+def __getattr__(name):
+    if name in _ENV_EXPORTS:
+        from marl_distributedformation_tpu_torch import env
+
+        return getattr(env, name)
+    raise AttributeError(
+        f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted({*globals(), *_ENV_EXPORTS})

@@ -33,8 +33,9 @@ subprocesses on the trainer's device behind the ``MetaRouter``, the
 ``MeshCoordinator`` driving every promotion as a coordinator-barriered
 global commit (``mesh_heartbeat_s``, ``mesh_lease_s``,
 ``mesh_dead_after_s``, ``mesh_prepare_timeout_s``; ``mesh_port`` starts
-the ``MeshFrontend``). Keys of parts not ported yet exit naming their
-ROADMAP item: ``sentinel*`` (A14). ``guard_transfers`` is refused,
+the ``MeshFrontend``). ``sentinel=true`` checks the live gauges against a
+bench record of this device (``sentinel_bench``; ``obs/sentinel.py``) at
+every supervision poll. ``guard_transfers`` is refused,
 as Sebulba refuses it: the CUDA sync debug mode is the process's, and the
 gate's and the fleet's threads synchronize.
 
@@ -117,7 +118,7 @@ PIPELINE_KEYS = (
     # program ledger (obs/ledger.py)
     "ledger",
     "ledger_reservoir",
-    # perf-regression sentinel (not ported: ROADMAP A14)
+    # perf-regression sentinel (obs/sentinel.py)
     "sentinel",
     "sentinel_tolerance",
     "sentinel_trip_after",
@@ -136,10 +137,7 @@ TRAIN_EXTRA_KEYS = (
     "max_param_staleness",
 )
 # Pipeline keys of parts not ported yet, and the ROADMAP item of each.
-UNPORTED_PREFIXES = {
-    "sentinel": "A14 (the perf-regression sentinel, after the port's "
-                "benchmark)",
-}
+UNPORTED_PREFIXES: Dict[str, str] = {}
 
 
 def _key(override: str) -> str:
@@ -333,6 +331,36 @@ def main(
         telemetry_url = telemetry.url
         print(f"[always] telemetry: {telemetry.url}", file=sys.stderr)
 
+    # Perf-regression sentinel (obs/sentinel.py): live gauges against a
+    # bench record of this device; a sustained regression dumps a
+    # flightrec-perf_regression-*.json and an audit line beside the
+    # checkpoints.
+    sentinel = None
+    if bool(cfg.get("sentinel", False)):
+        if not bool(cfg.get("telemetry", True)):
+            # The sentinel compares LIVE registry gauges; with the registry
+            # disabled every snapshot is empty and the tripwire is blind.
+            raise SystemExit(
+                "sentinel=true needs telemetry=true (the sentinel "
+                "watches the live MetricsRegistry gauges; a disabled "
+                "registry records nothing, so no regression could "
+                "ever trip)"
+            )
+        sentinel_tol = float(cfg.get("sentinel_tolerance", 0.5))
+        sentinel = obs_spine.RegressionSentinel(
+            obs_spine.default_watches(tolerance=sentinel_tol)
+            # A record without the ledger or recovery fields reports them
+            # as sentinel_missing, never a breach.
+            + obs_spine.ledger_watches(tolerance=sentinel_tol)
+            + obs_spine.recovery_watches(),
+            record_path=cfg.get("sentinel_bench"),
+            trip_after=int(cfg.get("sentinel_trip_after", 3)),
+            audit_dir=trainer.log_dir,
+            device=str(device),
+            device_kind=(torch.cuda.get_device_name(device)
+                         if device.type == "cuda" else None),
+        )
+
     budget_s = float(cfg.get("pipeline_budget_s", 600.0))
     deadline = time.time() + budget_s
     if sebulba:
@@ -514,6 +542,11 @@ def main(
         while time.time() < deadline:
             pipeline.heartbeat.beat()
             processed = pipeline.poll_once()
+            if sentinel is not None:
+                # The router's snapshot publishes the fleet's gauges, so
+                # the latency watch sees live numbers.
+                router.snapshot()
+                sentinel.check()
             if not train_thread.is_alive() and processed == 0:
                 # train() returning drained the async writer, but its last
                 # checkpoint may have landed after this poll: one more.
@@ -537,6 +570,8 @@ def main(
             served_steps.append(int(res.model_step))
 
         report.update(pipeline.summary())
+        if sentinel is not None:
+            report.update(sentinel.summary())
         if telemetry_url is not None:
             report["telemetry_url"] = telemetry_url
         report["pipeline_replicas"] = replicas

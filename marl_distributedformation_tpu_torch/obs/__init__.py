@@ -19,10 +19,13 @@ Counterpart of the JAX package's ``obs/``:
   schema.
 - :mod:`~.export` — Chrome trace-event JSON and Prometheus text
   exposition, byte-equal to the JAX package's for the same snapshot.
+- :class:`~.sentinel.RegressionSentinel` — compares live registry gauges
+  against a bench record of this device with a tolerance band and trip
+  hysteresis; sustained degradation dumps a
+  ``flightrec-perf_regression-*.json`` and an audit line. A record of
+  another device (a TPU's, a CPU's on the card) is not used.
 
-The regression sentinel is not ported: it reads the port's own
-benchmark record, which does not exist yet (ROADMAP A14). Imports
-nothing but the standard library.
+Imports nothing but the standard library.
 """
 
 from marl_distributedformation_tpu_torch.obs.export import (
@@ -49,6 +52,14 @@ from marl_distributedformation_tpu_torch.obs.metrics import (
     get_registry,
     set_registry,
 )
+from marl_distributedformation_tpu_torch.obs.sentinel import (
+    RegressionSentinel,
+    Watch,
+    default_watches,
+    ledger_watches,
+    load_bench_record,
+    recovery_watches,
+)
 from marl_distributedformation_tpu_torch.obs.tracer import (
     TRACE_HEADER,
     Event,
@@ -68,22 +79,28 @@ __all__ = [
     "PROMETHEUS_CONTENT_TYPE",
     "ProgramLedger",
     "ProgramRecord",
+    "RegressionSentinel",
     "Span",
     "TRACE_HEADER",
     "TelemetryServer",
     "Tracer",
+    "Watch",
     "chrome_trace",
     "configure",
     "configure_ledger",
     "configure_metrics",
+    "default_watches",
     "escape_label_value",
     "get_ledger",
     "get_registry",
     "get_tracer",
+    "ledger_watches",
+    "load_bench_record",
     "load_census",
     "merge_ledger_snapshot",
     "new_trace_id",
     "prometheus_exposition",
+    "recovery_watches",
     "sanitize_trace_id",
     "set_ledger",
     "set_registry",

@@ -317,7 +317,12 @@ def run_mesh_smoke(
                         finally:
                             hold.release()
                             held_s += time.perf_counter() - t_hold
-                    next_swap = time.perf_counter() + swap_every
+                    # The next swap keeps its place on the load phase's
+                    # timeline: a swap held up by aborted rounds (the
+                    # killed host still in them) must not push the rest
+                    # past the window.
+                    next_swap = (t0 + held_s
+                                 + (len(swap_latencies) + 1) * swap_every)
                 else:
                     # A round aborted (a host died under it): the same
                     # checkpoint again shortly, once the dead host is out

@@ -52,7 +52,10 @@ emptied); otherwise emptying it would at most double the room, at the
 price of that wait (a capture failed with ``CUBLAS_STATUS_EXECUTION_FAILED``
 when the cache was emptied without it). Captures take one lock, one at a
 time in the process, so the cache is never emptied under another
-thread's capture.
+thread's capture. The cyclic garbage collector is off during a capture
+(``torch.cuda.graph`` collects before it instead, at a cost a capture):
+a graph of a dropped owner that it frees there would reset on the
+capturing thread and fail the capture.
 
 A phase named with a ``subsystem`` and a ``program`` is a program of the
 ledger (``obs/ledger.py``): it registers at its build (the capture, with
@@ -64,6 +67,7 @@ dispatch. None of this happens inside the captured region.
 from __future__ import annotations
 
 import ctypes
+import gc
 import threading
 import time
 import weakref
@@ -285,6 +289,13 @@ class PhaseGraph:
                 torch.cuda.synchronize()
                 torch.cuda.empty_cache()
             self.stream.wait_stream(torch.cuda.current_stream())
+            # No cyclic collection during the capture: a collected graph
+            # owner's CUDAGraph resets on this thread, which the capture
+            # does not allow, and the capture fails (the smoke's
+            # smoke_profile64, after earlier trainers' graphs became
+            # garbage). torch.cuda.graph runs gc.collect() first instead.
+            collecting = gc.isenabled()
+            gc.disable()
             try:
                 with torch.cuda.stream(self.stream):
                     graph.capture_begin(capture_error_mode="thread_local")
@@ -293,6 +304,8 @@ class PhaseGraph:
                     finally:
                         graph.capture_end()
             finally:
+                if collecting:
+                    gc.enable()
                 self.launches = knn_cuda.end_capture_tally()
             self.capture_s = time.perf_counter() - t0
         self.nodes = graph_nodes(graph)

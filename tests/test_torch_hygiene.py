@@ -101,7 +101,11 @@ def test_sources_found():
             "serving/mesh/host.py", "serving/mesh/loopback.py",
             "serving/mesh/smoke.py", "serving/sharded.py",
             "serving/elastic/__init__.py", "serving/elastic/controller.py",
-            "weak_scaling.py"} <= rel
+            "weak_scaling.py", "obs/sentinel.py", "analysis/config.py",
+            "analysis/linter.py", "analysis/callgraph.py",
+            "analysis/__main__.py", "analysis/rules/__init__.py",
+            "analysis/rules/graftlock.py", "analysis/rules/host_sync.py",
+            "analysis/rules/prng.py"} <= rel
     assert (PORT / "csrc" / "knn.cu").exists()
 
 
@@ -176,15 +180,8 @@ JAX = ROOT / "marl_distributedformation_tpu"
 # A JAX export the port does not export: its counterpart (a dotted path in
 # the port) or the open ROADMAP item that ports it.
 NOT_EXPORTED = {
-    # The static linter.
-    "analysis": dict.fromkeys((
-        "GraftlintConfig", "Violation", "lint_paths", "lint_source",
-        "load_config"), "A14"),
     "compat": {"sb3_state_dict_to_flax": "compat.sb3_state_dict_to_torch"},
     "env": {"tree_select": "env.formation._where"},
-    "obs": dict.fromkeys((
-        "RegressionSentinel", "Watch", "default_watches", "ledger_watches",
-        "load_bench_record", "recovery_watches"), "A14"),
     "train": {
         "fold_recovery_key": "train.fold_recovery_generator",
         "make_fused_chunk": "train.capture.PhaseGraph",
@@ -403,6 +400,63 @@ def test_a_capturing_phase_graph_needs_its_owners_stream():
     eager = PhaseGraph("rollout", lambda: None, capture=False)
     eager()
     assert eager.calls == 1 and eager.stream is None
+
+
+def test_a_capture_holds_off_the_cyclic_collector(monkeypatch):
+    """A graph owner that became cyclic garbage must not be collected
+    during another owner's capture: its CUDAGraph would reset on the
+    capturing thread and fail the capture (on the card). The capture runs
+    with the collector off, and turns it back on, also when ``fn``
+    raises; the CUDA calls are stood in for here."""
+    import contextlib
+    import gc
+
+    from marl_distributedformation_tpu_torch.train import capture
+
+    class FakeGraph:
+        def __init__(self, **kwargs):
+            self.captures = 0
+
+        def register_generator_state(self, gen):
+            pass
+
+        def capture_begin(self, **kwargs):
+            self.captures += 1
+
+        def capture_end(self):
+            pass
+
+        def instantiate(self):
+            pass
+
+    class FakeStream:
+        device = "cuda:0"
+
+        def wait_stream(self, other):
+            pass
+
+    cuda = torch.cuda
+    monkeypatch.setattr(cuda, "CUDAGraph", FakeGraph)
+    monkeypatch.setattr(cuda, "mem_get_info", lambda dev: (1, 1))
+    monkeypatch.setattr(cuda, "memory_reserved", lambda dev: 0)
+    monkeypatch.setattr(cuda, "memory_allocated", lambda dev: 0)
+    monkeypatch.setattr(cuda, "current_stream", lambda: FakeStream())
+    monkeypatch.setattr(cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(capture, "graph_nodes", lambda graph: 0)
+    seen = []
+
+    def fn():
+        seen.append(gc.isenabled())
+
+    def broken():
+        seen.append(gc.isenabled())
+        raise RuntimeError("capture failed")
+
+    assert gc.isenabled()
+    capture.PhaseGraph("p", fn, stream=FakeStream())._capture()
+    with pytest.raises(RuntimeError, match="capture failed"):
+        capture.PhaseGraph("q", broken, stream=FakeStream())._capture()
+    assert seen == [False, False] and gc.isenabled()
 
 
 def test_launch_counts_go_to_each_owner_on_its_thread(monkeypatch):

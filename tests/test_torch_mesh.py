@@ -978,3 +978,71 @@ def test_mesh_needs_a_gpu_unless_cpu_is_asked_for(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_inprocess_host(tmp_path, "http://127.0.0.1:1", "h0",
                              obs_dim=OBS_DIM)
+
+
+def test_mesh_smoke_swaps_keep_their_timeline(tmp_path, monkeypatch):
+    """A swap held up by aborted rounds (the killed host still in them)
+    must not push the remaining swaps past the load window: on a fake mesh
+    whose rounds abort for 0.6 s after the kill, all 3 swaps land inside
+    the 2 s window, the late one and the next back to back."""
+    from types import SimpleNamespace
+
+    from marl_distributedformation_tpu_torch.env import EnvParams
+    from marl_distributedformation_tpu_torch.serving.mesh import smoke
+    from marl_distributedformation_tpu_torch.utils.checkpoint import (
+        checkpoint_step,
+    )
+
+    src = tmp_path / "rl_model_100_steps.msgpack"
+    src.write_bytes(b"params")
+
+    class Coordinator:
+        commit_round = 0
+        fleet_step = 100
+        killed_at = None
+
+        def global_reload(self, path):
+            self.commit_round += 1
+            if (self.killed_at is not None
+                    and time.perf_counter() < self.killed_at + 0.6):
+                return False
+            self.fleet_step = checkpoint_step(path)
+            return True
+
+        def routable_hosts(self):
+            return []
+
+    coordinator = Coordinator()
+
+    class Router:
+        def predict(self, obs, timeout_s):
+            time.sleep(0.01)
+            return SimpleNamespace(model_step=coordinator.fleet_step)
+
+        def host_compile_counts(self):
+            return {}
+
+    class Mesh:
+        hosts = [SimpleNamespace(info={}), SimpleNamespace(info={})]
+        router = Router()
+
+        def __init__(self):
+            self.coordinator = coordinator
+
+        def kill_host(self, index):
+            coordinator.killed_at = time.perf_counter()
+            return f"host{index}"
+
+        def stop(self):
+            pass
+
+    monkeypatch.setattr(smoke, "spawn_local_mesh", lambda *a, **k: Mesh())
+    env = EnvParams(num_agents=3)
+    report = smoke.run_mesh_smoke(
+        tmp_path / "work", hosts=2, duration_s=2.0, swaps=3, clients=1,
+        device="cpu", checkpoints=[src], env_params=env,
+        rows=np.zeros((1, env.obs_dim), np.float32))
+    assert report["mesh_host_killed"] == "host0"
+    assert report["mesh_aborted_rounds"] >= 1
+    assert report["mesh_global_swaps"] == 3, report
+    assert report["mesh_step_violations"] == 0

@@ -592,10 +592,70 @@ def test_always_learning_cli_on_cpu(tmp_path, private_obs, capsys,
     assert check_audit_log(log) == [] and jax_check_audit_log(log) == []
 
 
-# The ids the cases had beside the two mesh refusals the mesh's port
-# removed (argv0, argv1).
+def test_always_learning_cli_runs_the_sentinel(tmp_path, private_obs,
+                                               capsys, monkeypatch):
+    """``sentinel=true`` checks the live gauges at every poll against the
+    record named by ``sentinel_bench`` and reports JAX's ``sentinel_*``
+    keys; a record at 10^12 the live training rate trips once, with its
+    audit line beside the checkpoints."""
+    from marl_distributedformation_tpu_torch.train import cli as train_cli
+
+    monkeypatch.setattr(train_cli, "repo_root", lambda: tmp_path)
+    bench = tmp_path / "bench.json"
+    bench.write_text(json.dumps({
+        "platform": "cpu", "device": "cpu",
+        "train_env_steps_per_sec": 1e12,
+        "gate_eval_steps_per_sec": "skipped"}))
+    report = always_learning.main([
+        "name=always_sentinel", *TINY, "total_timesteps=240",
+        "save_freq=1", "pipeline_budget_s=120", "sentinel=true",
+        f"sentinel_bench={bench}", "sentinel_trip_after=1",
+    ])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == json.loads(json.dumps(report))
+    assert set(report) >= {
+        "sentinel_checks", "sentinel_trips", "sentinel_missing",
+        "sentinel_never_observed", "sentinel_bench_record"}
+    assert report["sentinel_checks"] > 0
+    assert report["sentinel_bench_record"] == str(bench)
+    assert report["sentinel_trips"] == 1
+    assert "gate_eval_steps_per_sec" in report["sentinel_missing"]
+    assert "skipped" in report["sentinel_missing"]["gate_eval_steps_per_sec"]
+    audit = (tmp_path / "logs" / "always_sentinel"
+             / "perf_incidents.jsonl").read_text().splitlines()
+    assert [json.loads(x)["gauge"] for x in audit] == [
+        "train_env_steps_per_sec"]
+
+
+def test_always_learning_sentinel_needs_telemetry(tmp_path, monkeypatch):
+    """The refusal of ``sentinel=true telemetry=false`` is JAX's, word
+    for word."""
+    import ast
+    from pathlib import Path
+
+    from marl_distributedformation_tpu_torch.train import cli as train_cli
+
+    source = (Path(__file__).resolve().parents[1] / "scripts"
+              / "always_learning.py").read_text()
+    monkeypatch.setattr(train_cli, "repo_root", lambda: tmp_path)
+    with pytest.raises(SystemExit) as err:
+        always_learning.main(["name=always_blind", *TINY, "sentinel=true",
+                              "telemetry=false"])
+    message = str(err.value)
+    assert message.startswith("sentinel=true needs telemetry=true")
+    # The JAX script's message, from its syntax tree.
+    messages = [
+        node.args[0].value for node in ast.walk(ast.parse(source))
+        if isinstance(node, ast.Call) and getattr(node.func, "id", None)
+        == "SystemExit" and node.args
+        and isinstance(node.args[0], ast.Constant)
+        and str(node.args[0].value).startswith("sentinel=true")]
+    assert messages == [message]
+
+
+# The ids the cases had beside the refusals the mesh's and the sentinel's
+# ports removed (argv0, argv1, argv2).
 @pytest.mark.parametrize("argv, match", [
-    pytest.param(["sentinel=true"], "A14", id="argv2-A14"),
     pytest.param(["guard_transfers=true"], "guard_transfers",
                  id="argv3-guard_transfers"),
     pytest.param(["gate_formatoins=4"], "gate_formations",
