@@ -1,0 +1,4 @@
+"""The policy's matmul FLOPs over the window as a share of the card's
+float32 peak, in training cells (``readings.mfu``)."""
+
+from benchmark.readings import mfu as read  # noqa: F401
